@@ -1,0 +1,53 @@
+"""Architecture configuration registry of the PyTorch port.
+
+The port serves the paper's own GPT-2 family so far. Each module is a copy of
+its counterpart in ``src/repro/configs/`` (``tests/test_torch_model.py``
+checks the copies field by field). An architecture that the reference
+registers but the port does not run yet raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import importlib
+from typing import List
+
+from repro_torch.config import ModelConfig
+
+ARCH_MODULES = ["gpt2_small", "gpt2_medium", "gpt2_xl", "gpt2_7b"]
+
+# Registered by the reference package, not ported yet (ROADMAP.md queue 1).
+NOT_PORTED = (
+    "deepseek-v2-236b", "granite-8b", "minicpm-2b", "qwen3-14b",
+    "qwen3-1.7b", "xlstm-1.3b", "chameleon-34b", "recurrentgemma-9b",
+    "whisper-large-v3", "kimi-k2-1t-a32b",
+)
+
+_CANONICAL = {m.replace("_", "-"): m for m in ARCH_MODULES}
+
+
+def _module_for(name: str):
+    key = name.replace("_", "-").lower()
+    mod = _CANONICAL.get(key)
+    if mod is None:
+        if key in NOT_PORTED or key.replace(".", "-") in {
+                n.replace(".", "-") for n in NOT_PORTED}:
+            raise NotImplementedError(
+                f"architecture {name!r} is not ported to PyTorch yet; "
+                f"ported: {sorted(_CANONICAL)}")
+        raise KeyError(
+            f"unknown architecture {name!r}; available: {sorted(_CANONICAL)}")
+    return importlib.import_module(f"repro_torch.configs.{mod}")
+
+
+def get_config(name: str) -> ModelConfig:
+    """Full-scale config for ``--arch <name>``."""
+    return _module_for(name).model_config()
+
+
+def get_reduced_config(name: str) -> ModelConfig:
+    """Reduced same-family smoke variant (2 layers, d_model 256)."""
+    return _module_for(name).reduced_config()
+
+
+def list_architectures() -> List[str]:
+    return sorted(_CANONICAL)

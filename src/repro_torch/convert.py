@@ -1,0 +1,37 @@
+"""Parameters of the reference package, carried into the port.
+
+``params_from_jax`` takes the reference's parameter pytree as numpy arrays
+(``jax.tree.map(np.asarray, params)`` on the reference's side) and returns
+the port's parameter module, so that both packages compute the same model.
+Key names and layouts carry over unchanged: the pytree path
+``layers/3/mix/wq`` becomes the state-dict key ``layers.3.mix.wq``. This
+module imports no JAX: it only reads numpy arrays.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.config import ModelConfig
+from repro_torch.models import transformer as T
+
+
+def params_from_jax(tree, cfg: ModelConfig, device="cuda") -> torch.nn.Module:
+    """Reference parameter pytree (nested dicts/lists of numpy arrays) ->
+    the port's parameters on ``device``, each leaf in its stored dtype."""
+    T.check_ported(cfg)
+    dev = resolve_device(device)
+    if isinstance(tree.get("layers"), dict):
+        raise ValueError("params_from_jax expects unscanned layer params "
+                         "(a list of layers, not a stacked 'scan' tree)")
+
+    def to_torch(node):
+        if isinstance(node, dict):
+            return {k: to_torch(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [to_torch(v) for v in node]
+        return torch.from_numpy(np.array(node, dtype=np.float32))
+
+    return T.as_module(to_torch(tree), cfg, device=dev)

@@ -1,0 +1,132 @@
+"""Build and load the port's CUDA kernels.
+
+At first use, one ``nvcc`` call compiles every source under ``csrc/`` into
+one shared library with a plain C interface, which is loaded with
+``ctypes`` (no PyTorch headers, so the build takes seconds, not minutes).
+The library lands under ``build/repro_torch/<hash>/`` at the root of the
+checkout, keyed by a hash of the sources and flags, so an edited source is
+rebuilt and an unchanged one is loaded as it is.
+
+Flags: ``sm_90a`` (Hopper), ``-O3``, and no ``--use_fast_math``: the
+quantize kernel needs IEEE division and ``rintf`` to match its plain
+version bit for bit.
+
+Every C entry returns ``cudaGetLastError()`` after its launch; :func:`check`
+raises when it is not 0, because a refused launch (too many threads, too
+much shared memory) never runs and a later synchronize does not report it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
+
+# C signature of every entry point: (name, argtypes). Each returns an int
+# cudaError_t. Pointers and the stream are c_void_p, so a 64-bit address is
+# never cut to a 32-bit int.
+SIGNATURES = {
+    "quantize_blockwise_launch": [
+        _P, _I, _L, _P, _P, _L, _I, _F, _F, _P],
+    "flash_attention_fwd_launch": [
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+    "paged_decode_attention_launch": [
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+        _I, _F, _F, _P],
+}
+
+_lock = threading.Lock()
+_lib = None
+build_seconds = None  # wall time of the build (or load) in this process
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError(
+        "nvcc not found: the CUDA kernels are built at first use on a "
+        "machine with the CUDA toolkit (PATH or /usr/local/cuda/bin)")
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16] / "librepro_torch_kernels.so"
+
+
+def build() -> Path:
+    """Compile the sources into the library (if not built yet); its path."""
+    out = library_path()
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    return out
+
+
+def lib():
+    """The loaded kernel library, built at first call."""
+    global _lib, build_seconds
+    with _lock:
+        if _lib is None:
+            t0 = time.perf_counter()
+            handle = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            handle.repro_cuda_error_string.argtypes = [ctypes.c_int]
+            handle.repro_cuda_error_string.restype = ctypes.c_char_p
+            build_seconds = time.perf_counter() - t0
+            _lib = handle
+    return _lib
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        msg = _lib.repro_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg}) at launch")
+
+
+def stream_ptr(device) -> int:
+    """PyTorch's current stream on ``device``: every kernel launches there."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+# dtype codes of the C interface (csrc/common.cuh: enum DType)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}

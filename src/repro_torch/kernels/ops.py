@@ -1,0 +1,39 @@
+"""Thin wrappers with the reference's signatures (``repro/kernels/ops.py``).
+
+The integration surface between the kernels and the model. Which
+implementation runs follows the tensors' device, inside each kernel's
+wrapper. Only the kernels ported so far are here: ``dequantize_blockwise``,
+``pier_update_leaf`` and ``rmsnorm`` come with their kernels
+(ROADMAP.md queue 2).
+"""
+
+from __future__ import annotations
+
+from repro_torch.kernels.decode_attention import paged_decode_attention as _paged_decode
+from repro_torch.kernels.flash_attention import flash_attention as _flash
+from repro_torch.kernels.quantize import quantize_blockwise as _quantize
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
+    """q (B,S,H,hd), k/v (B,S,Hkv,hd) -> (B,S,H,hd). Every S >= 1 is taken
+    (the reference's ``S >= 16`` is a TPU tiling limit); a layout the
+    kernel does not take raises on any device."""
+    return _flash(q, k, v, causal=causal, window=window, softcap=softcap)
+
+
+def paged_decode_attention(q, k_pool, v_pool, block_tables, context_lens,
+                           k_scales=None, v_scales=None, *,
+                           window: int = 0, softcap: float = 0.0):
+    """Single-query attention through a block table (kernels/decode_attention).
+
+    q (B, H, hd); pools (N, bs, Hkv, hd) [+ (N, bs, Hkv) fp32 scales when
+    int8-quantized]; block_tables (B, T) int32; context_lens (B,) int32.
+    """
+    return _paged_decode(
+        q, k_pool, v_pool, block_tables, context_lens, k_scales, v_scales,
+        window=window, softcap=softcap)
+
+
+def quantize_blockwise(x, *, bits: int = 8, block: int = 256):
+    """Flat (N,) -> (q int8 (nblocks*block,), scales f32 (nblocks,))."""
+    return _quantize(x, bits=bits, block=block)

@@ -1,0 +1,77 @@
+"""Serving launcher of the port: the continuous-batching engine behind a CLI.
+
+``python -m repro_torch.launch.serve --arch gpt2-xl --tokens 32``
+
+The CLI of ``repro/launch/serve.py`` without ``--mesh`` and ``--ckpt-dir``
+(the port has no mesh and no checkpoint handoff yet) and with ``--device``:
+the run is on the card unless ``--device cpu`` is given, where the plain
+PyTorch versions of the kernels run. Weights are random, from ``--seed``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs import get_config, get_reduced_config
+from repro_torch.models import registry as R
+from repro_torch.serve import PagedCacheConfig, generate
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="Pier serving launcher (PyTorch)")
+    ap.add_argument("--arch", default="gpt2-xl")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--tokens", type=int, default=32)
+    ap.add_argument("--sample", action="store_true",
+                    help="temperature sampling instead of greedy decode")
+    ap.add_argument("--temperature", type=float, default=1.0)
+    ap.add_argument("--block-size", type=int, default=16,
+                    help="KV-pool block size")
+    ap.add_argument("--int8-kv", action="store_true",
+                    help="int8-quantized KV blocks")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the hand-written kernels) or cpu (their plain versions)")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    mc = (get_reduced_config(args.arch) if args.reduced
+          else get_config(args.arch))
+
+    # independent streams for the weights and the prompts
+    params = R.init_params(mc, seed=args.seed, device=device)
+    gen = torch.Generator().manual_seed(args.seed + 1)
+    prompts = torch.randint(0, mc.vocab_size, (args.batch, args.prompt_len),
+                            generator=gen, dtype=torch.int32).numpy()
+
+    bs = args.block_size
+    padded = -(-args.prompt_len // bs) * bs
+    need = -(-(padded + args.tokens) // bs)  # blocks per sequence
+    pcfg = PagedCacheConfig(num_blocks=need * args.batch + 1, block_size=bs,
+                            quantized=args.int8_kv)
+
+    t0 = time.perf_counter()
+    out, info = generate(params, mc, prompts, args.tokens,
+                         greedy=not args.sample, temperature=args.temperature,
+                         seed=args.seed, pcfg=pcfg)
+    dt = time.perf_counter() - t0
+
+    eng = info["engine"]
+    print(f"arch={mc.name} path={info['path']} device={device} "
+          f"tokens/s={out.size / max(dt, 1e-9):.1f} ({dt:.2f}s total)")
+    print(f"engine: {eng.stats['decode_steps']} decode steps, "
+          f"{eng.stats['prefills']} prefills, peak pool "
+          f"{eng.stats['peak_blocks']}/{pcfg.num_blocks - 1} blocks")
+    print("generated[0,:16]:", np.asarray(out[0, :16]).tolist())
+    return out, info
+
+
+if __name__ == "__main__":
+    main()

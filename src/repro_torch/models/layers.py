@@ -1,0 +1,148 @@
+"""Shared building blocks: norms, the MLP, embeddings, initializers.
+
+Counterpart of ``repro/models/layers.py``. Functions take ``(params, x,
+cfg)`` as there; the parameters are ``nn.ParameterDict``s with the
+reference's key names and layouts (``transformer.as_module``).
+
+Storage: the reference keeps every leaf in ``cfg.param_dtype`` and casts
+matmul weights and the learned positions to ``cfg.dtype`` at each use. The
+port casts those leaves once, when the parameters are built, which gives
+the same numbers (:func:`stored_dtype`). Norm parameters and the token table
+stay in ``cfg.param_dtype``: norms compute in fp32, and the tied logits
+table is read in fp32 (``lm_logits``), while looked-up embedding rows are
+cast to ``cfg.dtype``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.config import ModelConfig
+
+# leaves the reference casts to cfg.dtype at every use
+_COMPUTE_DTYPE_LEAVES = frozenset(
+    {"wq", "wk", "wv", "wo", "w_up", "w_gate", "w_down", "positions"})
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    dt = getattr(torch, name, None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"unknown dtype {name!r}")
+    return dt
+
+
+def compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    return torch_dtype(cfg.dtype)
+
+
+def stored_dtype(leaf_name: str, cfg: ModelConfig) -> torch.dtype:
+    """dtype a parameter leaf is kept in (see the module docstring)."""
+    if leaf_name in _COMPUTE_DTYPE_LEAVES:
+        return compute_dtype(cfg)
+    return torch_dtype(cfg.param_dtype)
+
+
+# ---------------------------------------------------------------------------
+# init helpers (fp32; the caller casts with stored_dtype)
+# ---------------------------------------------------------------------------
+
+
+def dense_init(gen: torch.Generator, shape, scale: Optional[float] = None):
+    """Truncated normal at +-3 std; default std 0.02 (GPT-2 / Megatron)."""
+    std = 0.02 if scale is None else scale
+    t = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    return torch.nn.init.trunc_normal_(t, std=std, a=-3 * std, b=3 * std,
+                                       generator=gen)
+
+
+def out_proj_init(gen: torch.Generator, shape, num_layers: int):
+    """Residual-branch output proj init, scaled by 1/sqrt(2L) (GPT-2)."""
+    return dense_init(gen, shape, 0.02 / math.sqrt(2 * max(num_layers, 1)))
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+
+def init_norm(gen: torch.Generator, cfg: ModelConfig, dim: Optional[int] = None):
+    dim = dim or cfg.d_model
+    p = {"scale": torch.ones((dim,), device=gen.device)}
+    if cfg.norm == "layernorm":
+        p["bias"] = torch.zeros((dim,), device=gen.device)
+    return p
+
+
+def apply_norm(p, x, cfg: ModelConfig):
+    """RMSNorm or LayerNorm computed in fp32, cast back to x's dtype."""
+    xf = x.float()
+    if cfg.norm == "layernorm":
+        y = F.layer_norm(xf, (xf.shape[-1],), p["scale"].float(),
+                         p["bias"].float(), cfg.norm_eps)
+    else:
+        ms = xf.square().mean(dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + cfg.norm_eps) * p["scale"].float()
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+
+def init_mlp(gen: torch.Generator, cfg: ModelConfig, d_ff: Optional[int] = None):
+    d_ff = d_ff or cfg.d_ff
+    return {
+        "w_up": dense_init(gen, (cfg.d_model, d_ff)),
+        "w_down": out_proj_init(gen, (d_ff, cfg.d_model), cfg.num_layers),
+    }
+
+
+def apply_mlp(p, x, cfg: ModelConfig):
+    """Position-wise GELU MLP. x: (..., d_model).
+
+    ``jax.nn.gelu`` defaults to the tanh approximation, hence
+    ``approximate="tanh"``. SwiGLU is not ported yet
+    (``transformer.check_ported``).
+    """
+    h = F.gelu(x @ p["w_up"], approximate="tanh")
+    return h @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# embeddings / LM head
+# ---------------------------------------------------------------------------
+
+
+def init_embeddings(gen: torch.Generator, cfg: ModelConfig):
+    p = {"tokens": dense_init(gen, (cfg.vocab_size, cfg.d_model))}
+    if cfg.positional == "learned":
+        p["positions"] = dense_init(gen, (cfg.max_position_embeddings, cfg.d_model))
+    if not cfg.tie_embeddings:
+        p["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size))
+    return p
+
+
+def embed_tokens(p, tokens, cfg: ModelConfig, *, position_offset: int = 0):
+    """tokens: (B, S) integer -> (B, S, D) in cfg.dtype."""
+    x = p["tokens"][tokens.long()].to(compute_dtype(cfg))
+    if cfg.positional == "learned":
+        positions = position_offset + torch.arange(tokens.shape[-1], device=tokens.device)
+        x = x + p["positions"][positions][None]
+    return x
+
+
+def lm_logits(p, x, cfg: ModelConfig):
+    """x: (..., D) -> (..., V); fp32 logits from the fp32 table."""
+    if cfg.tie_embeddings:
+        logits = F.linear(x.float(), p["tokens"].float())
+    else:
+        logits = x.float() @ p["lm_head"].float()
+    if cfg.logit_softcap > 0:
+        c = cfg.logit_softcap
+        logits = c * torch.tanh(logits / c)
+    return logits

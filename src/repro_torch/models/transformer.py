@@ -1,0 +1,142 @@
+"""Decoder stack: parameters and the training / prefill forward.
+
+Counterpart of ``repro/models/transformer.py`` for dense decoders whose
+layers are all attention blocks ("attn" / "local_attn", gqa family), with
+unscanned layers. MoE, MLA, SSM / rgLRU blocks and encoder-decoder models
+are not ported yet and raise.
+
+Parameters are an ``nn.ModuleDict`` tree with the reference's key names and
+layouts, so the state-dict key ``layers.3.mix.wq`` is the reference's pytree
+path ``layers/3/mix/wq`` and ``wq`` is ``(D, H, hd)``. They never require
+grad: the port serves and does not train yet.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+import torch.nn as nn
+
+from repro_torch import resolve_device
+from repro_torch.config import ModelConfig
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise for a configuration the port cannot run yet."""
+    if cfg.is_moe or cfg.is_encoder_decoder or cfg.attention_kind != "gqa":
+        raise NotImplementedError(
+            f"{cfg.name}: MoE, MLA and encoder-decoder models are not ported yet")
+    kinds = {cfg.block_kind(i) for i in range(cfg.num_layers)}
+    if kinds - {"attn", "local_attn"}:
+        raise NotImplementedError(
+            f"{cfg.name}: recurrent blocks {sorted(kinds - {'attn', 'local_attn'})} "
+            f"are not ported yet")
+    if cfg.positional not in ("learned", "none") or cfg.use_qk_norm or cfg.activation != "gelu":
+        raise NotImplementedError(
+            f"{cfg.name}: RoPE, qk-norm and SwiGLU are not ported yet "
+            f"(positional={cfg.positional!r}, qk_norm={cfg.use_qk_norm}, "
+            f"activation={cfg.activation!r})")
+
+
+def _layer_window(cfg: ModelConfig, layer_idx: int) -> int:
+    kind = cfg.block_kind(layer_idx)
+    return cfg.local_window if kind == "local_attn" else cfg.sliding_window
+
+
+# ---------------------------------------------------------------------------
+# parameters
+# ---------------------------------------------------------------------------
+
+
+def init_decoder_layer(gen: torch.Generator, cfg: ModelConfig, layer_idx: int):
+    p: Dict[str, Any] = {"norm1": L.init_norm(gen, cfg),
+                         "mix": A.init_attention(gen, cfg)}
+    if cfg.d_ff > 0:
+        p["norm2"] = L.init_norm(gen, cfg)
+        p["mlp"] = L.init_mlp(gen, cfg)
+    return p
+
+
+def as_module(tree, cfg: ModelConfig, device=None) -> nn.Module:
+    """Nested dicts / lists of tensors -> the port's parameter module.
+
+    Each leaf is cast to :func:`layers.stored_dtype` of its key and moved to
+    ``device`` (default: where it lies).
+    """
+    def build(node, name):
+        if isinstance(node, dict):
+            if all(isinstance(v, torch.Tensor) for v in node.values()):
+                return nn.ParameterDict({
+                    k: nn.Parameter(v.to(device=device, dtype=L.stored_dtype(k, cfg)),
+                                    requires_grad=False)
+                    for k, v in node.items()})
+            return nn.ModuleDict({k: build(v, k) for k, v in node.items()})
+        if isinstance(node, (list, tuple)):
+            return nn.ModuleList([build(v, name) for v in node])
+        raise TypeError(f"unexpected parameter node {type(node).__name__} at {name!r}")
+
+    return build(tree, "")
+
+
+def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> nn.Module:
+    """Random parameters from ``seed``, made on ``device`` (default: the card).
+
+    The numbers come from a ``torch.Generator`` on that device, so the same
+    seed gives other weights on the card than on the CPU; to hold two
+    devices to the same weights, make them on one and copy.
+    """
+    check_ported(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tree = {
+        "embed": L.init_embeddings(gen, cfg),
+        "final_norm": L.init_norm(gen, cfg),
+        "layers": [init_decoder_layer(gen, cfg, i) for i in range(cfg.num_layers)],
+    }
+    return as_module(tree, cfg)
+
+
+# ---------------------------------------------------------------------------
+# forward (train / prefill)
+# ---------------------------------------------------------------------------
+
+
+def _decoder_layer_fwd(lp, x, cfg: ModelConfig, layer_idx: int, *,
+                       return_kv: bool = False):
+    """One decoder layer. Returns (x, extra) with extra the (k, v) pair."""
+    h = L.apply_norm(lp["norm1"], x, cfg)
+    mix_out, extra = A.apply_self_attention(
+        lp["mix"], h, cfg, window=_layer_window(cfg, layer_idx),
+        return_kv=return_kv)
+    x = x + mix_out
+    if "mlp" in lp:
+        h = L.apply_norm(lp["norm2"], x, cfg)
+        x = x + L.apply_mlp(lp["mlp"], h, cfg)
+    return x, extra
+
+
+def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
+            collect_kv: bool = False):
+    """Training/prefill forward. batch: {"tokens": (B, S) integer}.
+
+    Returns (logits (B, S, V) fp32, aux) where aux = {"moe_aux", "moe_z"}
+    (zeros: no MoE layers) plus "kv", the per-layer (k, v) streams, when
+    ``collect_kv``.
+    """
+    check_ported(cfg)
+    x = L.embed_tokens(params["embed"], batch["tokens"], cfg)
+    kv_streams = []
+    for i, lp in enumerate(params["layers"]):
+        x, extra = _decoder_layer_fwd(lp, x, cfg, i, return_kv=collect_kv)
+        if collect_kv:
+            kv_streams.append(extra)
+    x = L.apply_norm(params["final_norm"], x, cfg)
+    logits = L.lm_logits(params["embed"], x, cfg)
+    zero = torch.zeros((), device=logits.device)
+    aux = {"moe_aux": zero, "moe_z": zero}
+    if collect_kv:
+        aux["kv"] = kv_streams
+    return logits, aux
