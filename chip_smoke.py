@@ -12,14 +12,22 @@ and no result line:
 1. ``build``: the card's name and power limit (``nvidia-smi``), then one
    ``nvcc`` build of every kernel source in the checkout.
 2. ``kernels``: every kernel against its plain PyTorch version on the card,
-   at the GPT-2 XL shapes of the serving path and at edge shapes
-   (GQA/MQA, window, softcap, fp32, empty slots, ragged sizes). Tolerances:
-   quantize bit for bit; attention 1e-4 in fp32, and 2e-2 absolute in bf16
-   at unit-scale outputs (one bf16 rounding of the output, about 4e-3 there,
-   plus another summation order). Device times (CUDA events, median of 25
-   runs, L2 flushed and the launch queued behind a sleep kernel so host
-   overhead is not counted) beside the plain version's and, for attention,
-   ``F.scaled_dot_product_attention`` as a yardstick the port never calls.
+   at the GPT-2 XL shapes of the serving and training paths (the training
+   attention at B 2, S 1024, 25 heads, hd 64, bf16) and at edge shapes
+   (GQA/MQA, window, softcap, fp32, hd 40 to 256, empty slots, ragged
+   sizes). Tolerances: quantize and pier update bit for bit; attention
+   forward and backward 1e-4 in fp32; the forward's log-sum-exp 1e-4
+   against ``flash_attention_fwd_ref``, and its output bitwise the same
+   with or without it. In bf16 the forward within 2e-2 absolute at
+   unit-scale outputs (one bf16 rounding of the output, about 4e-3 there,
+   plus another summation order), and each of dq, dk and dv on its own:
+   max error within 2% of its own max |value| (about two bf16 roundings)
+   and ||error|| / ||value|| within 1e-2 (one rounding is about 1e-3; D is
+   taken from the bf16 output); the forward's output meets the same 1e-2.
+   Device times (CUDA events, median of 25 runs, L2 flushed and the launch
+   queued behind a sleep kernel so host overhead is not counted) beside the
+   plain version's and, for attention, ``F.scaled_dot_product_attention``
+   (forward, or forward + backward) as a yardstick the port never calls.
 3. ``e2e_vs_cpu``: GPT-2 XL width at 4 layers in fp32, the same seeded
    weights on the card (kernels) and on the CPU (plain versions): a
    teacher-forced paged rollout (prompt 200, 16 decode steps) must agree
@@ -36,11 +44,38 @@ and no result line:
    the host's wall time, for one 512-token prefill and for decode steps
    over 4 slots of the bf16 serve path; the device's idle share is one
    minus their ratio.
-6. a ``{"kernels": [...]}`` line: per kernel its launches on the serve runs,
-   max error, kernel / plain / library times and the bound at the main
-   path's shape (bytes over 3.35 TB/s and operations over the peak rate of
-   the inputs' type, the larger of the two; H100 SXM data sheet).
-7. the last line, ``{"ok": true, "device": {...}}``.
+6. ``train_vs_cpu``: ``SimulatedRun`` at GPT-2 XL width, 4 layers, fp32,
+   G = 2, per-group batch 2 x 128 tokens, the same seeded parameters and
+   batches on the card (kernels) and on the CPU (plain versions), 12 steps
+   of a 40-step schedule with sync interval 2: lazy start, two warmup
+   accumulates, the switch to groups and four outer syncs at mu 0.99 /
+   0.95 / 0.9. Run at sync_delay 0 and 1. Every step's loss must agree
+   within 1e-3 and every final parameter within 1e-3 (fp32 on both sides;
+   only summation orders differ, which AdamW's normalized first steps
+   amplify up to about lr per step); delay 1 must differ from delay 0.
+7. ``train``: full GPT-2 XL (bf16 compute, fp32 parameters and state),
+   G = 2, sync_delay 0, per-group batch 2 x 1024 tokens, 10 steps of the
+   same schedule shape (inner LR 5e-5, warmed up over the lazy start).
+   The counters are set to 0 just before the run and must show flash
+   forward = flash backward = 48 x (G x inner steps + warmup steps) and
+   pier_update = 484 leaves x outer syncs. Step and outer-dispatch times,
+   tokens/s, peak memory, the loss history (finite), and the loss on one
+   fixed validation batch, which must fall from before the run to after.
+8. ``train_breakdown``: device time by kernel group of one inner step of
+   that run, beside its wall time, and the idle share.
+9. a ``{"kernels": [...]}`` line: per kernel its launches on the main-path
+   runs (serve and train), max error, kernel / plain / library times and
+   the bound at the main path's shape (bytes over 3.35 TB/s and operations
+   over the peak rate of the inputs' type, the larger of the two; H100 SXM
+   data sheet).
+10. the last line, ``{"ok": true, "device": {...}}``.
+
+Two studies run instead of the phases above when asked for, each after
+the build, and print their own JSON lines:
+
+    python3 chip_smoke.py --witness-lr   # the train run at Table I's LR,
+                                         # kernels vs plain attention
+    python3 chip_smoke.py --build-times  # parallel build vs one nvcc call
 """
 
 from __future__ import annotations
@@ -49,6 +84,8 @@ import copy
 import dataclasses
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -96,6 +133,22 @@ class Timer:
             events.append((s, e))
         torch.cuda.synchronize()
         return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+class Counter:
+    """One wrapper's launch count, ``module.<attr>``, readable and settable
+    as ``.launches``."""
+
+    def __init__(self, module, attr: str = "launches"):
+        self.module, self.attr = module, attr
+
+    @property
+    def launches(self) -> int:
+        return getattr(self.module, self.attr)
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        setattr(self.module, self.attr, value)
 
 
 def bound_ms(nbytes: float, ops: float, dtype_name: str):
@@ -159,11 +212,26 @@ def check_quantize(torch, timer, results):
         "bound_ms": b, "bound_by": by, "library_ms": None}
 
 
+def rel_rms(a, b) -> float:
+    """||a - b|| / ||b||: the error of a whole tensor, which a fault in one
+    tile or one row moves even where the largest elements hide it from the
+    max error."""
+    d, r = (a.float() - b.float()).norm(), b.float().norm()
+    return float(d / r) if float(r) > 0 else float(d)
+
+
+# bf16 attention: at most about two bf16 roundings of the largest element
+# (one ulp is 2^-7 of it at most), and a whole-tensor error of a few
+# roundings' worth (one rounding has an RMS of 2^-9 / sqrt(3) ~ 1e-3).
+BF16_MAX_REL, BF16_RMS_REL = 2e-2, 1e-2
+LSE_TOL = 1e-4  # fp32 on both sides (the kernel reads bf16 inputs exactly)
+
+
 def check_flash(torch, timer, results):
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as FK
-    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.kernels.ref import flash_attention_fwd_ref, flash_attention_ref
 
     g = torch.Generator(device="cuda").manual_seed(2)
 
@@ -175,6 +243,7 @@ def check_flash(torch, timer, results):
         ("xl_s128_bf16", 1, 128, 25, 25, 64, torch.bfloat16, True, 0, 0.0),
         ("xl_s512_bf16", 1, 512, 25, 25, 64, torch.bfloat16, True, 0, 0.0),
         ("xl_s700_bf16", 1, 700, 25, 25, 64, torch.bfloat16, True, 0, 0.0),
+        ("xl_train_b2_s1024_bf16", 2, 1024, 25, 25, 64, torch.bfloat16, True, 0, 0.0),
         ("xl_s512_f32", 1, 512, 25, 25, 64, torch.float32, True, 0, 0.0),
         ("gqa4_f32", 2, 200, 8, 2, 64, torch.float32, True, 0, 0.0),
         ("mqa_hd128_f32", 1, 100, 8, 1, 128, torch.float32, True, 0, 0.0),
@@ -187,18 +256,30 @@ def check_flash(torch, timer, results):
     ]
     worst = 0.0
     for name, B, S, H, Hkv, hd, dt, causal, window, softcap in cases:
+        opts = dict(causal=causal, window=window, softcap=softcap)
         q, k, v = rand((B, S, H, hd), dt), rand((B, S, Hkv, hd), dt), rand((B, S, Hkv, hd), dt)
-        out = FK.flash_attention(q, k, v, causal=causal, window=window, softcap=softcap)
-        ref = flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
+        out = FK.flash_attention(q, k, v, **opts)
+        # the training forward: the same kernel, writing the log-sum-exp too
+        out_t, lse = FK._launch_fwd(q, k, v, causal, window, softcap, want_lse=True)
+        ref, lse_ref = flash_attention_fwd_ref(q, k, v, **opts)
         torch.cuda.synchronize()
-        err = max_err(out, ref)
+        err, rms = max_err(out, ref), rel_rms(out, ref)
+        lse_err = max_err(lse, lse_ref)
+        same_out = torch.equal(out_t, out)
         tol = 1e-4 if dt == torch.float32 else 2e-2
         emit({"phase": "kernels", "kernel": "flash_attention", "case": name,
               "B": B, "S": S, "H": H, "Hkv": Hkv, "hd": hd,
               "dtype": str(dt).replace("torch.", ""), "causal": causal,
-              "window": window, "softcap": softcap, "max_abs_err": err, "tol": tol})
-        if not (out.dtype == q.dtype and err <= tol):
-            raise AssertionError(f"flash {name}: max err {err} > {tol}")
+              "window": window, "softcap": softcap, "max_abs_err": err, "tol": tol,
+              "rel_rms_err": rms, "lse_max_abs_err": lse_err, "lse_tol": LSE_TOL,
+              "out_with_lse_equal": same_out})
+        ok = out.dtype == q.dtype and err <= tol and lse_err <= LSE_TOL and same_out
+        if dt == torch.bfloat16:
+            ok = ok and rms <= BF16_RMS_REL
+        if not ok:
+            raise AssertionError(f"flash {name}: max err {err} (limit {tol}), rel rms "
+                                 f"{rms}, lse err {lse_err} (limit {LSE_TOL}), output "
+                                 f"with lse equal: {same_out}")
         worst = max(worst, err)
 
     # main path's shape: the longest prompt's prefill attention in one layer
@@ -309,6 +390,145 @@ def check_decode(torch, timer, results):
         "int8_pools_ms": t_k8, "int8_pools_bound_ms": b8}
 
 
+def check_pier_update(torch, timer, results):
+    from repro_torch.kernels import pier_update as PK
+    from repro_torch.kernels.ref import pier_update_ref
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    xl_leaf = 50304 * 1600  # GPT-2 XL's token table, the largest leaf
+    cases = []
+    for form in ("nesterov_torch", "nesterov_classic", "sgd"):
+        for mdt in (torch.float32, torch.bfloat16):
+            for n in (4096 * 5 + 77, xl_leaf):  # ragged, and one XL leaf
+                cases.append((form, mdt, n))
+    for form, mdt, n in cases:
+        a = torch.randn(n, generator=g, device="cuda")
+        m = torch.randn(n, generator=g, device="cuda").to(mdt)
+        d = torch.randn(n, generator=g, device="cuda") * 1e-3
+        mu, lr = 0.95, 1.1
+        pr, mr = pier_update_ref(a, m, d, mu=mu, lr=lr, formulation=form)
+        mr = mr.to(mdt)
+        p, mm = PK.pier_update(a, m, d, mu, lr, form)
+        same = torch.equal(p, pr) and torch.equal(mm, mr)
+        if mdt == torch.float32:  # in place, as the outer sync runs it
+            a2, m2 = a.clone(), m.clone()
+            PK.pier_update(a2, m2, d, mu, lr, form, p_out=a2, m_out=m2)
+            same = same and torch.equal(a2, pr) and torch.equal(m2, mr)
+        torch.cuda.synchronize()
+        err = max(max_err(p, pr), max_err(mm, mr))
+        emit({"phase": "kernels", "kernel": "pier_update", "case": f"{form}_n{n}",
+              "n": n, "momentum_dtype": str(mdt).replace("torch.", ""),
+              "bitwise_equal": same, "max_abs_err": err})
+        if not same:
+            raise AssertionError(f"pier_update {form} {mdt} n={n}: kernel != plain "
+                                 f"version (err {err})")
+
+    # main path's shape: one XL leaf, fp32 state, updated in place
+    a = torch.randn(xl_leaf, generator=g, device="cuda")
+    m = torch.randn(xl_leaf, generator=g, device="cuda")
+    d = torch.randn(xl_leaf, generator=g, device="cuda") * 1e-3
+    t_k = timer.ms(lambda: PK.pier_update(a, m, d, 0.9, 1.1, p_out=a, m_out=m))
+    t_p = timer.ms(lambda: pier_update_ref(a, m, d, mu=0.9, lr=1.1))
+    b, by = bound_ms(20 * xl_leaf, 5 * xl_leaf, "float32")  # read a, m, d; write p, m
+    results["pier_update"] = {
+        "name": "pier_update", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/pier_update.cu",
+        "replaces": "src/repro/kernels/pier_update.py:29",
+        "shape": "fp32 (50304*1600,) in place, nesterov_torch (GPT-2 XL token table)",
+        "max_abs_err": 0.0, "ms": t_k, "kernel_ms": t_k, "plain_ms": t_p,
+        "bound_ms": b, "bound_by": by, "library_ms": None}
+
+
+def check_flash_bwd(torch, timer, results):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as FK
+    from repro_torch.kernels.ref import (flash_attention_bwd_ref,
+                                         flash_attention_ref)
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+
+    def rand(shape, dt):
+        return torch.randn(shape, generator=g, device="cuda").to(dt)
+
+    cases = [
+        # name, B, S, H, Hkv, hd, dtype, causal, window, softcap
+        ("gqa4_f32", 2, 200, 8, 2, 64, torch.float32, True, 0, 0.0),
+        ("mqa_hd128_f32", 1, 100, 8, 1, 128, torch.float32, True, 0, 0.0),
+        ("window64_f32", 1, 300, 4, 4, 64, torch.float32, True, 64, 0.0),
+        ("softcap30_f32", 1, 257, 4, 2, 64, torch.float32, True, 0, 30.0),
+        ("noncausal_f32", 2, 77, 4, 4, 64, torch.float32, False, 0, 0.0),
+        ("hd40_s1_f32", 3, 1, 4, 4, 40, torch.float32, True, 0, 0.0),
+        ("hd40_window_softcap_f32", 1, 45, 4, 2, 40, torch.float32, True, 16, 10.0),
+        ("xl_s300_f32", 1, 300, 25, 25, 64, torch.float32, True, 0, 0.0),
+        ("hd256_gqa_f32", 1, 77, 4, 2, 256, torch.float32, True, 0, 0.0),
+        ("xl_s256_bf16", 2, 256, 25, 25, 64, torch.bfloat16, True, 0, 0.0),
+        ("xl_s700_bf16", 1, 700, 25, 25, 64, torch.bfloat16, True, 0, 0.0),
+        ("xl_train_b2_s1024_bf16", 2, 1024, 25, 25, 64, torch.bfloat16, True, 0, 0.0),
+    ]
+    worst = 0.0
+    for name, B, S, H, Hkv, hd, dt, causal, window, softcap in cases:
+        opts = dict(causal=causal, window=window, softcap=softcap)
+        ins = [rand((B, S, h, hd), dt).requires_grad_() for h in (H, Hkv, Hkv)]
+        do = rand((B, S, H, hd), dt)
+        FK.flash_attention(*ins, **opts).backward(do)
+        got = [t.grad for t in ins]
+        refs = [t.detach().clone().requires_grad_() for t in ins]
+        flash_attention_ref(*refs, **opts).backward(do)
+        want = [t.grad for t in refs]
+        torch.cuda.synchronize()
+        # each of dq, dk, dv judged on its own scale
+        errs = {n: max_err(a, b) for n, a, b in zip(("dq", "dk", "dv"), got, want)}
+        scales = {n: float(b.float().abs().max()) for n, b in zip(("dq", "dk", "dv"), want)}
+        rel = {n: errs[n] / scales[n] if scales[n] > 0 else errs[n] for n in errs}
+        rms = {n: rel_rms(a, b) for n, a, b in zip(("dq", "dk", "dv"), got, want)}
+        if dt == torch.float32:
+            tol = {"max_abs_err": 1e-4}
+            ok = max(errs.values()) <= 1e-4
+        else:
+            tol = {"max_err_over_max_abs": BF16_MAX_REL, "rel_rms_err": BF16_RMS_REL}
+            ok = max(rel.values()) <= BF16_MAX_REL and max(rms.values()) <= BF16_RMS_REL
+        emit({"phase": "kernels", "kernel": "flash_attention_bwd", "case": name,
+              "B": B, "S": S, "H": H, "Hkv": Hkv, "hd": hd,
+              "dtype": str(dt).replace("torch.", ""), "causal": causal,
+              "window": window, "softcap": softcap, "max_abs_err": errs,
+              "max_abs_grad": scales, "max_err_over_max_abs": rel, "rel_rms_err": rms,
+              "tol": tol})
+        if not (all(a.dtype == dt for a in got) and ok):
+            raise AssertionError(f"flash backward {name}: errors {errs}, relative {rel}, "
+                                 f"rel rms {rms}; limits {tol}")
+        if dt == torch.float32:
+            worst = max(worst, max(errs.values()))
+
+    # main path's shape: one training layer's attention, B 2, S 1024
+    B, S, H, hd = 2, 1024, 25, 64
+    q, k, v, do = (rand((B, S, H, hd), torch.bfloat16) for _ in range(4))
+    out, lse = FK._launch_fwd(q, k, v, True, 0, 0.0, want_lse=True)
+    t_k = timer.ms(lambda: FK._launch_bwd(q, k, v, out, lse, do, True, 0, 0.0))
+    t_p = timer.ms(lambda: flash_attention_bwd_ref(q, k, v, out, lse, do, causal=True))
+    qt, kt, vt, dot = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    qt, kt, vt = (t.requires_grad_() for t in (qt, kt, vt))
+
+    def sdpa_fwd_bwd():
+        F.scaled_dot_product_attention(qt, kt, vt, is_causal=True).backward(dot)
+
+    t_l = timer.ms(sdpa_fwd_bwd)
+    pairs = B * H * (S * (S + 1) // 2)
+    ops = 5 * 2 * hd * pairs  # recompute S; dP, dV, dK, dQ over unmasked pairs
+    nbytes = 8 * B * S * H * hd * 2 + 4 * B * H * S  # q k v o dO + lse in; dq dk dv out
+    b, by = bound_ms(nbytes, ops, "bfloat16")
+    results["flash_attention_bwd"] = {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:42",
+        "replaces_note": "no Pallas backward exists; the gradient of the TPU "
+                         "kernel's function, which the reference leaves to XLA",
+        "shape": "bf16 B=2 S=1024 H=Hkv=25 hd=64 causal (one training layer)",
+        "max_abs_err": worst, "ms": t_k, "kernel_ms": t_k, "plain_ms": t_p,
+        "bound_ms": b, "bound_by": by, "library_ms": t_l,
+        "library": "F.scaled_dot_product_attention forward + backward"}
+
+
 # ---------------------------------------------------------------------------
 # phase 3: card vs CPU, teacher-forced paged rollout
 # ---------------------------------------------------------------------------
@@ -374,8 +594,9 @@ def e2e_vs_cpu(torch, counters):
     if err8 > lim8:
         raise AssertionError(f"int8 KV logits differ by {err8} > {lim8}")
     L = cfg.num_layers
-    if launches != {"flash_attention": L, "paged_decode_attention": D * L,
-                    "quantize_blockwise": 0}:
+    if launches != {"flash_attention": L, "flash_attention_bwd": 0,
+                    "paged_decode_attention": D * L, "quantize_blockwise": 0,
+                    "pier_update": 0}:
         raise AssertionError(f"card rollout launches {launches}")
 
 
@@ -456,9 +677,9 @@ def serve(torch, params, cfg, counters, *, quantized: bool):
     emit(line)
     L = NUM_LAYERS_XL
     want_q = 2 * L * (st["prefills"] + st["decode_steps"]) if quantized else 0
-    expect = {"flash_attention": st["prefills"] * L,
+    expect = {"flash_attention": st["prefills"] * L, "flash_attention_bwd": 0,
               "paged_decode_attention": st["decode_steps"] * L,
-              "quantize_blockwise": want_q}
+              "quantize_blockwise": want_q, "pier_update": 0}
     if launches != expect:
         raise AssertionError(f"launch counters {launches} != expected {expect}")
     if st["prefills"] != len(lens) or st["decode_steps"] == 0:
@@ -552,7 +773,308 @@ def breakdown(torch, params, cfg):
           "decode_slots": len(lens), "decode_contexts": lens, **out})
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# phases 6-8: training through SimulatedRun
+# ---------------------------------------------------------------------------
+
+TRAIN_TC = dict(total_steps=40, sync_interval=2, warmup_frac=0.1)
+# Table I's inner LR (4e-4) with the 40-step schedule leaves under one step
+# of LR warmup, and the loss of the 48-layer model rose after the second
+# outer sync (``--witness-lr`` shows it without the attention kernels too);
+# a run this short takes a gentler LR, warmed up over the 4 lazy-start steps.
+TRAIN_LR = dict(inner_lr=5e-5, inner_min_lr=5e-6, lr_warmup_frac=0.1)
+
+
+def _train_expect(run, steps: int, num_layers: int, num_leaves: int):
+    """Launches the main path must show after ``steps`` steps from 0."""
+    sched = run.sched
+    warm = sum(1 for s in range(steps) if sched.phase(s) == "warmup")
+    syncs = sum(1 for s in range(steps) for ev in sched.events(s)
+                if ev.kind == "dispatch" and ev.op == "outer")
+    fwd = num_layers * (warm + run.G * (steps - warm))
+    return {"flash_attention": fwd, "flash_attention_bwd": fwd,
+            "pier_update": num_leaves * syncs, "paged_decode_attention": 0,
+            "quantize_blockwise": 0}, warm, syncs
+
+
+def train_vs_cpu(torch, counters):
+    """The same 12 steps on the card and on the CPU, at sync_delay 0 and 1."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core.simulate import SimulatedRun
+    from repro_torch.models import registry as R
+    from repro_torch.models.transformer import param_leaves
+
+    cfg = get_config("gpt2-xl").replace(num_layers=4, dtype="float32")
+    steps, loss_tol, param_tol = 12, 1e-3, 1e-3
+    base = R.init_params(cfg, seed=0, device="cpu", training=True)
+    finals = {}
+    for delay in (0, 1):
+        tc = TrainConfig(**TRAIN_TC, global_batch_size=4, seq_len=128, sync_delay=delay)
+        t0 = time.perf_counter()
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            runs[dev] = SimulatedRun(cfg, tc, num_groups=2, device=dev,
+                                     params=copy.deepcopy(base))
+        for c in counters.values():
+            c.launches = 0
+        h_card = runs["cuda"].run(steps)
+        runs["cuda"].flush()
+        torch.cuda.synchronize()
+        launches = {k: c.launches for k, c in counters.items()}
+        t_card = time.perf_counter() - t0
+        h_cpu = runs["cpu"].run(steps)
+        runs["cpu"].flush()
+        loss_err = max(abs(a - b) for a, b in zip(h_card["train_loss"], h_cpu["train_loss"]))
+        pc = [t.detach().cpu() for _, t in param_leaves(runs["cuda"].eval_params())]
+        pp = [t.detach() for _, t in param_leaves(runs["cpu"].eval_params())]
+        p_err = max(float((a - b).abs().max()) for a, b in zip(pc, pp))
+        finals[delay] = pc
+        expect, warm, syncs = _train_expect(runs["cuda"], steps, cfg.num_layers, len(pc))
+        emit({"phase": "train_vs_cpu", "config": "gpt2-xl width, 4 layers, float32",
+              "groups": 2, "sync_delay": delay, "steps": steps, "warmup_steps": warm,
+              "outer_syncs": syncs, "per_group_batch": 2, "seq_len": 128,
+              "loss_card": h_card["train_loss"], "loss_cpu": h_cpu["train_loss"],
+              "max_abs_loss_err": loss_err, "loss_tol": loss_tol,
+              "max_abs_param_err": p_err, "param_tol": param_tol,
+              "card_launches": launches, "card_seconds": t_card,
+              "seconds": time.perf_counter() - t0})
+        if not all(math.isfinite(x) for x in h_card["train_loss"]):
+            raise AssertionError(f"train_vs_cpu delay {delay}: non-finite card loss")
+        if loss_err > loss_tol or p_err > param_tol:
+            raise AssertionError(f"train_vs_cpu delay {delay}: loss err {loss_err} "
+                                 f"(limit {loss_tol}), param err {p_err} (limit {param_tol})")
+        if launches != expect:
+            raise AssertionError(f"train_vs_cpu launches {launches} != {expect}")
+        del runs
+    diff = max(float((a - b).abs().max()) for a, b in zip(finals[0], finals[1]))
+    emit({"phase": "train_vs_cpu", "delay1_vs_delay0_max_abs_param_diff": diff})
+    if not diff > 1e-6:
+        raise AssertionError(f"delayed sync equals eager (max diff {diff}): the "
+                             f"in-flight snapshot is not held")
+
+
+def _timed(torch, times, kind, fn):
+    def call(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        times.setdefault(kind, []).append(1e3 * (time.perf_counter() - t0))
+        return out
+    return call
+
+
+def train(torch, counters):
+    """Full GPT-2 XL through SimulatedRun on the card; returns the run."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core.simulate import SimulatedRun
+    from repro_torch.models.transformer import param_leaves
+
+    cfg = get_config("gpt2-xl")  # bf16 compute, fp32 parameters
+    G, per, seq, steps = 2, 2, 1024, 10
+    tc = TrainConfig(**TRAIN_TC, **TRAIN_LR, global_batch_size=G * per, seq_len=seq,
+                     sync_delay=0)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    run = SimulatedRun(cfg, tc, num_groups=G, seed=0, device="cuda")
+    n_leaves = len(param_leaves(run.state.params))
+    n_params = sum(t.numel() for _, t in param_leaves(run.state.params))
+    t_init = time.perf_counter() - t0
+    val_before = run.val_loss(run.state.params)  # fixed batch: 16 x 1024 tokens
+    times = {}
+    for name, kind in (("_warmup_step", "warmup_step"), ("_inner_step", "inner_step"),
+                       ("_accumulate", "accumulate"), ("_dispatch", "outer_dispatch"),
+                       ("_apply", "outer_apply")):
+        setattr(run, name, _timed(torch, times, kind, getattr(run, name)))
+    for c in counters.values():
+        c.launches = 0
+    t1 = time.perf_counter()
+    hist = run.run(steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = {k: c.launches for k, c in counters.items()}
+    val_after = run.val_loss(run.state.params)
+    expect, warm, syncs = _train_expect(run, steps, cfg.num_layers, n_leaves)
+    tokens_warm, tokens_inner = G * per * seq, G * per * seq
+    # steady inner step: skip the first (allocator and cuBLAS warm-up)
+    inner = times.get("inner_step", [])
+    inner_ss = inner[1:] if len(inner) > 1 else inner
+    line = {
+        "phase": "train", "config": "gpt2-xl 48 layers, bf16 compute, fp32 params",
+        "params": n_params, "leaves": n_leaves, "groups": G, "per_group_batch": per,
+        "seq_len": seq, "sync_delay": 0, "steps": steps, "warmup_steps": warm,
+        "outer_syncs": syncs, "init_s": t_init, "wall_s": wall,
+        "warmup_step_ms": times.get("warmup_step", []), "inner_step_ms": inner,
+        "inner_step_ms_p50": statistics.median(inner_ss) if inner_ss else None,
+        "accumulate_ms": times.get("accumulate", []),
+        "outer_dispatch_ms": times.get("outer_dispatch", []),
+        "outer_apply_ms": times.get("outer_apply", []),
+        "tokens_per_s_inner": (tokens_inner / (statistics.median(inner_ss) / 1e3)
+                               if inner_ss else None),
+        "tokens_per_s_run": (warm * tokens_warm + (steps - warm) * tokens_inner) / wall,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "inner_lr": tc.inner_lr, "loss": hist["train_loss"],
+        "val_loss_before": val_before, "val_loss_after": val_after,
+        "launches": launches, "expected_launches": expect,
+    }
+    emit(line)
+    loss = hist["train_loss"] + [val_before, val_after]
+    if not all(math.isfinite(x) for x in loss):
+        raise AssertionError(f"train: non-finite loss {loss}")
+    if not val_after < val_before:  # on one fixed batch, so no batch noise
+        raise AssertionError(f"train: validation loss did not fall: {val_before} -> "
+                             f"{val_after}")
+    if launches != expect:
+        raise AssertionError(f"train launch counters {launches} != expected {expect}")
+    return run, line
+
+
+def _train_kernel_group(name: str) -> str:
+    for key, group in (("flash_bwd", "flash_attention_bwd"), ("flash_fwd", "flash_attention"),
+                       ("pier_update", "pier_update")):
+        if key in name:
+            return group
+    if any(k in name.lower() for k in ("gemm", "gemv", "nvjet", "xmma", "cutlass")):
+        return "matmul"
+    return "adamw_and_other"
+
+
+def train_breakdown(torch, run):
+    """Device time by kernel group for one inner step of the train run
+    (both groups' forward, backward, clip and AdamW), beside the wall time
+    of another, unprofiled inner step; the idle share is one minus their
+    ratio."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step = run.state.step
+    batches = [run._to_device(b) for b in run._group_batches(step)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run._inner_step(batches, step)
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run._inner_step(batches, step)
+        torch.cuda.synchronize()
+    groups, n_kernels = {}, 0
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            grp = _train_kernel_group(evt.name)
+            groups[grp] = groups.get(grp, 0.0) + evt.time_range.elapsed_us() / 1e3
+            n_kernels += 1
+    busy = sum(groups.values())
+    emit({"phase": "train_breakdown",
+          "config": "gpt2-xl 48 layers, G=2, per-group batch 2 x 1024, one inner step",
+          "wall_ms": wall, "device_ms": busy if n_kernels else "not measured",
+          "device_idle_share": 1 - busy / wall if n_kernels else "not measured",
+          "kernels_per_step": n_kernels, "device_ms_by_group": groups})
+
+
+# ---------------------------------------------------------------------------
+# studies, run only when asked for by an argument
+# ---------------------------------------------------------------------------
+
+
+def witness_lr(torch, counters):
+    """``--witness-lr``: the ``train`` phase's run, at ``TrainConfig``'s
+    default inner LR (Table I's 4e-4, 2% LR warmup) and at the phase's own
+    (``TRAIN_LR``), each twice from the same seed and batches: once through
+    the attention kernels, once through autograd of the plain attention
+    (``flash_attention_ref`` on the card, about 17 GB more of saved
+    activations). A loss that rises without the kernels too is the LR's; two
+    runs that part only where the loss rises differ by rounding that an
+    unstable step amplifies, not by a kernel fault."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    cfg = get_config("gpt2-xl")
+    G, per, seq, steps = 2, 2, 1024, 10
+    kernel_attention = kops.flash_attention
+    try:
+        for lr in ({}, TRAIN_LR):
+            tc = TrainConfig(**TRAIN_TC, **lr, global_batch_size=G * per, seq_len=seq,
+                             sync_delay=0)
+            _witness_pair(torch, counters, cfg, tc, G, per, seq, steps,
+                          {"kernels": kernel_attention, "plain": flash_attention_ref})
+    finally:
+        kops.flash_attention = kernel_attention
+
+
+def _witness_pair(torch, counters, cfg, tc, G, per, seq, steps, attentions):
+    from repro_torch.core.simulate import SimulatedRun
+    from repro_torch.kernels import ops as kops
+
+    losses = {}
+    for attention, fn in attentions.items():
+        kops.flash_attention = fn
+        torch.cuda.reset_peak_memory_stats()
+        run = SimulatedRun(cfg, tc, num_groups=G, seed=0, device="cuda")
+        val_before = run.val_loss(run.state.params)
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        hist = run.run(steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+        val_after = run.val_loss(run.state.params)
+        losses[attention] = hist["train_loss"]
+        emit({"phase": "witness_lr", "attention": attention,
+              "config": "gpt2-xl 48 layers, bf16 compute, fp32 params",
+              "groups": G, "per_group_batch": per, "seq_len": seq, "steps": steps,
+              "inner_lr": tc.inner_lr, "lr_warmup_frac": tc.lr_warmup_frac,
+              "loss": hist["train_loss"], "val_loss_before": val_before,
+              "val_loss_after": val_after, "wall_s": wall,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "launches": launches})
+        flash = launches["flash_attention"] + launches["flash_attention_bwd"]
+        if (flash == 0) != (attention == "plain"):
+            raise AssertionError(f"witness_lr {attention}: flash launches {launches}")
+        del run
+        torch.cuda.empty_cache()
+    diff = [abs(a - b) for a, b in zip(losses["kernels"], losses["plain"])]
+    emit({"phase": "witness_lr", "inner_lr": tc.inner_lr,
+          "abs_loss_diff_kernels_vs_plain": diff, "max_abs_loss_diff": max(diff)})
+
+
+def build_times(torch):
+    """``--build-times``: the kernels' build as ``_build.py`` runs it (one
+    ``nvcc`` per source, all started together, then a link) beside one
+    ``nvcc`` call over every source, each into an empty directory."""
+    from repro_torch.kernels import _build
+
+    base = ROOT / "build" / "build_times"
+    shutil.rmtree(base, ignore_errors=True)
+    srcs = [str(x) for x in sorted(_build.CSRC.glob("*.cu"))]
+    one_call = base / "one_call" / "librepro_torch_kernels.so"
+    one_call.parent.mkdir(parents=True)
+    t0 = time.perf_counter()
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(one_call),
+                    *srcs], check=True, capture_output=True)
+    t_one = time.perf_counter() - t0
+    _build.BUILD_ROOT = base / "parallel"
+    t0 = time.perf_counter()
+    _build.build()
+    t_par = time.perf_counter() - t0
+    emit({"phase": "build_times", "sources": len(srcs), "one_nvcc_call_s": t_one,
+          "parallel_build_s": t_par, "cpu_count": os.cpu_count()})
+    shutil.rmtree(base, ignore_errors=True)
+
+
+def main(argv) -> int:
+    studies = {"--witness-lr", "--build-times"}
+    if len(argv) > 1 or not set(argv) <= studies:
+        print(f"usage: chip_smoke.py [{' | '.join(sorted(studies))}]", file=sys.stderr)
+        return 2
+    # The full-width training phase holds ~64 GB of state on an 80 GB card;
+    # expandable segments keep the caching allocator from fragmenting it.
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
 
     if not torch.cuda.is_available():
@@ -564,6 +1086,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import decode_attention as DK
     from repro_torch.kernels import flash_attention as FK
+    from repro_torch.kernels import pier_update as PK
     from repro_torch.kernels import quantize as QK
 
     t_start = time.perf_counter()
@@ -577,14 +1100,24 @@ def main() -> int:
           "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
-    counters = {"flash_attention": FK, "paged_decode_attention": DK,
-                "quantize_blockwise": QK}
+    counters = {"flash_attention": Counter(FK), "flash_attention_bwd": Counter(FK, "bwd_launches"),
+                "paged_decode_attention": Counter(DK), "quantize_blockwise": Counter(QK),
+                "pier_update": Counter(PK)}
+    if argv == ["--build-times"]:
+        build_times(torch)
+        return 0
+    if argv == ["--witness-lr"]:
+        witness_lr(torch, counters)
+        return 0
     timer = Timer(torch)
     results = {}
     check_quantize(torch, timer, results)
     check_flash(torch, timer, results)
     check_decode(torch, timer, results)
+    check_pier_update(torch, timer, results)
+    check_flash_bwd(torch, timer, results)
     del timer
+    torch.cuda.empty_cache()
 
     e2e_vs_cpu(torch, counters)
 
@@ -595,11 +1128,23 @@ def main() -> int:
     params = R.init_params(cfg, seed=0, device="cuda")
     runs = [serve(torch, params, cfg, counters, quantized=q) for q in (False, True)]
     breakdown(torch, params, cfg)
+    del params
+    torch.cuda.empty_cache()
+
+    train_vs_cpu(torch, counters)
+    torch.cuda.empty_cache()
+    run, train_line = train(torch, counters)
+    train_breakdown(torch, run)
+    del run
+    runs.append(train_line)
 
     kernels = []
-    for name in ("flash_attention", "paged_decode_attention", "quantize_blockwise"):
+    for name in ("flash_attention", "paged_decode_attention", "quantize_blockwise",
+                 "pier_update", "flash_attention_bwd"):
         entry = dict(results[name])
         entry["launches"] = sum(r["launches"][name] for r in runs)
+        entry["launches_by_path"] = {"serve": sum(r["launches"][name] for r in runs[:2]),
+                                     "train": train_line["launches"][name]}
         kernels.append(entry)
     emit({"phase": "done", "card": smi, "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
@@ -610,4 +1155,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -1,9 +1,10 @@
-"""Model configuration of the PyTorch port.
+"""Configuration of the PyTorch port.
 
-A copy of the reference package's ``ModelConfig`` (``src/repro/config.py``),
-field for field and default for default, so that a configuration means the
-same model in both packages (``tests/test_torch_model.py`` checks that the
-two stay equal). The port imports nothing of the reference package, so it
+Copies of the reference package's ``ModelConfig``, ``OuterCommConfig`` and
+``TrainConfig`` (``src/repro/config.py``), field for field and default for
+default, so that a configuration means the same model and run in both
+packages (``tests/test_torch_model.py`` and ``tests/test_torch_outer.py``
+check that they stay equal). The port imports nothing of the reference package, so it
 keeps this copy. The parameter-count hooks of the original are left out:
 they trace the JAX initializer.
 """
@@ -12,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Any, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -115,3 +116,154 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Outer collective and training configuration
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class OuterCommConfig:
+    """The outer collective's knobs (copy of ``repro/config.py:OuterCommConfig``).
+
+    The all-defaults config is the flat fp32 mean of Δθ, the one strategy
+    the port runs so far (``repro_torch.sync.resolve_strategy``); the other
+    values are accepted and validated here as in the reference, and the
+    resolver raises ``NotImplementedError`` for them.
+    """
+
+    compression: str = "none"  # none | quantize | int8-wire | rs-ag
+    bits: int = 8  # 4 | 8
+    block: int = 256  # absmax-scale block (elements per scale)
+    hierarchical: bool = False
+    chunks: int = 1
+    sharded: bool = False
+
+    def __post_init__(self):
+        if self.compression not in ("none", "quantize", "int8-wire", "rs-ag"):
+            raise ValueError(
+                f"outer compression must be 'none', 'quantize', 'int8-wire' "
+                f"or 'rs-ag', got {self.compression!r}")
+        if self.compression != "none" and self.bits not in (4, 8):
+            raise ValueError(f"outer comm bits must be 4 or 8, got {self.bits}")
+        if self.block < 1:
+            raise ValueError(f"outer comm block must be >= 1, got {self.block}")
+        if self.chunks < 1:
+            raise ValueError(f"comm chunks must be >= 1, got {self.chunks}")
+        if self.compression == "rs-ag" and self.hierarchical:
+            raise ValueError("rs-ag composes a flat exchange: it cannot be "
+                             "hierarchical")
+        if self.compression == "rs-ag" and self.chunks > 1:
+            raise ValueError("rs-ag needs chunks=1")
+
+    def replace(self, **kw) -> "OuterCommConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Optimization hyperparameters (copy of ``repro/config.py:TrainConfig``).
+
+    Field for field and default for default the reference's, so that a
+    configuration means the same run in both packages
+    (``tests/test_torch_outer.py`` checks it). Left out: the deprecated
+    flat outer-comm spellings (``outer_compression`` ...) and
+    ``sync_delay="auto"``, which the reference's launcher resolves from a
+    step-time model the port does not have; ``sync_delay`` is an int here.
+    """
+
+    optimizer: str = "pier"  # pier | diloco | adamw
+
+    # ---- inner optimizer (AdamW, Table I) ----
+    inner_lr: float = 4e-4
+    inner_min_lr: float = 4e-5
+    adam_beta1: float = 0.9
+    adam_beta2: float = 0.999
+    adam_eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_grad: float = 1.0
+    lr_schedule: str = "cosine"  # cosine | wsd | constant
+    lr_warmup_frac: float = 0.02
+    wsd_decay_frac: float = 0.1
+
+    # ---- run shape ----
+    total_steps: int = 100_000
+    global_batch_size: int = 512
+    seq_len: int = 1024
+    seed: int = 0
+
+    # ---- Pier / DiLoCo outer optimizer ----
+    sync_interval: int = 50  # r / H in the paper
+    # the averaged Δθ dispatched at sync step t is applied at t + sync_delay
+    # (0 = eager); must be < sync_interval
+    sync_delay: int = 0
+    outer_comm: Optional[OuterCommConfig] = None  # None -> all defaults
+    membership: Optional[Any] = None  # elastic membership: not ported
+    warmup_frac: float = 0.10  # p: lazy-start proportion
+    outer_optimizer: str = "nesterov_torch"  # nesterov_torch | nesterov_classic | sgd
+    outer_momentum: float = 0.9  # terminal mu
+    # momentum decay schedule (Alg. 2): (frac_lo, frac_hi, mu)
+    momentum_decay: Tuple[Tuple[float, float, float], ...] = (
+        (0.10, 0.15, 0.99),
+        (0.15, 0.20, 0.95),
+        (0.20, 1.01, 0.90),
+    )
+    # outer LR schedule (§V): warmup 0->1 over [p, outer_lr_warmup_end], then
+    # mid value until outer_lr_mid_end, then final value
+    outer_lr_warmup_end: float = 0.20
+    outer_lr_mid: float = 1.1
+    outer_lr_mid_end: float = 0.80
+    outer_lr_final: float = 0.9
+    fixed_outer_lr: float = 0.7  # DiLoCo baseline's constant
+    momentum_warmup: bool = True  # Alg. 1 (off for vanilla DiLoCo)
+    lazy_start: bool = True  # AdamW phase before switching (DiLoCo: off)
+
+    # ---- memory ----
+    offload_outer_state: bool = False
+    opt_state_dtype: str = "float32"  # float32 (paper) | bfloat16
+
+    # ---- loss ----
+    z_loss_coef: float = 0.0
+
+    def __post_init__(self):
+        object.__setattr__(self, "outer_comm", self.outer_comm or OuterCommConfig())
+        if not isinstance(self.sync_delay, int) or isinstance(self.sync_delay, bool):
+            raise ValueError(
+                f"sync_delay must be an int (the port has no 'auto'), "
+                f"got {self.sync_delay!r}")
+        if self.sync_delay < 0:
+            raise ValueError(f"sync_delay must be >= 0, got {self.sync_delay}")
+        if self.sync_delay >= self.sync_interval:
+            raise ValueError(
+                f"sync_delay ({self.sync_delay}) must be < sync_interval "
+                f"({self.sync_interval}): the in-flight Δθ must be applied "
+                "before the next dispatch")
+
+    def replace(self, **kw) -> "TrainConfig":
+        return dataclasses.replace(self, **kw)
+
+    @property
+    def warmup_steps(self) -> int:
+        return int(self.total_steps * self.warmup_frac)
+
+    def mu_at(self, step: int) -> float:
+        """Momentum-decay schedule (Algorithm 2, lines 12-18)."""
+        frac = step / max(self.total_steps, 1)
+        for lo, hi, mu in self.momentum_decay:
+            if lo <= frac < hi:
+                return mu
+        return self.outer_momentum
+
+    def outer_lr_at(self, step: int) -> float:
+        """Outer LR schedule from §V (Implementation)."""
+        frac = step / max(self.total_steps, 1)
+        p = self.warmup_frac
+        if frac < p:
+            return 0.0  # outer optimizer not applied during lazy start
+        if frac < self.outer_lr_warmup_end:
+            span = self.outer_lr_warmup_end - p
+            return (frac - p) / max(span, 1e-9)
+        if frac < self.outer_lr_mid_end:
+            return self.outer_lr_mid
+        return self.outer_lr_final

@@ -18,9 +18,11 @@ from repro_torch.config import ModelConfig
 from repro_torch.models import transformer as T
 
 
-def params_from_jax(tree, cfg: ModelConfig, device="cuda") -> torch.nn.Module:
+def params_from_jax(tree, cfg: ModelConfig, device="cuda", *,
+                    training: bool = False) -> torch.nn.Module:
     """Reference parameter pytree (nested dicts/lists of numpy arrays) ->
-    the port's parameters on ``device``, each leaf in its stored dtype."""
+    the port's parameters on ``device``, each leaf in its stored dtype
+    (serving storage, or training storage with ``training``)."""
     T.check_ported(cfg)
     dev = resolve_device(device)
     if isinstance(tree.get("layers"), dict):
@@ -34,4 +36,4 @@ def params_from_jax(tree, cfg: ModelConfig, device="cuda") -> torch.nn.Module:
             return [to_torch(v) for v in node]
         return torch.from_numpy(np.array(node, dtype=np.float32))
 
-    return T.as_module(to_torch(tree), cfg, device=dev)
+    return T.as_module(to_torch(tree), cfg, device=dev, training=training)

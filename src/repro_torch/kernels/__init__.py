@@ -1,10 +1,12 @@
 """Hand-written CUDA kernels of the port and their plain PyTorch versions.
 
 - ``quantize``: blockwise int8 quantization (``csrc/quantize.cu``).
-- ``flash_attention``: attention forward of the prefill
-  (``csrc/flash_attention.cu``).
+- ``flash_attention``: attention forward (prefill, training) and backward
+  (training), ``csrc/flash_attention.cu``.
 - ``decode_attention``: paged single-query attention of every decode step
   (``csrc/decode_attention.cu``).
+- ``pier_update``: the fused outer Nesterov/SGD update of every outer sync
+  (``csrc/pier_update.cu``).
 
 Each wrapper launches its kernel for CUDA tensors and takes the plain
 version in ``ref.py`` for CPU tensors; ``_build`` compiles the sources with

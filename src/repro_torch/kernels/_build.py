@@ -1,15 +1,18 @@
 """Build and load the port's CUDA kernels.
 
-At first use, one ``nvcc`` call compiles every source under ``csrc/`` into
-one shared library with a plain C interface, which is loaded with
-``ctypes`` (no PyTorch headers, so the build takes seconds, not minutes).
+At first use, one ``nvcc`` per source under ``csrc/``, all started
+together, compiles the sources into objects that one more ``nvcc`` links
+into a shared library with a plain C interface, loaded with ``ctypes`` (no
+PyTorch headers, so the build takes seconds, not minutes; the longest
+source sets the pace).
 The library lands under ``build/repro_torch/<hash>/`` at the root of the
 checkout, keyed by a hash of the sources and flags, so an edited source is
 rebuilt and an unchanged one is loaded as it is.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, and no ``--use_fast_math``: the
-quantize kernel needs IEEE division and ``rintf`` to match its plain
-version bit for bit.
+quantize kernel needs IEEE division and ``rintf``, and the pier-update
+kernel unfused products and sums, to match their plain versions bit for
+bit.
 
 Every C entry returns ``cudaGetLastError()`` after its launch; :func:`check`
 raises when it is not 0, because a refused launch (too many threads, too
@@ -25,14 +28,15 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,7 +50,12 @@ SIGNATURES = {
     "quantize_blockwise_launch": [
         _P, _I, _L, _P, _P, _L, _I, _F, _F, _P],
     "flash_attention_fwd_launch": [
-        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+    "flash_attention_bwd_launch": [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+        _I, _F, _F, _P],
+    "pier_update_launch": [
+        _P, _I, _P, _I, _P, _I, _P, _P, _L, _F, _F, _I, _P],
     "paged_decode_attention_launch": [
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
         _I, _F, _F, _P],
@@ -81,20 +90,32 @@ def library_path() -> Path:
     return BUILD_ROOT / h.hexdigest()[:16] / "librepro_torch_kernels.so"
 
 
+def _run(cmd) -> None:
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+
+
 def build() -> Path:
     """Compile the sources into the library (if not built yet); its path."""
     out = library_path()
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
+    srcs = sorted(CSRC.glob("*.cu"))
+    objs = [out.with_name(f".{s.stem}.{tag}.o") for s in srcs]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)] for s, o in zip(srcs, objs)]
+    with ThreadPoolExecutor(max_workers=len(cmds)) as pool:
+        # every compile runs to its end before the first failure is raised
+        for fut in [pool.submit(_run, c) for c in cmds]:
+            fut.result()
+    tmp = out.with_name(f".{out.name}.{tag}")
+    _run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)])
+    for o in objs:
+        o.unlink()
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     return out
 

@@ -1,14 +1,20 @@
 // FlashAttention-2 style forward, written by hand for Hopper.
 //
 // Replaces: src/repro/kernels/flash_attention.py:_attn_kernel (launched by
-// _flash_attention_pallas), the TPU kernel of the prefill's attention.
+// _flash_attention_pallas), the TPU kernel of the prefill's attention. The
+// reference has no Pallas backward (its training attention is XLA's); the
+// backward kernels (flash_attention_bwd.cu) give the port's training path a
+// gradient through the same kernel (kernels/flash_attention.py:
+// FlashAttentionFn).
 //
 // Computes, for q (B,S,H,hd) and k/v (B,S,Hkv,hd) in one float dtype,
 //   o = softmax(mask(softcap(q k^T * 1/sqrt(hd)))) v      -> (B,S,H,hd)
 // with an fp32 online softmax (m, l, acc), the query head h reading kv head
 // h / (H / Hkv), and the masks of the reference kernel: keys past S,
-// causal (k <= q), window (q - k < window). Forward only: the reference has
-// no backward either.
+// causal (k <= q), window (q - k < window). With a non-null `lse` the
+// forward also writes each row's log-sum-exp, m + log(max(l, 1e-30)), in
+// fp32 (B, H, S), in the same scaled, softcapped score domain; the backward
+// recomputes P from it.
 //
 // Bound: operations at long S (4 S^2 hd H / 2 for causal), bytes at short
 // S. This first version runs its products on the CUDA cores in fp32, not
@@ -24,23 +30,17 @@
 // most work are launched first. Any S >= 1 is taken: rows and keys past S
 // are masked here, not padded by the caller.
 
-#include "common.cuh"
+#include "flash_attention.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;               // query rows per thread block
-constexpr int kBK = 32;               // keys per tile: one per lane
-constexpr int kWarps = 8;
-constexpr int kRows = kBQ / kWarps;   // query rows per warp
-constexpr int kKtLd = kBK + 1;        // padded row of the transposed K tile
-constexpr int kThreads = kWarps * 32;
 constexpr int kBatch = 8;             // loads a thread issues before it waits
 
 template <typename T, int NC>  // NC = ceil(hd / 32): output dims per lane
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, int S, int H, int Hkv, int hd, int causal, int window,
-    float softcap, float scale) {
+    T* __restrict__ o, float* __restrict__ lse, int S, int H, int Hkv, int hd,
+    int causal, int window, float softcap, float scale) {
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;                 // [kBQ][hd]
   float* Kt = Qs + kBQ * hd;        // [hd][kKtLd]
@@ -191,13 +191,15 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
       const int d = lane + 32 * c;
       if (d < hd) store_f(ob, static_cast<long long>(qi) * q_ld + d, acc[r][c] / denom);
     }
+    if (lse != nullptr && lane == 0)
+      lse[static_cast<long long>(bh) * S + qi] = m[r] + logf(denom);
   }
 }
 
 template <typename T, int NC>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-           int H, int Hkv, int hd, int causal, int window, float softcap,
-           float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int S, int H, int Hkv, int hd, int causal, int window,
+           float softcap, float scale, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (static_cast<size_t>(kBQ) * hd + static_cast<size_t>(hd) * kKtLd +
                        static_cast<size_t>(kBK) * hd + kWarps * kRows * kBK);
@@ -208,18 +210,19 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
   const dim3 grid(static_cast<unsigned>(B * H), static_cast<unsigned>((S + kBQ - 1) / kBQ));
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), S, H, Hkv, hd, causal, window, softcap, scale);
+      static_cast<T*>(o), lse, S, H, Hkv, hd, causal, window, softcap, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch_nc(const void* q, const void* k, const void* v, void* o, int B,
-              int S, int H, int Hkv, int hd, int causal, int window,
+int launch_nc(const void* q, const void* k, const void* v, void* o, float* lse,
+              int B, int S, int H, int Hkv, int hd, int causal, int window,
               float softcap, float scale, cudaStream_t stream) {
   switch ((hd + 31) / 32) {
 #define REPRO_FA_CASE(NC) \
   case NC:                \
-    return launch<T, NC>(q, k, v, o, B, S, H, Hkv, hd, causal, window, softcap, scale, stream);
+    return launch<T, NC>(q, k, v, o, lse, B, S, H, Hkv, hd, causal, window, softcap, scale, \
+                         stream);
     REPRO_FA_CASE(1)
     REPRO_FA_CASE(2)
     REPRO_FA_CASE(3)
@@ -237,16 +240,19 @@ int launch_nc(const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace
 
 extern "C" int flash_attention_fwd_launch(const void* q, const void* k,
-                                          const void* v, void* o, int dtype,
-                                          int B, int S, int H, int Hkv, int hd,
-                                          int causal, int window, float softcap,
+                                          const void* v, void* o, void* lse,
+                                          int dtype, int B, int S, int H,
+                                          int Hkv, int hd, int causal,
+                                          int window, float softcap,
                                           float scale, void* stream) {
   if (B == 0 || S == 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (dtype == DT_F32)
-    return launch_nc<float>(q, k, v, o, B, S, H, Hkv, hd, causal, window, softcap, scale, s);
+    return launch_nc<float>(q, k, v, o, l, B, S, H, Hkv, hd, causal, window, softcap, scale,
+                            s);
   if (dtype == DT_BF16)
-    return launch_nc<__nv_bfloat16>(q, k, v, o, B, S, H, Hkv, hd, causal, window, softcap,
-                                    scale, s);
+    return launch_nc<__nv_bfloat16>(q, k, v, o, l, B, S, H, Hkv, hd, causal, window,
+                                    softcap, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,9 +1,13 @@
-"""Flash attention forward: the CUDA kernel's wrapper.
+"""Flash attention forward and backward: the CUDA kernels' wrapper.
 
 Counterpart of ``repro/kernels/flash_attention.py:flash_attention``; the
-kernel is ``csrc/flash_attention.cu``. A CUDA tensor launches the kernel (or
-raises), a CPU tensor takes the plain version
-``kernels/ref.py:flash_attention_ref``. Forward only, as in the reference.
+kernels are ``csrc/flash_attention.cu``. A CPU tensor takes the plain
+version ``kernels/ref.py:flash_attention_ref``, whose gradient is
+autograd's. A CUDA tensor launches the forward kernel (or raises); when
+autograd needs a gradient it goes through :class:`FlashAttentionFn`, whose
+forward also writes the log-sum-exp and whose backward launches the
+hand-written backward kernels. The reference has no Pallas backward (its
+training attention is XLA's), so the backward has no TPU kernel to mirror.
 """
 
 from __future__ import annotations
@@ -15,9 +19,12 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_attention_ref
 
-# Launches of the CUDA kernel in this process (the wrapper adds one per
-# launch and nowhere else; a caller may reset it to 0).
+# Launches in this process: ``launches`` counts the forward kernel,
+# ``bwd_launches`` the backward (one per backward pass, which runs the
+# D = rowsum(dO * O), dK/dV and dQ kernels). Each wrapper adds one where it
+# launches and nowhere else; a caller may reset them to 0.
 launches = 0
+bwd_launches = 0
 
 
 def check_shapes(q, k, v) -> None:
@@ -35,34 +42,90 @@ def check_shapes(q, k, v) -> None:
         raise ValueError(f"flash_attention: head_dim {hd} must be a multiple of 8 and <= 256")
 
 
+def _check_cuda(*ts) -> None:
+    q = ts[0]
+    if any(t.device != q.device for t in ts):
+        raise ValueError("flash_attention: q, k and v must be on one device")
+    if q.dtype not in (torch.float32, torch.bfloat16) or any(t.dtype != q.dtype for t in ts):
+        raise TypeError(f"flash_attention kernel takes float32 or bfloat16 tensors of one "
+                        f"dtype, got {[t.dtype for t in ts]}")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("flash_attention kernel needs contiguous tensors")
+    B, S, H, hd = q.shape
+    if B * H >= 2 ** 31 or (S + 63) // 64 > 65535:
+        raise ValueError(f"flash_attention: grid too large for B*H={B * H}, S={S}")
+
+
+def _launch_fwd(q, k, v, causal, window, softcap, want_lse):
+    """Forward kernel -> (out in q.dtype, lse fp32 (B,H,S) or None)."""
+    global launches
+    _check_cuda(q, k, v)
+    B, S, H, hd = q.shape
+    out = torch.empty_like(q)
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+           if want_lse else None)
+    err = _build.lib().flash_attention_fwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if lse is not None else None,
+        _build.DTYPE_CODES[q.dtype], B, S, H, k.shape[2], hd, int(bool(causal)),
+        int(window), float(softcap), 1.0 / math.sqrt(hd),
+        _build.stream_ptr(q.device))
+    _build.check(err, "flash_attention")
+    launches += 1
+    return out, lse
+
+
+def _launch_bwd(q, k, v, out, lse, dout, causal, window, softcap):
+    """Backward kernels -> (dq, dk, dv) in the inputs' dtype."""
+    global bwd_launches
+    _check_cuda(q, k, v, out, dout)
+    B, S, H, hd = q.shape
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (B, H, S) or not lse.is_contiguous():
+        raise ValueError("flash_attention backward needs the forward's fp32 (B,H,S) lse")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    D = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    err = _build.lib().flash_attention_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), D.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        _build.DTYPE_CODES[q.dtype], B, S, H, k.shape[2], hd, int(bool(causal)),
+        int(window), float(softcap), 1.0 / math.sqrt(hd),
+        _build.stream_ptr(q.device))
+    _build.check(err, "flash_attention backward")
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Attention whose forward and backward are the hand-written kernels.
+
+    The forward keeps q, k, v, the output and the fp32 log-sum-exp; the
+    backward recomputes P from them (no S x S tensor is stored).
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap):
+        out, lse = _launch_fwd(q, k, v, causal, window, softcap, want_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = (causal, window, softcap)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _launch_bwd(q, k, v, out, lse, dout.contiguous(), *ctx.opts)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     softcap: float = 0.0) -> torch.Tensor:
     """q (B,S,H,hd), k/v (B,S,Hkv,hd) -> (B,S,H,hd) in q.dtype."""
-    global launches
     check_shapes(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    softcap=softcap)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    if not (k.device == q.device and v.device == q.device):
-        raise ValueError("flash_attention: q, k and v must be on one device")
-    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention kernel takes float32 or bfloat16 q/k/v of one "
-                        f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention kernel needs contiguous q/k/v")
-    B, S, H, hd = q.shape
-    if B * H >= 2 ** 31 or (S + 63) // 64 > 65535:
-        raise ValueError(f"flash_attention: grid too large for B*H={B * H}, S={S}")
-    out = torch.empty_like(q)
-    lib = _build.lib()
-    err = lib.flash_attention_fwd_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _build.DTYPE_CODES[q.dtype], B, S, H, k.shape[2], hd, int(bool(causal)),
-        int(window), float(softcap), 1.0 / math.sqrt(hd),
-        _build.stream_ptr(q.device))
-    _build.check(err, "flash_attention")
-    launches += 1
-    return out
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, bool(causal), int(window), float(softcap))
+    return _launch_fwd(q, k, v, causal, window, softcap, want_lse=False)[0]

@@ -2,15 +2,15 @@
 
 The integration surface between the kernels and the model. Which
 implementation runs follows the tensors' device, inside each kernel's
-wrapper. Only the kernels ported so far are here: ``dequantize_blockwise``,
-``pier_update_leaf`` and ``rmsnorm`` come with their kernels
-(ROADMAP.md queue 2).
+wrapper. Only the kernels ported so far are here: ``dequantize_blockwise``
+and ``rmsnorm`` come with their kernels (ROADMAP.md queue 2).
 """
 
 from __future__ import annotations
 
 from repro_torch.kernels.decode_attention import paged_decode_attention as _paged_decode
 from repro_torch.kernels.flash_attention import flash_attention as _flash
+from repro_torch.kernels.pier_update import pier_update as _pier_update
 from repro_torch.kernels.quantize import quantize_blockwise as _quantize
 
 
@@ -37,3 +37,13 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, context_lens,
 def quantize_blockwise(x, *, bits: int = 8, block: int = 256):
     """Flat (N,) -> (q int8 (nblocks*block,), scales f32 (nblocks,))."""
     return _quantize(x, bits=bits, block=block)
+
+
+def pier_update_leaf(a, m, d, tc, *, mu, lr, p_out=None, m_out=None):
+    """Fused Pier outer update on one leaf (any shape) -> (p_f32, m_new).
+
+    The single-leaf building block of ``core.outer.outer_reduce_leaves``.
+    ``p_out`` / ``m_out`` are written in place when given (they may be
+    ``a`` and ``m``: see ``kernels/pier_update.py``).
+    """
+    return _pier_update(a, m, d, mu, lr, tc.outer_optimizer, p_out=p_out, m_out=m_out)

@@ -17,6 +17,23 @@ import torch
 NEG_INF = -1e30
 
 
+def _scores_and_mask(q, k, *, causal: bool, window: int, softcap: float):
+    """fp32 scores (B, Hkv, G, S, S) after scale and softcap, and the mask."""
+    B, S, H, hd = q.shape
+    Hkv = k.shape[2]
+    qg = q.float().reshape(B, S, Hkv, H // Hkv, hd)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) / math.sqrt(hd)
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    pos = torch.arange(S, device=q.device)
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= pos[None, :] <= pos[:, None]
+    if window > 0:
+        mask &= pos[:, None] - pos[None, :] < window
+    return s, mask
+
+
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
                         softcap: float = 0.0):
     """GQA attention. q: (B,S,H,hd); k/v: (B,S,Hkv,hd) -> (B,S,H,hd) in q.dtype.
@@ -24,22 +41,78 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     Counterpart of ``repro/kernels/ref.py:flash_attention_ref``.
     """
     B, S, H, hd = q.shape
-    Hkv = k.shape[2]
-    G = H // Hkv
-    qg = q.float().reshape(B, S, Hkv, G, hd)
-    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) / math.sqrt(hd)
-    if softcap > 0:
-        scores = softcap * torch.tanh(scores / softcap)
-    pos = torch.arange(S, device=q.device)
-    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= pos[None, :] <= pos[:, None]
-    if window > 0:
-        mask &= pos[:, None] - pos[None, :] < window
-    scores = torch.where(mask, scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
+    s, mask = _scores_and_mask(q, k, causal=causal, window=window, softcap=softcap)
+    probs = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
     return out.reshape(B, S, H, hd).to(q.dtype)
+
+
+def flash_attention_fwd_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                            softcap: float = 0.0):
+    """The forward kernel's outputs when the backward needs them:
+    (out (B,S,H,hd) in q.dtype, lse fp32 (B,H,S)), where lse is each row's
+    log-sum-exp of the scaled, softcapped, masked scores."""
+    B, S, H, hd = q.shape
+    s, mask = _scores_and_mask(q, k, causal=causal, window=window, softcap=softcap)
+    lse = torch.logsumexp(torch.where(mask, s, NEG_INF), dim=-1)  # (B, Hkv, G, S)
+    out = flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
+    return out, lse.reshape(B, H, S)
+
+
+def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool = True,
+                            window: int = 0, softcap: float = 0.0):
+    """Plain version of the backward kernels (FlashAttention-2 algebra).
+
+    Recomputes P = exp(s - lse) from the forward's log-sum-exp, then
+    D = rowsum(dO * O), dS = P (dO V^T - D) / sqrt(hd) (times
+    1 - tanh^2(s / c) with a softcap c), dQ = dS K, dK = dS^T Q summed over
+    each kv head's query group, dV = P^T dO. fp32 math; (dq, dk, dv) in the
+    inputs' dtypes.
+    """
+    B, S, H, hd = q.shape
+    Hkv = k.shape[2]
+    G = H // Hkv
+    s, mask = _scores_and_mask(q, k, causal=causal, window=window, softcap=softcap)
+    L = lse.float().reshape(B, Hkv, G, S)[..., None]
+    p = torch.where(mask, torch.exp(s - L), 0.0)
+    do = dout.float().reshape(B, S, Hkv, G, hd)
+    dvals = (dout.float() * out.float()).sum(-1)  # (B, S, H)
+    D = dvals.permute(0, 2, 1).reshape(B, Hkv, G, S)[..., None]
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", do, v.float())
+    ds = p * (dp - D) * (1.0 / math.sqrt(hd))
+    if softcap > 0:
+        ds = ds * (1.0 - torch.square(s / softcap))
+    qg = q.float().reshape(B, S, Hkv, G, hd)
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float()).reshape(B, S, H, hd)
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qg)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, do)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def pier_update_ref(anchor, momentum, delta, *, mu, lr,
+                    formulation: str = "nesterov_torch"):
+    """Fused outer-update oracle (Alg. 2 lines 20-21), fp32 math.
+
+    Counterpart of ``repro/kernels/ref.py:pier_update_ref``: returns
+    (new_params fp32, new_momentum fp32). ``mu`` and ``lr`` are rounded to
+    fp32 once, as the reference's traced fp32 scalars are; every product and
+    sum is a separate fp32 operation.
+    """
+    mu = torch.tensor(np.float32(mu), device=momentum.device)
+    lr = torch.tensor(np.float32(lr), device=momentum.device)
+    mf = momentum.float()
+    af = anchor.float()
+    df = delta.float()
+    m_new = mu * mf + df
+    if formulation == "nesterov_torch":
+        step = mu * m_new + df
+    elif formulation == "nesterov_classic":
+        step = mu * mf + df
+    elif formulation == "sgd":
+        step = m_new
+    else:
+        raise ValueError(formulation)
+    return af + lr * step, m_new
 
 
 def _inv_qmax(bits: int) -> torch.Tensor:

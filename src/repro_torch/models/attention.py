@@ -40,10 +40,10 @@ def gqa_attention(q, k, v, *, causal: bool = True, window: int = 0,
 def _project_qkv(p, x, xkv, cfg: ModelConfig):
     """x (B,S,D) -> q (B,S,H,hd); xkv -> k, v (B,S,Hkv,hd). wq is (D,H,hd)."""
     B, S, D = x.shape
-    q = (x @ p["wq"].reshape(D, -1)).view(B, S, p["wq"].shape[1], -1)
+    q = (x @ L.cast(p["wq"], cfg).reshape(D, -1)).view(B, S, p["wq"].shape[1], -1)
     Bk, Sk, _ = xkv.shape
-    k = (xkv @ p["wk"].reshape(D, -1)).view(Bk, Sk, p["wk"].shape[1], -1)
-    v = (xkv @ p["wv"].reshape(D, -1)).view(Bk, Sk, p["wv"].shape[1], -1)
+    k = (xkv @ L.cast(p["wk"], cfg).reshape(D, -1)).view(Bk, Sk, p["wk"].shape[1], -1)
+    v = (xkv @ L.cast(p["wv"], cfg).reshape(D, -1)).view(Bk, Sk, p["wv"].shape[1], -1)
     return q, k, v
 
 
@@ -57,5 +57,5 @@ def apply_self_attention(p, x, cfg: ModelConfig, *, window: int = 0,
     q, k, v = _project_qkv(p, x, x, cfg)
     out = gqa_attention(q, k, v, causal=causal, window=window, softcap=0.0)
     B, S, H, hd = out.shape
-    out = out.reshape(B, S, H * hd) @ p["wo"].reshape(H * hd, -1)
+    out = out.reshape(B, S, H * hd) @ L.cast(p["wo"], cfg).reshape(H * hd, -1)
     return out, ((k, v) if return_kv else None)

@@ -5,10 +5,13 @@ cfg)`` as there; the parameters are ``nn.ParameterDict``s with the
 reference's key names and layouts (``transformer.as_module``).
 
 Storage: the reference keeps every leaf in ``cfg.param_dtype`` and casts
-matmul weights and the learned positions to ``cfg.dtype`` at each use. The
-port casts those leaves once, when the parameters are built, which gives
-the same numbers (:func:`stored_dtype`). Norm parameters and the token table
-stay in ``cfg.param_dtype``: norms compute in fp32, and the tied logits
+matmul weights and the learned positions to ``cfg.dtype`` at each use
+(:func:`cast`). For training the port does the same, so the gradient
+reaches the fp32 leaf and the optimizers update fp32 masters. For serving
+it casts those leaves once, when the parameters are built, which gives the
+same forward numbers in half the memory (:func:`stored_dtype`); the cast at
+use is then a no-op. Norm parameters and the token table stay in
+``cfg.param_dtype`` either way: norms compute in fp32, and the tied logits
 table is read in fp32 (``lm_logits``), while looked-up embedding rows are
 cast to ``cfg.dtype``.
 """
@@ -39,11 +42,17 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch_dtype(cfg.dtype)
 
 
-def stored_dtype(leaf_name: str, cfg: ModelConfig) -> torch.dtype:
+def stored_dtype(leaf_name: str, cfg: ModelConfig, *, training: bool = False) -> torch.dtype:
     """dtype a parameter leaf is kept in (see the module docstring)."""
-    if leaf_name in _COMPUTE_DTYPE_LEAVES:
+    if leaf_name in _COMPUTE_DTYPE_LEAVES and not training:
         return compute_dtype(cfg)
     return torch_dtype(cfg.param_dtype)
+
+
+def cast(leaf: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """A matmul weight or the positions table at its use, in ``cfg.dtype``
+    (``repro/models/layers.py:cast``); no copy when it is stored so."""
+    return leaf.to(compute_dtype(cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -109,8 +118,8 @@ def apply_mlp(p, x, cfg: ModelConfig):
     ``approximate="tanh"``. SwiGLU is not ported yet
     (``transformer.check_ported``).
     """
-    h = F.gelu(x @ p["w_up"], approximate="tanh")
-    return h @ p["w_down"]
+    h = F.gelu(x @ cast(p["w_up"], cfg), approximate="tanh")
+    return h @ cast(p["w_down"], cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -132,7 +141,7 @@ def embed_tokens(p, tokens, cfg: ModelConfig, *, position_offset: int = 0):
     x = p["tokens"][tokens.long()].to(compute_dtype(cfg))
     if cfg.positional == "learned":
         positions = position_offset + torch.arange(tokens.shape[-1], device=tokens.device)
-        x = x + p["positions"][positions][None]
+        x = x + cast(p["positions"][positions], cfg)[None]
     return x
 
 

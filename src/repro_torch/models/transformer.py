@@ -7,8 +7,10 @@ are not ported yet and raise.
 
 Parameters are an ``nn.ModuleDict`` tree with the reference's key names and
 layouts, so the state-dict key ``layers.3.mix.wq`` is the reference's pytree
-path ``layers/3/mix/wq`` and ``wq`` is ``(D, H, hd)``. They never require
-grad: the port serves and does not train yet.
+path ``layers/3/mix/wq`` and ``wq`` is ``(D, H, hd)``. Serving parameters
+(the default) keep matmul weights in ``cfg.dtype`` and never require grad;
+training parameters (``training=True``) keep every leaf in
+``cfg.param_dtype`` and require grad (``layers.stored_dtype``).
 """
 
 from __future__ import annotations
@@ -60,18 +62,19 @@ def init_decoder_layer(gen: torch.Generator, cfg: ModelConfig, layer_idx: int):
     return p
 
 
-def as_module(tree, cfg: ModelConfig, device=None) -> nn.Module:
+def as_module(tree, cfg: ModelConfig, device=None, *, training: bool = False) -> nn.Module:
     """Nested dicts / lists of tensors -> the port's parameter module.
 
     Each leaf is cast to :func:`layers.stored_dtype` of its key and moved to
-    ``device`` (default: where it lies).
+    ``device`` (default: where it lies); it requires grad when ``training``.
     """
     def build(node, name):
         if isinstance(node, dict):
             if all(isinstance(v, torch.Tensor) for v in node.values()):
                 return nn.ParameterDict({
-                    k: nn.Parameter(v.to(device=device, dtype=L.stored_dtype(k, cfg)),
-                                    requires_grad=False)
+                    k: nn.Parameter(v.to(device=device,
+                                         dtype=L.stored_dtype(k, cfg, training=training)),
+                                    requires_grad=training)
                     for k, v in node.items()})
             return nn.ModuleDict({k: build(v, k) for k, v in node.items()})
         if isinstance(node, (list, tuple)):
@@ -81,8 +84,10 @@ def as_module(tree, cfg: ModelConfig, device=None) -> nn.Module:
     return build(tree, "")
 
 
-def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> nn.Module:
-    """Random parameters from ``seed``, made on ``device`` (default: the card).
+def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
+                training: bool = False) -> nn.Module:
+    """Random parameters from ``seed``, made on ``device`` (default: the card),
+    in serving storage or, with ``training``, in training storage.
 
     The numbers come from a ``torch.Generator`` on that device, so the same
     seed gives other weights on the card than on the CPU; to hold two
@@ -96,7 +101,33 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> nn.Module:
         "final_norm": L.init_norm(gen, cfg),
         "layers": [init_decoder_layer(gen, cfg, i) for i in range(cfg.num_layers)],
     }
-    return as_module(tree, cfg)
+    return as_module(tree, cfg, training=training)
+
+
+def param_leaves(params: nn.Module):
+    """``[(name, tensor)]`` in the reference's pytree leaf order.
+
+    ``jax.tree_util`` flattens dicts by sorted key and lists by index; the
+    optimizers and the outer sync walk the leaves in that order, so sums
+    over leaves (the global gradient norm) add up as the reference's do.
+    """
+    out = []
+
+    def walk(node, prefix):
+        if isinstance(node, nn.ParameterDict):
+            for k in sorted(node.keys()):
+                out.append((prefix + k, node[k]))
+        elif isinstance(node, nn.ModuleDict):
+            for k in sorted(node.keys()):
+                walk(node[k], prefix + k + ".")
+        elif isinstance(node, nn.ModuleList):
+            for i, child in enumerate(node):
+                walk(child, f"{prefix}{i}.")
+        else:
+            raise TypeError(f"unexpected parameter node {type(node).__name__}")
+
+    walk(params, "")
+    return out
 
 
 # ---------------------------------------------------------------------------

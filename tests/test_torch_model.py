@@ -200,7 +200,10 @@ def test_port_imports_no_jax_and_no_reference(path):
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.convert, repro_torch.launch.serve, "
-            "repro_torch.serve, repro_torch.kernels.ops, repro_torch.parallel.steps; "
+            "repro_torch.serve, repro_torch.kernels.ops, repro_torch.parallel.steps, "
+            "repro_torch.core.simulate, repro_torch.core.outer, repro_torch.core.pier, "
+            "repro_torch.optim, repro_torch.sync, repro_torch.data.synthetic, "
+            "repro_torch.kernels.pier_update; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
