@@ -15,7 +15,10 @@ and no result line:
    at the GPT-2 XL shapes of the serving and training paths (the training
    attention at B 2, S 1024, 25 heads, hd 64, bf16) and at edge shapes
    (GQA/MQA, window, softcap, fp32, hd 40 to 256, empty slots, ragged
-   sizes). Tolerances: quantize and pier update bit for bit; attention
+   sizes), and the dequantize kernel on the quantize kernel's outputs (block
+   256, 64, 32, int4, a ragged length, a block of 33 and an unaligned view,
+   one GPT-2 XL token-table leaf) with a ragged payload that must raise.
+   Tolerances: quantize, dequantize and pier update bit for bit; attention
    forward and backward 1e-4 in fp32; the forward's log-sum-exp 1e-4
    against ``flash_attention_fwd_ref``, and its output bitwise the same
    with or without it. In bf16 the forward within 2e-2 absolute at
@@ -53,6 +56,13 @@ and no result line:
    within 1e-3 and every final parameter within 1e-3 (fp32 on both sides;
    only summation orders differ, which AdamW's normalized first steps
    amplify up to about lr per step); delay 1 must differ from delay 0.
+6b. ``train_compressed_vs_cpu``: the same comparison with the compressed
+   and hierarchical outer syncs, at GPT-2 XL width, 2 layers, fp32, seq 64,
+   per-group batch 1, 8 steps (two outer syncs): quantize int8/256 at
+   delay 0 and 1, quantize int4/64, int8-wire, rs-ag at G = 2,
+   hierarchical[int8-wire] at G = 4 in 2 pods, chunked(2)[quantize]. Loss
+   and final parameters within 1e-3; the quantize and dequantize launches
+   exactly what the strategy's code path makes per leaf and sync.
 7. ``train``: full GPT-2 XL (bf16 compute, fp32 parameters and state),
    G = 2, sync_delay 0, per-group batch 2 x 1024 tokens, 10 steps of the
    same schedule shape (inner LR 5e-5, warmed up over the lazy start).
@@ -63,8 +73,14 @@ and no result line:
    fixed validation batch, which must fall from before the run to after.
 8. ``train_breakdown``: device time by kernel group of one inner step of
    that run, beside its wall time, and the idle share.
+8b. ``train_compressed``: the ``train`` run again after it is freed, with
+   the quantized outer sync (int8, block 256, error feedback; the residual
+   adds 2 x 6.25 GB): the same checks, and quantize = dequantize = 2 x 484
+   leaves x outer syncs. After each of the two runs, a
+   ``*_dispatch_breakdown`` line: device time by kernel group of one more
+   outer dispatch beside its wall time, and the idle share.
 9. a ``{"kernels": [...]}`` line: per kernel its launches on the main-path
-   runs (serve and train), max error, kernel / plain / library times and
+   runs (serve, train and train_compressed), max error, kernel / plain / library times and
    the bound at the main path's shape (bytes over 3.35 TB/s and operations
    over the peak rate of the inputs' type, the larger of the two; H100 SXM
    data sheet).
@@ -80,8 +96,10 @@ the build, and print their own JSON lines:
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -103,6 +121,38 @@ SLEEP_CYCLES = 4_000_000             # ~2 ms: covers the host's enqueue time
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+@contextlib.contextmanager
+def large_allocations_on_the_heap():
+    """Around the ``*_vs_cpu`` phases: their CPU halves allocate and free
+    temporaries of up to 322 MB (one GPT-2 XL token-table leaf) on nearly
+    every operation. glibc serves each from a fresh ``mmap`` and unmaps it
+    on free, so every one pays its page faults again, and that is most of
+    the CPU halves' time. Raising the mmap and trim thresholds keeps freed
+    memory in the heap for reuse; on exit the defaults (128 KiB) come back
+    and the heap is trimmed, so the phases after run as before. Host memory
+    only; nothing on the card changes. Yields whether glibc took the
+    settings."""
+    import ctypes
+    import ctypes.util
+
+    name = ctypes.util.find_library("c")
+    libc = ctypes.CDLL(name) if name else None
+    m_trim_threshold, m_mmap_threshold = -1, -3
+
+    def thresholds(value: int) -> bool:
+        return (bool(libc.mallopt(m_mmap_threshold, ctypes.c_int(value)))
+                and bool(libc.mallopt(m_trim_threshold, ctypes.c_int(value))))
+
+    raised = libc is not None and hasattr(libc, "mallopt") and thresholds(2 ** 31 - 1)
+    try:
+        yield raised
+    finally:
+        if raised:
+            gc.collect()
+            thresholds(128 * 1024)
+            libc.malloc_trim(0)
 
 
 class Timer:
@@ -157,6 +207,14 @@ def bound_ms(nbytes: float, ops: float, dtype_name: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def free_cuda(torch) -> None:
+    """Give the card's memory back before the next phase. A train run holds
+    reference cycles (its timing wrappers refer to its own methods), which
+    only the collector frees."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
@@ -203,11 +261,87 @@ def check_quantize(torch, timer, results):
     n = x.numel()
     nbytes = n * 2 + n * 1 + (n // 64) * 4
     b, by = bound_ms(nbytes, 4 * n, "float32")
+    # the training path's shape: one outer sync's largest leaf, fp32, block 256
+    xt = torch.randn(XL_LEAF, generator=g, device="cuda") * 1e-3
+    t_kt = timer.ms(lambda: QK.quantize_blockwise(xt, bits=8, block=256))
+    b_t, _ = bound_ms(XL_LEAF * 4 + XL_LEAF + (XL_LEAF // 256) * 4, 4 * XL_LEAF, "float32")
+    del xt
     results["quantize_blockwise"] = {
         "name": "quantize_blockwise", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/quantize.cu",
         "replaces": "src/repro/kernels/quantize.py:35",
         "shape": "bf16 (512*25*64,) block 64 (one prefill layer's K rows)",
+        "max_abs_err": worst, "ms": t_k, "kernel_ms": t_k, "plain_ms": t_p,
+        "bound_ms": b, "bound_by": by, "library_ms": None,
+        "train_shape": "fp32 (50304*1600,) block 256 (GPT-2 XL token table)",
+        "train_shape_ms": t_kt, "train_shape_bound_ms": b_t}
+
+
+XL_LEAF = 50304 * 1600  # GPT-2 XL's token table, the largest leaf
+
+
+def check_dequantize(torch, timer, results):
+    """The dequantize kernel bit for bit against its plain version, on the
+    quantize kernel's own outputs; a ragged payload raises."""
+    from repro_torch.kernels import quantize as QK
+    from repro_torch.kernels.ref import dequantize_blockwise_ref
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    cases = [
+        # name, n, bits, block
+        ("outer_block256_ragged", 100_003, 8, 256),
+        ("block64", 65_536 + 17, 8, 64),
+        ("block32", 4096 * 3 + 1, 8, 32),
+        ("int4_block256", 65_536, 4, 256),
+        ("int4_block64_ragged", 9_999, 4, 64),
+        ("block33_scalar_path", 33 * 1000 + 2, 8, 33),
+        ("block4", 4 * 1000 + 3, 8, 4),
+        ("block2_scalar_path", 2 * 1000 + 1, 8, 2),
+        ("unaligned_view_block256", 256 * 300, 8, 256),
+        ("xl_token_table_block256", XL_LEAF, 8, 256),
+    ]
+    worst = 0.0
+    for name, n, bits, block in cases:
+        x = torch.randn(n, generator=g, device="cuda") * 1e-3
+        x[:block] = 0  # a whole zero block: scale 0, values 0
+        q, s = QK.quantize_blockwise(x, bits=bits, block=block)
+        if name.startswith("unaligned"):  # the same payload one byte into a buffer
+            buf = torch.empty(q.numel() + 1, dtype=torch.int8, device="cuda")
+            buf[1:].copy_(q)
+            q = buf[1:]
+        out = QK.dequantize_blockwise(q, s, block=block)
+        ref = dequantize_blockwise_ref(q, s, block=block)
+        torch.cuda.synchronize()
+        same = out.dtype == torch.float32 and torch.equal(out, ref)
+        emit({"phase": "kernels", "kernel": "dequantize_blockwise", "case": name,
+              "n": n, "bits": bits, "block": block, "payload": q.numel(),
+              "bitwise_equal": same, "max_abs_err": max_err(out, ref)})
+        if not same:
+            raise AssertionError(f"dequantize {name}: kernel != plain version")
+        worst = max(worst, max_err(out, ref))
+        del x, q, s, out, ref
+    try:
+        QK.dequantize_blockwise(torch.zeros(300, dtype=torch.int8, device="cuda"),
+                                torch.zeros(2, device="cuda"), block=256)
+    except ValueError as e:
+        emit({"phase": "kernels", "kernel": "dequantize_blockwise", "case": "ragged_raises",
+              "error": str(e)})
+    else:
+        raise AssertionError("dequantize: a ragged payload did not raise")
+
+    # main path's shape: one outer sync's largest leaf, int8 at block 256
+    x = torch.randn(XL_LEAF, generator=g, device="cuda") * 1e-3
+    q, s = QK.quantize_blockwise(x, bits=8, block=256)
+    del x
+    t_k = timer.ms(lambda: QK.dequantize_blockwise(q, s, block=256))
+    t_p = timer.ms(lambda: dequantize_blockwise_ref(q, s, block=256))
+    n = q.numel()
+    b, by = bound_ms(n + 4 * s.numel() + 4 * n, n, "float32")
+    results["dequantize_blockwise"] = {
+        "name": "dequantize_blockwise", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/dequantize.cu",
+        "replaces": "src/repro/kernels/quantize.py:47",
+        "shape": "int8 (50304*1600,) block 256 -> fp32 (GPT-2 XL token table)",
         "max_abs_err": worst, "ms": t_k, "kernel_ms": t_k, "plain_ms": t_p,
         "bound_ms": b, "bound_by": by, "library_ms": None}
 
@@ -395,11 +529,10 @@ def check_pier_update(torch, timer, results):
     from repro_torch.kernels.ref import pier_update_ref
 
     g = torch.Generator(device="cuda").manual_seed(7)
-    xl_leaf = 50304 * 1600  # GPT-2 XL's token table, the largest leaf
     cases = []
     for form in ("nesterov_torch", "nesterov_classic", "sgd"):
         for mdt in (torch.float32, torch.bfloat16):
-            for n in (4096 * 5 + 77, xl_leaf):  # ragged, and one XL leaf
+            for n in (4096 * 5 + 77, XL_LEAF):  # ragged, and one XL leaf
                 cases.append((form, mdt, n))
     for form, mdt, n in cases:
         a = torch.randn(n, generator=g, device="cuda")
@@ -424,12 +557,12 @@ def check_pier_update(torch, timer, results):
                                  f"version (err {err})")
 
     # main path's shape: one XL leaf, fp32 state, updated in place
-    a = torch.randn(xl_leaf, generator=g, device="cuda")
-    m = torch.randn(xl_leaf, generator=g, device="cuda")
-    d = torch.randn(xl_leaf, generator=g, device="cuda") * 1e-3
+    a = torch.randn(XL_LEAF, generator=g, device="cuda")
+    m = torch.randn(XL_LEAF, generator=g, device="cuda")
+    d = torch.randn(XL_LEAF, generator=g, device="cuda") * 1e-3
     t_k = timer.ms(lambda: PK.pier_update(a, m, d, 0.9, 1.1, p_out=a, m_out=m))
     t_p = timer.ms(lambda: pier_update_ref(a, m, d, mu=0.9, lr=1.1))
-    b, by = bound_ms(20 * xl_leaf, 5 * xl_leaf, "float32")  # read a, m, d; write p, m
+    b, by = bound_ms(20 * XL_LEAF, 5 * XL_LEAF, "float32")  # read a, m, d; write p, m
     results["pier_update"] = {
         "name": "pier_update", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/pier_update.cu",
@@ -596,7 +729,7 @@ def e2e_vs_cpu(torch, counters):
     L = cfg.num_layers
     if launches != {"flash_attention": L, "flash_attention_bwd": 0,
                     "paged_decode_attention": D * L, "quantize_blockwise": 0,
-                    "pier_update": 0}:
+                    "dequantize_blockwise": 0, "pier_update": 0}:
         raise AssertionError(f"card rollout launches {launches}")
 
 
@@ -679,7 +812,7 @@ def serve(torch, params, cfg, counters, *, quantized: bool):
     want_q = 2 * L * (st["prefills"] + st["decode_steps"]) if quantized else 0
     expect = {"flash_attention": st["prefills"] * L, "flash_attention_bwd": 0,
               "paged_decode_attention": st["decode_steps"] * L,
-              "quantize_blockwise": want_q, "pier_update": 0}
+              "quantize_blockwise": want_q, "dequantize_blockwise": 0, "pier_update": 0}
     if launches != expect:
         raise AssertionError(f"launch counters {launches} != expected {expect}")
     if st["prefills"] != len(lens) or st["decode_steps"] == 0:
@@ -785,6 +918,31 @@ TRAIN_TC = dict(total_steps=40, sync_interval=2, warmup_frac=0.1)
 TRAIN_LR = dict(inner_lr=5e-5, inner_min_lr=5e-6, lr_warmup_frac=0.1)
 
 
+def _quant_launches(strategy, G: int, P: int):
+    """(quantize, dequantize) launches per leaf per outer sync, as the
+    strategy's code path in ``sync/strategies.py`` makes them."""
+    from repro_torch.sync import Chunked, Hierarchical, Int8Wire, Quantized
+
+    pods = False
+    if isinstance(strategy, Chunked):  # numerically its inner strategy
+        strategy = strategy.inner
+    if isinstance(strategy, Hierarchical):  # the pods are the endpoints
+        strategy, pods = strategy.inner, True
+    if isinstance(strategy, Quantized):  # compress_leaf per group
+        return G, G
+    if isinstance(strategy, Int8Wire):
+        E = P if pods else G
+        if strategy.reduce_scatter:
+            # per group: quantize and dequantize its payload; per slot: the
+            # reduce-scatter dequantizes E sources, the endpoint re-quantizes
+            # and dequantizes its slot for its residual, the all-gather
+            # dequantizes it once more
+            return G + E, G + E * E + E + E
+        # per group: quantize and dequantize; the ring dequantizes E sources
+        return G, G + E
+    return 0, 0
+
+
 def _train_expect(run, steps: int, num_layers: int, num_leaves: int):
     """Launches the main path must show after ``steps`` steps from 0."""
     sched = run.sched
@@ -792,9 +950,11 @@ def _train_expect(run, steps: int, num_layers: int, num_leaves: int):
     syncs = sum(1 for s in range(steps) for ev in sched.events(s)
                 if ev.kind == "dispatch" and ev.op == "outer")
     fwd = num_layers * (warm + run.G * (steps - warm))
+    nq, ndq = _quant_launches(run.strategy, run.G, run.P)
     return {"flash_attention": fwd, "flash_attention_bwd": fwd,
             "pier_update": num_leaves * syncs, "paged_decode_attention": 0,
-            "quantize_blockwise": 0}, warm, syncs
+            "quantize_blockwise": nq * num_leaves * syncs,
+            "dequantize_blockwise": ndq * num_leaves * syncs}, warm, syncs
 
 
 def train_vs_cpu(torch, counters):
@@ -854,6 +1014,78 @@ def train_vs_cpu(torch, counters):
                              f"in-flight snapshot is not held")
 
 
+# (name, OuterCommConfig kwargs, groups, pods, sync_delay)
+COMPRESSED_CONFIGS = [
+    ("quantize_int8_b256_d0", {"compression": "quantize"}, 2, 1, 0),
+    ("quantize_int8_b256_d1", {"compression": "quantize"}, 2, 1, 1),
+    ("quantize_int4_b64", {"compression": "quantize", "bits": 4, "block": 64}, 2, 1, 0),
+    ("int8_wire", {"compression": "int8-wire"}, 2, 1, 0),
+    ("rs_ag", {"compression": "rs-ag"}, 2, 1, 0),
+    ("hierarchical_int8_wire_g4_p2", {"compression": "int8-wire", "hierarchical": True},
+     4, 2, 0),
+    ("chunked2_quantize", {"compression": "quantize", "chunks": 2}, 2, 1, 0),
+]
+
+
+def train_compressed_vs_cpu(torch, counters):
+    """The compressed and hierarchical outer syncs on the card and on the
+    CPU from the same parameters and batches: 8 steps (4 warmup, 4 inner,
+    outer syncs after steps 5 and 7) at GPT-2 XL width, 2 layers, fp32."""
+    from repro_torch.config import OuterCommConfig, TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core.simulate import SimulatedRun
+    from repro_torch.models import registry as R
+    from repro_torch.models.transformer import param_leaves
+
+    cfg = get_config("gpt2-xl").replace(num_layers=2, dtype="float32")
+    steps, seq, per, loss_tol, param_tol = 8, 64, 1, 1e-3, 1e-3
+    base = R.init_params(cfg, seed=0, device="cpu", training=True)
+    for name, comm, G, P, delay in COMPRESSED_CONFIGS:
+        tc = TrainConfig(**TRAIN_TC, global_batch_size=G * per, seq_len=seq,
+                         sync_delay=delay, outer_comm=OuterCommConfig(**comm))
+        t0 = time.perf_counter()
+        runs = {dev: SimulatedRun(cfg, tc, num_groups=G, num_pods=P, device=dev,
+                                  params=copy.deepcopy(base)) for dev in ("cuda", "cpu")}
+        for c in counters.values():
+            c.launches = 0
+        h_card = runs["cuda"].run(steps)
+        runs["cuda"].flush()
+        torch.cuda.synchronize()
+        launches = {k: c.launches for k, c in counters.items()}
+        t_card = time.perf_counter() - t0
+        h_cpu = runs["cpu"].run(steps)
+        runs["cpu"].flush()
+        loss_err = max(abs(a - b) for a, b in zip(h_card["train_loss"], h_cpu["train_loss"]))
+        pc = [t.detach().cpu() for _, t in param_leaves(runs["cuda"].eval_params())]
+        pp = [t.detach() for _, t in param_leaves(runs["cpu"].eval_params())]
+        p_err = max(float((a - b).abs().max()) for a, b in zip(pc, pp))
+        res = runs["cuda"].state.outer.residual
+        res_max = max(float(r.abs().max()) for r in res)
+        expect, warm, syncs = _train_expect(runs["cuda"], steps, cfg.num_layers, len(pc))
+        emit({"phase": "train_compressed_vs_cpu", "case": name,
+              "strategy": runs["cuda"].strategy.name,
+              "config": "gpt2-xl width, 2 layers, float32", "groups": G, "pods": P,
+              "sync_delay": delay, "steps": steps, "warmup_steps": warm,
+              "outer_syncs": syncs, "per_group_batch": per, "seq_len": seq,
+              "loss_card": h_card["train_loss"], "loss_cpu": h_cpu["train_loss"],
+              "max_abs_loss_err": loss_err, "loss_tol": loss_tol,
+              "max_abs_param_err": p_err, "param_tol": param_tol,
+              "max_abs_residual": res_max, "card_launches": launches,
+              "expected_launches": expect, "card_seconds": t_card,
+              "seconds": time.perf_counter() - t0})
+        if not all(math.isfinite(x) for x in h_card["train_loss"]):
+            raise AssertionError(f"train_compressed_vs_cpu {name}: non-finite card loss")
+        if loss_err > loss_tol or p_err > param_tol:
+            raise AssertionError(f"train_compressed_vs_cpu {name}: loss err {loss_err} "
+                                 f"(limit {loss_tol}), param err {p_err} (limit {param_tol})")
+        if not (math.isfinite(res_max) and res_max > 0):
+            raise AssertionError(f"train_compressed_vs_cpu {name}: residual {res_max}")
+        if launches != expect:
+            raise AssertionError(f"train_compressed_vs_cpu {name}: launches {launches} "
+                                 f"!= {expect}")
+        del runs
+
+
 def _timed(torch, times, kind, fn):
     def call(*args, **kw):
         torch.cuda.synchronize()
@@ -865,9 +1097,11 @@ def _timed(torch, times, kind, fn):
     return call
 
 
-def train(torch, counters):
-    """Full GPT-2 XL through SimulatedRun on the card; returns the run."""
-    from repro_torch.config import TrainConfig
+def train(torch, counters, *, phase: str = "train", outer_comm=None):
+    """Full GPT-2 XL through SimulatedRun on the card; returns the run and
+    its line. ``outer_comm`` (an ``OuterCommConfig``) picks the outer
+    strategy; the default is the flat fp32 mean."""
+    from repro_torch.config import OuterCommConfig, TrainConfig
     from repro_torch.configs import get_config
     from repro_torch.core.simulate import SimulatedRun
     from repro_torch.models.transformer import param_leaves
@@ -875,7 +1109,7 @@ def train(torch, counters):
     cfg = get_config("gpt2-xl")  # bf16 compute, fp32 parameters
     G, per, seq, steps = 2, 2, 1024, 10
     tc = TrainConfig(**TRAIN_TC, **TRAIN_LR, global_batch_size=G * per, seq_len=seq,
-                     sync_delay=0)
+                     sync_delay=0, outer_comm=outer_comm or OuterCommConfig())
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     run = SimulatedRun(cfg, tc, num_groups=G, seed=0, device="cuda")
@@ -902,8 +1136,9 @@ def train(torch, counters):
     inner = times.get("inner_step", [])
     inner_ss = inner[1:] if len(inner) > 1 else inner
     line = {
-        "phase": "train", "config": "gpt2-xl 48 layers, bf16 compute, fp32 params",
-        "params": n_params, "leaves": n_leaves, "groups": G, "per_group_batch": per,
+        "phase": phase, "config": "gpt2-xl 48 layers, bf16 compute, fp32 params",
+        "strategy": run.strategy.name, "params": n_params, "leaves": n_leaves, "groups": G,
+        "per_group_batch": per,
         "seq_len": seq, "sync_delay": 0, "steps": steps, "warmup_steps": warm,
         "outer_syncs": syncs, "init_s": t_init, "wall_s": wall,
         "warmup_step_ms": times.get("warmup_step", []), "inner_step_ms": inner,
@@ -923,12 +1158,12 @@ def train(torch, counters):
     emit(line)
     loss = hist["train_loss"] + [val_before, val_after]
     if not all(math.isfinite(x) for x in loss):
-        raise AssertionError(f"train: non-finite loss {loss}")
+        raise AssertionError(f"{phase}: non-finite loss {loss}")
     if not val_after < val_before:  # on one fixed batch, so no batch noise
-        raise AssertionError(f"train: validation loss did not fall: {val_before} -> "
+        raise AssertionError(f"{phase}: validation loss did not fall: {val_before} -> "
                              f"{val_after}")
     if launches != expect:
-        raise AssertionError(f"train launch counters {launches} != expected {expect}")
+        raise AssertionError(f"{phase} launch counters {launches} != expected {expect}")
     return run, line
 
 
@@ -972,6 +1207,54 @@ def train_breakdown(torch, run):
           "wall_ms": wall, "device_ms": busy if n_kernels else "not measured",
           "device_idle_share": 1 - busy / wall if n_kernels else "not measured",
           "kernels_per_step": n_kernels, "device_ms_by_group": groups})
+
+
+def _dispatch_kernel_group(name: str) -> str:
+    for key, group in (("dequantize", "dequantize_blockwise"),
+                       ("quantize_blockwise", "quantize_blockwise"),
+                       ("pier_update", "pier_update")):
+        if key in name:
+            return group
+    return "elementwise_and_copies"
+
+
+def dispatch_breakdown(torch, run, phase: str):
+    """Device time by kernel group of one more outer dispatch of a finished
+    train run, beside the wall time of another, unprofiled one; the idle
+    share is one minus their ratio. Each dispatch advances the run's outer
+    state in place, as the run's own do."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.transformer import param_leaves
+
+    st = run.state
+    groups = [[t for _, t in param_leaves(g)] for g in st.group_params]
+
+    def once():
+        _, st.outer = run.strategy.sim_dispatch(groups, st.outer, run.tc, mu=0.9, lr=0.7,
+                                                num_pods=run.P, inplace=run._inplace_outer)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    once()
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        once()
+        torch.cuda.synchronize()
+    by_group, n_kernels = {}, 0
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            grp = _dispatch_kernel_group(evt.name)
+            by_group[grp] = by_group.get(grp, 0.0) + evt.time_range.elapsed_us() / 1e3
+            n_kernels += 1
+    busy = sum(by_group.values())
+    emit({"phase": f"{phase}_dispatch_breakdown", "strategy": run.strategy.name,
+          "config": "gpt2-xl 48 layers, G=2, one outer dispatch (484 leaves)",
+          "wall_ms": wall, "device_ms": busy if n_kernels else "not measured",
+          "device_idle_share": 1 - busy / wall if n_kernels else "not measured",
+          "kernels_per_dispatch": n_kernels, "device_ms_by_group": by_group})
 
 
 # ---------------------------------------------------------------------------
@@ -1072,7 +1355,7 @@ def main(argv) -> int:
     if len(argv) > 1 or not set(argv) <= studies:
         print(f"usage: chip_smoke.py [{' | '.join(sorted(studies))}]", file=sys.stderr)
         return 2
-    # The full-width training phase holds ~64 GB of state on an 80 GB card;
+    # The full-width training phases hold ~61-73 GB of state on an 80 GB card;
     # expandable segments keep the caching allocator from fragmenting it.
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
@@ -1102,6 +1385,7 @@ def main(argv) -> int:
 
     counters = {"flash_attention": Counter(FK), "flash_attention_bwd": Counter(FK, "bwd_launches"),
                 "paged_decode_attention": Counter(DK), "quantize_blockwise": Counter(QK),
+                "dequantize_blockwise": Counter(QK, "dequantize_launches"),
                 "pier_update": Counter(PK)}
     if argv == ["--build-times"]:
         build_times(torch)
@@ -1112,6 +1396,7 @@ def main(argv) -> int:
     timer = Timer(torch)
     results = {}
     check_quantize(torch, timer, results)
+    check_dequantize(torch, timer, results)
     check_flash(torch, timer, results)
     check_decode(torch, timer, results)
     check_pier_update(torch, timer, results)
@@ -1131,20 +1416,36 @@ def main(argv) -> int:
     del params
     torch.cuda.empty_cache()
 
-    train_vs_cpu(torch, counters)
-    torch.cuda.empty_cache()
+    with large_allocations_on_the_heap() as raised:
+        emit({"phase": "host_malloc", "thresholds_raised": raised})
+        train_vs_cpu(torch, counters)
+        train_compressed_vs_cpu(torch, counters)
+    free_cuda(torch)
     run, train_line = train(torch, counters)
     train_breakdown(torch, run)
+    dispatch_breakdown(torch, run, "train")
     del run
-    runs.append(train_line)
+    free_cuda(torch)
+    from repro_torch.config import OuterCommConfig
+
+    run, compressed_line = train(torch, counters, phase="train_compressed",
+                                 outer_comm=OuterCommConfig(compression="quantize", bits=8,
+                                                            block=256))
+    dispatch_breakdown(torch, run, "train_compressed")
+    del run
+    free_cuda(torch)
+    trains = [train_line, compressed_line]
+    runs += trains
 
     kernels = []
     for name in ("flash_attention", "paged_decode_attention", "quantize_blockwise",
-                 "pier_update", "flash_attention_bwd"):
+                 "pier_update", "flash_attention_bwd", "dequantize_blockwise"):
         entry = dict(results[name])
         entry["launches"] = sum(r["launches"][name] for r in runs)
-        entry["launches_by_path"] = {"serve": sum(r["launches"][name] for r in runs[:2]),
-                                     "train": train_line["launches"][name]}
+        entry["launches_by_path"] = {
+            "serve": sum(r["launches"][name] for r in runs[:2]),
+            "train": sum(r["launches"][name] for r in trains),
+            "train_by_strategy": {r["strategy"]: r["launches"][name] for r in trains}}
         kernels.append(entry)
     emit({"phase": "done", "card": smi, "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})

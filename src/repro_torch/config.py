@@ -127,10 +127,10 @@ class ModelConfig:
 class OuterCommConfig:
     """The outer collective's knobs (copy of ``repro/config.py:OuterCommConfig``).
 
-    The all-defaults config is the flat fp32 mean of Δθ, the one strategy
-    the port runs so far (``repro_torch.sync.resolve_strategy``); the other
-    values are accepted and validated here as in the reference, and the
-    resolver raises ``NotImplementedError`` for them.
+    The all-defaults config is the flat fp32 mean of Δθ;
+    ``repro_torch.sync.resolve_strategy`` maps every config onto its
+    strategy, and raises ``NotImplementedError`` for ``sharded``, which is
+    not ported yet.
     """
 
     compression: str = "none"  # none | quantize | int8-wire | rs-ag

@@ -20,13 +20,16 @@ anchor is the target itself (cast to the state dtype, a no-op); the target
 returned is then the anchor tensor, and nothing may write to it until the
 next outer sync. With bf16 state the target is a separate fp32 tensor.
 
-``compress_delta`` and ``quant_fns`` (the quantized outer strategies) are
-not ported yet.
+The compressed strategies carry an error-feedback residual per group
+(``OuterState.residual``, and the rs/ag path's ``residual2``): one
+``(G, *leaf.shape)`` fp32 tensor per leaf. :func:`compress_delta` is the
+quantize-dequantize round trip with error feedback; on CUDA leaves it
+launches the quantize and dequantize kernels through ``kernels.ops``.
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -40,19 +43,41 @@ class OuterState(NamedTuple):
     momentum: List[torch.Tensor]  # M, in tc.opt_state_dtype
     anchor: List[torch.Tensor]  # θ_{t-r}: model snapshot at the last sync
     num_syncs: int  # how many outer steps have been taken
+    # Error-feedback residual of the compressed outer collective: what
+    # blockwise quantization dropped from each group's payload, re-injected
+    # into its next Δθ. None without compression; else one fp32
+    # (num_groups, *leaf.shape) tensor per leaf, a row per group (never
+    # shared between groups).
+    residual: Optional[List[torch.Tensor]] = None
+    # The rs/ag wire path's second residual (what re-quantizing each
+    # endpoint's reduced shard dropped), same layout; nonzero only on a
+    # group's own slot. None unless the strategy's plan needs it.
+    residual2: Optional[List[torch.Tensor]] = None
 
 
-def outer_init(leaves, tc: TrainConfig) -> OuterState:
-    """``leaves``: parameter tensors in leaf order. The anchor is a copy."""
-    if tc.outer_comm.compression != "none":
-        raise NotImplementedError(
-            "compressed outer state (error-feedback residual) is not ported yet")
+def outer_init(leaves, tc: TrainConfig, *, num_groups: int = 1,
+               needs_residual: Optional[bool] = None,
+               needs_residual2: bool = False) -> OuterState:
+    """``leaves``: parameter tensors in leaf order. The anchor is a copy.
+
+    ``needs_residual`` defaults from the config's compression; pass the
+    strategy plan's own when a strategy is injected.
+    """
     dt = torch_dtype(tc.opt_state_dtype)
+    if needs_residual is None:
+        needs_residual = tc.outer_comm.compression != "none"
+
+    def zeros_g():
+        return [torch.zeros((num_groups, *p.shape), dtype=torch.float32, device=p.device)
+                for p in leaves]
+
     with torch.no_grad():
         return OuterState(
             momentum=[torch.zeros(p.shape, dtype=dt, device=p.device) for p in leaves],
             anchor=[p.detach().to(dt, copy=True) for p in leaves],
-            num_syncs=0)
+            num_syncs=0,
+            residual=zeros_g() if needs_residual else None,
+            residual2=zeros_g() if needs_residual2 else None)
 
 
 @torch.no_grad()
@@ -70,7 +95,7 @@ def warmup_reduce(state: OuterState, leaves, mu) -> OuterState:
         delta = p.float() - a.float()
         new_m.append((mu_t * m.float() + delta).to(sdt))
     new_anchor = [p.detach().to(a.dtype, copy=True) for p, a in zip(leaves, state.anchor)]
-    return OuterState(momentum=new_m, anchor=new_anchor, num_syncs=state.num_syncs + 1)
+    return state._replace(momentum=new_m, anchor=new_anchor, num_syncs=state.num_syncs + 1)
 
 
 def warmup_apply(pending: OuterState) -> OuterState:
@@ -82,6 +107,49 @@ def warmup_apply(pending: OuterState) -> OuterState:
 def warmup_accumulate(state: OuterState, leaves, mu) -> OuterState:
     """Eager fused warmup accumulate: reduce, then apply."""
     return warmup_apply(warmup_reduce(state, leaves, mu))
+
+
+def quant_fns(*, bits: int, block: int):
+    """(quantize, dequantize) callables for the outer payload, through the
+    ``kernels.ops`` wrappers: a CUDA tensor launches the kernels, a CPU
+    tensor runs their plain versions (the same functions bit for bit)."""
+    return (lambda x: kops.quantize_blockwise(x, bits=bits, block=block),
+            lambda q, s: kops.dequantize_blockwise(q, s, block=block))
+
+
+@torch.no_grad()
+def compress_leaf(d: torch.Tensor, r: Optional[torch.Tensor], *, bits: int, block: int):
+    """One leaf of :func:`compress_delta` -> (payload fp32, new residual fp32).
+
+    ``c = Δθ + r;  (q, s) = Q(c);  payload = DQ(q, s)[:n];  r' = c − payload``,
+    so ``payload + r' == c`` exactly and the error telescopes.
+    """
+    quant, dequant = quant_fns(bits=bits, block=block)
+    c = d.float()
+    if r is not None:
+        c = c + r.float()
+    flat = c.reshape(-1)
+    q, s = quant(flat)
+    payload = dequant(q, s)[: flat.shape[0]].reshape(c.shape)
+    return payload, c - payload
+
+
+def compress_delta(delta, residual, tc: Optional[TrainConfig] = None, *,
+                   bits: Optional[int] = None, block: Optional[int] = None):
+    """Blockwise-quantize one group's Δθ leaves with error feedback.
+
+    Counterpart of ``repro/core/outer.py:compress_delta`` on a list of
+    leaves; ``residual=None`` is a zero residual (the first sync).
+    ``bits``/``block`` default from ``tc.outer_comm``. Returns
+    ``(payload_leaves_f32, new_residual_leaves_f32)``.
+    """
+    if bits is None:
+        bits = tc.outer_comm.bits
+    if block is None:
+        block = tc.outer_comm.block
+    rs = residual if residual is not None else [None] * len(delta)
+    out = [compress_leaf(d, r, bits=bits, block=block) for d, r in zip(delta, rs)]
+    return [p for p, _ in out], [r for _, r in out]
 
 
 @torch.no_grad()
@@ -117,12 +185,15 @@ def outer_reduce(state: OuterState, delta_avg, tc: TrainConfig, *, mu, lr,
     """Algorithm 2, lines 19-21. Returns (target_leaves_f32, new_state).
 
     The new state's anchor IS the target (cast to the state dtype), so the
-    next Δθ measures progress from the synchronized model.
+    next Δθ measures progress from the synchronized model. The
+    error-feedback residuals pass through: the strategies'
+    ``sim_dispatch`` makes the new ones, and with ``inplace`` writes them
+    over the old ones, as the momentum and the anchor are.
     """
     p_new, m_new, anchor_new = outer_reduce_leaves(
         state.momentum, state.anchor, delta_avg, tc, mu=mu, lr=lr, inplace=inplace)
-    return p_new, OuterState(momentum=m_new, anchor=anchor_new,
-                             num_syncs=state.num_syncs + 1)
+    return p_new, state._replace(momentum=m_new, anchor=anchor_new,
+                                 num_syncs=state.num_syncs + 1)
 
 
 @torch.no_grad()

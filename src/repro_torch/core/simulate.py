@@ -30,13 +30,21 @@ What differs from the reference, and why:
   * with fp32 outer state the new momentum and the target are written over
     the old momentum and the anchor (``core/outer.py``), saving one
     model-sized fp32 buffer.
+  The compressed strategies' error-feedback residuals are written over
+  the old ones in place too (``sync/base.py:sim_dispatch``); each group
+  owns its row of a residual, and the lazy start's anchor advance leaves
+  them as they are.
 - Batches come from ``data/synthetic.py:MarkovLM`` through a
   ``torch.Generator`` (jax's threefry cannot be reproduced); the tables
   are the reference's. ``_global_batch`` is a method so that a caller can
   feed its own batches.
-- Not ported (they raise ``NotImplementedError``): sync controllers,
-  elastic membership, checkpoint managers, pods, and every outer strategy
-  but the flat fp32 mean.
+
+Every outer strategy of ``repro_torch.sync`` runs, from the config
+(``OuterCommConfig``: quantize, int8-wire, rs-ag, hierarchical with
+``num_pods``, chunks) or injected: on CUDA leaves every blockwise quantize
+and dequantize launches its kernel. Not ported (they raise
+``NotImplementedError``): ``Sharded``, sync controllers (and with them
+``switch_strategy``), elastic membership and checkpoint managers.
 """
 
 from __future__ import annotations
@@ -59,7 +67,7 @@ from repro_torch.models.transformer import param_leaves
 from repro_torch.optim.adamw import adamw_init, adamw_update, clone_state
 from repro_torch.optim.clip import clip_by_global_norm
 from repro_torch.optim.schedules import lr_at
-from repro_torch.sync import FlatFP32, resolve_strategy, validate_pod_grouping
+from repro_torch.sync import PORTED, resolve_strategy, validate_pod_grouping
 
 
 @dataclass
@@ -92,15 +100,15 @@ class SimulatedRun:
                           ("TrainConfig.membership", tc.membership)):
             if arg is not None:
                 raise NotImplementedError(f"SimulatedRun: {name} is not ported yet")
-        if num_pods > 1:
-            raise NotImplementedError("SimulatedRun: num_pods > 1 (hierarchical "
-                                      "reduce) is not ported yet")
         self.strategy = strategy if strategy is not None else resolve_strategy(tc)
-        if not isinstance(self.strategy, FlatFP32):
+        if not isinstance(self.strategy, PORTED):
             raise NotImplementedError(
-                f"SimulatedRun: outer strategy {self.strategy!r} is not ported yet")
+                f"SimulatedRun: outer strategy {type(self.strategy).__name__} is not one "
+                f"the port runs ({', '.join(c.__name__ for c in PORTED)}); Sharded is "
+                f"ROADMAP.md queue 1, item 10")
         self.mc, self.tc = mc, tc
         self.G = num_groups
+        self.P = max(num_pods, 1)
         self.device = resolve_device(device)
         self.sched = PierSchedule(tc)
         self.lm = MarkovLM(mc.vocab_size, seed=1234)
@@ -114,10 +122,15 @@ class SimulatedRun:
         if bad:
             raise ValueError(f"SimulatedRun needs parameters in training storage "
                              f"({mc.param_dtype}, requires_grad); not so: {bad[:3]}")
-        self.plan = self.strategy.plan(leaves, tc)
-        self.state = SimState(params=params, group_params=None,
-                              opt=adamw_init(leaves, tc),
-                              outer=outer_init([p for _, p in leaves], tc))
+        tensors = [p for _, p in leaves]
+        # the plan's spans install per span at apply; it also says whether
+        # the outer state carries error-feedback residuals
+        self.plan = self.strategy.plan(tensors, tc)
+        self.state = SimState(
+            params=params, group_params=None, opt=adamw_init(leaves, tc),
+            outer=outer_init(tensors, tc, num_groups=num_groups,
+                             needs_residual=self.plan.needs_residual,
+                             needs_residual2=self.plan.needs_residual2))
         # the new momentum and target overwrite the outer state in place
         # when it is fp32 (core/outer.py)
         self._inplace_outer = tc.opt_state_dtype == "float32"
@@ -159,11 +172,16 @@ class SimulatedRun:
         st = self.state
         return self.strategy.sim_dispatch(
             [_tensors(g) for g in st.group_params], st.outer, self.tc, mu=mu, lr=lr,
-            inplace=self._inplace_outer)
+            num_pods=self.P, inplace=self._inplace_outer)
 
     def _apply(self, target, snapshots):
+        """Install the target on every group, span by span (a chunked plan's
+        per-chunk applies; the correction is per leaf, so any span order
+        gives the same numbers)."""
         for gp, snap in zip(self.state.group_params, snapshots):
-            outer_apply(target, snap, _tensors(gp))
+            cur = _tensors(gp)
+            for lo, hi in self.plan.spans:
+                outer_apply(target[lo:hi], snap[lo:hi], cur[lo:hi])
 
     # ------------------------------------------------------------ batches
     def _global_batch(self, step: int) -> Dict[str, torch.Tensor]:

@@ -1,6 +1,9 @@
 """Hand-written CUDA kernels of the port and their plain PyTorch versions.
 
-- ``quantize``: blockwise int8 quantization (``csrc/quantize.cu``).
+- ``quantize``: blockwise int8 quantization and dequantization
+  (``csrc/quantize.cu``, ``csrc/dequantize.cu``).
+- ``wire``: the compressed outer exchange's wire packing and per-source
+  reductions, plain PyTorch around the (de)quantize wrappers.
 - ``flash_attention``: attention forward (prefill, training) and backward
   (training), ``csrc/flash_attention.cu``.
 - ``decode_attention``: paged single-query attention of every decode step

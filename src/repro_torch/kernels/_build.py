@@ -11,8 +11,8 @@ rebuilt and an unchanged one is loaded as it is.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, and no ``--use_fast_math``: the
 quantize kernel needs IEEE division and ``rintf``, and the pier-update
-kernel unfused products and sums, to match their plain versions bit for
-bit.
+and dequantize kernels unfused products and sums, to match their plain
+versions bit for bit.
 
 Every C entry returns ``cudaGetLastError()`` after its launch; :func:`check`
 raises when it is not 0, because a refused launch (too many threads, too
@@ -49,6 +49,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "quantize_blockwise_launch": [
         _P, _I, _L, _P, _P, _L, _I, _F, _F, _P],
+    "dequantize_blockwise_launch": [_P, _P, _P, _L, _I, _P],
     "flash_attention_fwd_launch": [
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
     "flash_attention_bwd_launch": [

@@ -2,8 +2,8 @@
 
 The integration surface between the kernels and the model. Which
 implementation runs follows the tensors' device, inside each kernel's
-wrapper. Only the kernels ported so far are here: ``dequantize_blockwise``
-and ``rmsnorm`` come with their kernels (ROADMAP.md queue 2).
+wrapper. Only the kernels ported so far are here: ``rmsnorm`` comes with
+its kernel (ROADMAP.md queue 2).
 """
 
 from __future__ import annotations
@@ -11,6 +11,7 @@ from __future__ import annotations
 from repro_torch.kernels.decode_attention import paged_decode_attention as _paged_decode
 from repro_torch.kernels.flash_attention import flash_attention as _flash
 from repro_torch.kernels.pier_update import pier_update as _pier_update
+from repro_torch.kernels.quantize import dequantize_blockwise as _dequantize
 from repro_torch.kernels.quantize import quantize_blockwise as _quantize
 
 
@@ -37,6 +38,12 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, context_lens,
 def quantize_blockwise(x, *, bits: int = 8, block: int = 256):
     """Flat (N,) -> (q int8 (nblocks*block,), scales f32 (nblocks,))."""
     return _quantize(x, bits=bits, block=block)
+
+
+def dequantize_blockwise(q, scales, *, block: int = 256):
+    """Inverse of :func:`quantize_blockwise`; returns fp32 (nblocks*block,).
+    A ragged payload raises ``ValueError``."""
+    return _dequantize(q, scales, block=block)
 
 
 def pier_update_leaf(a, m, d, tc, *, mu, lr, p_out=None, m_out=None):

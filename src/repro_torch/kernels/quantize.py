@@ -1,9 +1,10 @@
-"""Blockwise int8 quantization: the CUDA kernel's wrapper.
+"""Blockwise int8 quantization and dequantization: the CUDA kernels' wrappers.
 
-Counterpart of ``repro/kernels/quantize.py:quantize_blockwise``; the kernel
-is ``csrc/quantize.cu``. A CUDA tensor launches the kernel (or raises), a
-CPU tensor takes the plain version ``kernels/ref.py:quantize_blockwise_ref``;
-the two agree bit for bit.
+Counterparts of ``repro/kernels/quantize.py:quantize_blockwise`` and
+``dequantize_blockwise``; the kernels are ``csrc/quantize.cu`` and
+``csrc/dequantize.cu``. A CUDA tensor launches the kernel (or raises), a
+CPU tensor takes the plain version in ``kernels/ref.py``; each kernel agrees
+with its plain version bit for bit.
 """
 
 from __future__ import annotations
@@ -14,11 +15,12 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import quantize_blockwise_ref
+from repro_torch.kernels.ref import dequantize_blockwise_ref, quantize_blockwise_ref
 
-# Launches of the CUDA kernel in this process (the wrapper adds one per
-# launch and nowhere else; a caller may reset it to 0).
-launches = 0
+# Launches of each CUDA kernel in this process (each wrapper adds one per
+# launch and nowhere else; a caller may reset them to 0).
+launches = 0  # quantize_blockwise
+dequantize_launches = 0
 
 
 def quantize_blockwise(x: torch.Tensor, *, bits: int = 8, block: int = 256
@@ -56,3 +58,48 @@ def quantize_blockwise(x: torch.Tensor, *, bits: int = 8, block: int = 256
     _build.check(err, "quantize_blockwise")
     launches += 1
     return q, scales
+
+
+def dequantize_blockwise(q: torch.Tensor, scales: torch.Tensor, *, block: int = 256
+                         ) -> torch.Tensor:
+    """(nblocks*block,) int8 + (nblocks,) f32 -> f32 (nblocks*block,).
+
+    A payload that is not whole blocks raises ``ValueError`` on any device,
+    as the reference does: pass :func:`quantize_blockwise`'s output
+    unsliced.
+    """
+    global dequantize_launches
+    if q.dim() != 1:
+        raise ValueError(f"dequantize_blockwise takes a flat (N,) payload, got {tuple(q.shape)}")
+    if block < 1:
+        raise ValueError(f"block must be >= 1, got {block}")
+    nq = q.shape[0]
+    if nq % block != 0:
+        raise ValueError(
+            f"ragged quantized payload: {nq} values do not fill whole blocks "
+            f"of {block} (quantize_blockwise pads to whole blocks; pass its "
+            f"output unsliced)")
+    nb = nq // block
+    if q.device.type == "cpu":
+        return dequantize_blockwise_ref(q, scales, block=block)
+    if q.device.type != "cuda":
+        raise ValueError(f"dequantize_blockwise: unsupported device {q.device}")
+    if scales.device != q.device:
+        raise ValueError(f"dequantize_blockwise: scales on {scales.device}, payload on {q.device}")
+    if q.dtype != torch.int8 or scales.dtype != torch.float32:
+        raise TypeError(f"dequantize_blockwise kernel takes int8 values and float32 scales, "
+                        f"got {q.dtype} and {scales.dtype}")
+    if tuple(scales.shape) != (nb,):
+        raise ValueError(f"dequantize_blockwise: {nb} blocks need ({nb},) scales, got "
+                         f"{tuple(scales.shape)}")
+    if not (q.is_contiguous() and scales.is_contiguous()):
+        raise ValueError("dequantize_blockwise kernel needs contiguous tensors")
+    out = torch.empty((nq,), dtype=torch.float32, device=q.device)
+    if nq == 0:  # nothing to launch
+        return out
+    lib = _build.lib()
+    err = lib.dequantize_blockwise_launch(q.data_ptr(), scales.data_ptr(), out.data_ptr(),
+                                          nq, block, _build.stream_ptr(q.device))
+    _build.check(err, "dequantize_blockwise")
+    dequantize_launches += 1
+    return out

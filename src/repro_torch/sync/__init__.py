@@ -1,6 +1,9 @@
-"""The outer-sync strategy layer of the port (``repro/sync``): so far the
-flat fp32 mean of Δθ, the seed collective."""
+"""The outer-sync strategy layer of the port (``repro/sync``): the flat
+fp32 mean and the compressed, hierarchical and chunked strategies, in the
+simulator's numeric model."""
 
-from repro_torch.sync.base import OuterSyncStrategy, SyncPlan  # noqa: F401
-from repro_torch.sync.strategies import (FlatFP32, resolve_strategy,  # noqa: F401
+from repro_torch.sync.base import OuterSyncStrategy, SyncPlan, balanced_spans  # noqa: F401
+from repro_torch.sync.strategies import (PORTED, Chunked, FlatFP32,  # noqa: F401
+                                         Hierarchical, Int8Wire, Quantized,
+                                         resolve_strategy, strategy_name,
                                          validate_pod_grouping)

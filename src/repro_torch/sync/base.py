@@ -1,23 +1,35 @@
 """The outer-sync strategy protocol (``repro/sync/base.py``, DESIGN.md §7).
 
-An :class:`OuterSyncStrategy` owns the host-side plan of an outer sync (one
-span of leaves so far: chunked dispatch is not ported) and the simulator's
-numeric model of the reduction over the groups' replicas
-(``sim_dispatch``). The distributed ``reduce_leaf`` comes with the
-multi-process Trainer.
+An :class:`OuterSyncStrategy` owns the host-side plan of an outer sync
+(:meth:`~OuterSyncStrategy.plan`: contiguous leaf spans, whether the state
+carries error-feedback residuals) and the simulator's numeric model of the
+reduction over the groups' replicas (:meth:`~OuterSyncStrategy.sim_dispatch`
+and the per-leaf :meth:`~OuterSyncStrategy.sim_reduce_leaf`). The
+distributed ``reduce_leaf`` comes with the multi-process Trainer.
+
+The port works one leaf at a time where the reference maps over the whole
+tree, so that the temporaries of a dispatch (the G deltas, the quantized
+payloads, the new residuals) are one leaf's size.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Tuple
+
+import torch
+
+from repro_torch.core.outer import OuterState, outer_reduce_leaves
+from repro_torch.kernels.wire import no_weights
 
 
 class SyncPlan(NamedTuple):
     """Host-side dispatch plan for one strategy × parameter list.
 
     ``spans`` are contiguous ``[lo, hi)`` ranges of leaf indices, each
-    dispatched (and applied) on its own. The reference's transport and
-    second-residual fields come with the wire strategies.
+    dispatched (and applied) on its own. ``wire_format`` names what crosses
+    the slow exchange (``"fp32"``, ``"int8+scales"``, ...). The reference's
+    ``transport`` field comes with the distributed exchange.
     """
 
     num_leaves: int
@@ -25,16 +37,49 @@ class SyncPlan(NamedTuple):
     needs_residual: bool
     name: str
     wire_format: str = "fp32"
+    needs_residual2: bool = False
 
     @property
     def num_chunks(self) -> int:
         return len(self.spans)
 
 
+def balanced_spans(sizes, num_chunks: int) -> Tuple[Tuple[int, int], ...]:
+    """Split leaf indices into <= num_chunks contiguous spans of about equal
+    element count. Every span is non-empty."""
+    n = len(sizes)
+    num_chunks = max(1, min(num_chunks, n))
+    total = sum(sizes)
+    spans, lo, acc = [], 0, 0
+    for i, s in enumerate(sizes):
+        acc += s
+        # close the span once it reaches its fair share, keeping enough
+        # leaves behind for the remaining chunks
+        remaining_chunks = num_chunks - len(spans)
+        if (acc >= total * (len(spans) + 1) / num_chunks
+                and n - (i + 1) >= remaining_chunks - 1) or i == n - 1:
+            spans.append((lo, i + 1))
+            lo = i + 1
+            if len(spans) == num_chunks:
+                break
+    if lo < n:  # fold any tail into the last span
+        spans[-1] = (spans[-1][0], n)
+    return tuple(spans)
+
+
+def leaf_sizes(leaves):
+    """Element counts of ``leaves`` (anything with a ``shape``)."""
+    return [math.prod(int(d) for d in leaf.shape) for leaf in leaves]
+
+
 class OuterSyncStrategy:
     """Base class of the outer-sync strategies."""
 
+    # whether the state carries a per-group error-feedback residual
     needs_residual: bool = False
+    # whether it also carries the rs/ag gather leg's residual; then
+    # ``sim_reduce_leaf`` takes and returns the residual as an (r1, r2) pair
+    needs_residual2: bool = False
     wire_format: str = "fp32"
 
     @property
@@ -45,11 +90,93 @@ class OuterSyncStrategy:
         return f"<{type(self).__name__} {self.name}>"
 
     def plan(self, leaves, tc) -> SyncPlan:
-        """One fused span over every leaf."""
+        """One fused span over every leaf (``leaves``: anything with a
+        ``shape``, in leaf order)."""
         n = len(leaves)
         return SyncPlan(num_leaves=n, spans=((0, n),), needs_residual=self.needs_residual,
-                        name=self.name, wire_format=self.wire_format)
+                        name=self.name, wire_format=self.wire_format,
+                        needs_residual2=self.needs_residual2)
 
-    def sim_dispatch(self, group_leaves, outer, tc, *, mu, lr, inplace: bool = False):
-        """(G lists of leaves) + outer state -> (target_f32 leaves, new outer)."""
+    def wire_bytes_per_param(self, tc) -> float:
+        """Modeled slow-exchange width in bytes per parameter: 4.0 for the
+        fp32 collectives (``Quantized`` exchanges its dequantized payload in
+        fp32); the wire strategies give ``bits/8 + 4/block``."""
+        return 4.0
+
+    @torch.no_grad()
+    def sim_dispatch(self, group_leaves, outer: OuterState, tc, *, mu, lr, num_pods: int = 1,
+                     weights=None, inplace: bool = False):
+        """(G lists of leaves) + outer state -> (target_f32 leaves, new outer).
+
+        Per leaf, as ``repro/sync/base.py:OuterSyncStrategy.sim_dispatch``:
+        the G deltas ``θ_g − anchor`` (subtract, *then* reduce, unlike
+        :class:`~repro_torch.sync.strategies.FlatFP32`), the strategy's
+        :meth:`sim_reduce_leaf`, then the outer update. Every delta of a
+        leaf is taken before the update may overwrite that leaf's anchor.
+        ``inplace`` updates the fp32 momentum and anchor in place
+        (``core.outer.outer_reduce_leaves``) and writes each new residual
+        over the old one.
+        """
+        no_weights(weights)
+        targets, moms, anchors, res = [], [], [], ([], [])
+        G = len(group_leaves)
+        for i, (m, a) in enumerate(zip(outer.momentum, outer.anchor)):
+            af = a.float()
+            delta = torch.empty((G, *a.shape), dtype=torch.float32, device=a.device)
+            for g, leaves in enumerate(group_leaves):
+                torch.sub(leaves[i].float(), af, out=delta[g])
+            r = outer.residual[i] if outer.residual is not None else None
+            if self.needs_residual2:
+                r = (r, outer.residual2[i] if outer.residual2 is not None else None)
+            payload, new_r = self.sim_reduce_leaf(delta, r, tc, num_pods=num_pods)
+            del delta
+            new_rs = new_r if self.needs_residual2 else (
+                new_r, outer.residual2[i] if outer.residual2 is not None else None)
+            for k, (old, new) in enumerate(zip((outer.residual, outer.residual2), new_rs)):
+                if new is None:
+                    continue
+                if inplace and old is not None and new is not old[i]:
+                    new = old[i].copy_(new)
+                res[k].append(new)
+            t, mm, an = outer_reduce_leaves([m], [a], [payload], tc, mu=mu, lr=lr,
+                                            inplace=inplace)
+            targets += t
+            moms += mm
+            anchors += an
+        return targets, OuterState(momentum=moms, anchor=anchors,
+                                   num_syncs=outer.num_syncs + 1,
+                                   residual=res[0] or None, residual2=res[1] or None)
+
+    def sim_reduce_leaf(self, delta, residual, tc, *, num_pods: int = 1,
+                        pod_grouped: bool = False):
+        """One leaf's (G, ...) fp32 Δθ stack -> (averaged payload, new residual).
+
+        ``residual`` is the leaf's (G, ...) residual, ``None``, or the
+        ``(r1, r2)`` pair when :attr:`needs_residual2`. ``pod_grouped``
+        (set by :class:`~repro_torch.sync.strategies.Hierarchical` after its
+        pod mean) marks the entries as pod-duplicated: the exchange's
+        endpoints are then the ``num_pods`` pods.
+        """
         raise NotImplementedError
+
+    def sim_reduce(self, delta, residual, tc, *, num_pods: int = 1, pod_grouped: bool = False,
+                   weights=None):
+        """:meth:`sim_reduce_leaf` over lists of leaves, the reference's tree
+        signature: ``residual`` is a list, ``None``, or (with
+        :attr:`needs_residual2`) a pair of lists, and so is the new one."""
+        no_weights(weights)
+        n = len(delta)
+        if self.needs_residual2:
+            r1, r2 = residual if isinstance(residual, tuple) else (residual, None)
+            rs = list(zip(r1 if r1 is not None else [None] * n,
+                          r2 if r2 is not None else [None] * n))
+        else:
+            rs = residual if residual is not None else [None] * n
+        out = [self.sim_reduce_leaf(d, r, tc, num_pods=num_pods, pod_grouped=pod_grouped)
+               for d, r in zip(delta, rs)]
+        payload = [p for p, _ in out]
+        if self.needs_residual2:
+            return payload, ([r[0] for _, r in out], [r[1] for _, r in out])
+        if residual is None and not self.needs_residual:
+            return payload, None
+        return payload, [r for _, r in out]

@@ -1,20 +1,42 @@
 """Concrete outer-sync strategies and the config resolver
 (``repro/sync/strategies.py``).
 
-Only :class:`FlatFP32`, the seed collective, is ported. The quantized,
-int8-wire, rs-ag, sharded, hierarchical and chunked strategies come with
-later slices (ROADMAP.md queue 1); :func:`resolve_strategy` raises
-``NotImplementedError`` for a configuration that needs one.
+- :class:`FlatFP32`: the fp32 mean of Δθ over the groups, the seed
+  collective.
+- :class:`Quantized`: each group's Δθ plus its error-feedback residual is
+  blockwise quantized and dequantized (``core.outer.compress_leaf``), and
+  the dequantized payloads are meaned.
+- :class:`Int8Wire`: the int8 (or int4) wire format: the per-source-scale
+  sum of the packed payloads in canonical order (``kernels/wire.py``);
+  with ``reduce_scatter`` the quantized reduce-scatter + all-gather round
+  trip behind a second residual ("rs-ag").
+- :class:`Hierarchical`: an fp32 mean inside each pod first, then the
+  inner strategy's exchange between the pods.
+- :class:`Chunked`: the leaves dispatch as contiguous spans; numerically
+  the inner strategy.
+
+Each is the reference's simulator model of the strategy, with the same
+numerics (``sim_dispatch`` / ``sim_reduce``); on CUDA leaves every
+quantize and dequantize launches its kernel. Still raising
+``NotImplementedError``: ``Sharded`` (ROADMAP.md queue 1, item 10), elastic
+``weights`` (item 9), and the distributed ``reduce_leaf`` (the
+multi-process Trainer, item 7).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.core.outer import OuterState, outer_reduce_leaves
-from repro_torch.sync.base import OuterSyncStrategy
+from repro_torch.config import OuterCommConfig
+from repro_torch.core.outer import OuterState, compress_leaf, outer_reduce_leaves
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels import wire
+from repro_torch.sync.base import (OuterSyncStrategy, SyncPlan, balanced_spans,
+                                   leaf_sizes, no_weights)
 
 
 @dataclass(frozen=True)
@@ -26,8 +48,8 @@ class FlatFP32(OuterSyncStrategy):
         return "flat-fp32"
 
     @torch.no_grad()
-    def sim_dispatch(self, group_leaves, outer: OuterState, tc, *, mu, lr,
-                     inplace: bool = False):
+    def sim_dispatch(self, group_leaves, outer: OuterState, tc, *, mu, lr, num_pods: int = 1,
+                     weights=None, inplace: bool = False):
         """Mean the G replicas, subtract the anchor, run the outer update.
 
         As ``strategies.py:FlatFP32.sim_dispatch`` of the reference, the
@@ -35,9 +57,9 @@ class FlatFP32(OuterSyncStrategy):
         agree in exact arithmetic, not in floating point). The work goes one
         leaf at a time, so the fp32 mean, Δθ and target temporaries are one
         leaf's size. ``inplace`` updates the fp32 outer state in place
-        (``core.outer.outer_reduce_leaves``). The reference's ``num_pods``
-        and elastic ``weights`` come with the strategies that use them.
+        (``core.outer.outer_reduce_leaves``).
         """
+        no_weights(weights)
         targets, moms, anchors = [], [], []
         for i, (m, a) in enumerate(zip(outer.momentum, outer.anchor)):
             stacked = torch.stack([g[i].float() for g in group_leaves])
@@ -48,8 +70,239 @@ class FlatFP32(OuterSyncStrategy):
             targets += t
             moms += mm
             anchors += an
-        return targets, OuterState(momentum=moms, anchor=anchors,
-                                   num_syncs=outer.num_syncs + 1)
+        return targets, outer._replace(momentum=moms, anchor=anchors,
+                                       num_syncs=outer.num_syncs + 1)
+
+    def sim_reduce_leaf(self, delta, residual, tc, *, num_pods=1, pod_grouped=False):
+        return delta.mean(dim=0), residual
+
+
+@dataclass(frozen=True)
+class Quantized(OuterSyncStrategy):
+    """Blockwise-quantized Δθ payload with error feedback: each group's
+    dequantized payload (what int8 + scales deliver) is exchanged at fp32
+    width, and what quantization dropped stays in its residual."""
+
+    bits: int = 8
+    block: int = 256
+
+    needs_residual = True
+
+    @property
+    def name(self) -> str:
+        return f"quantized(int{self.bits},block={self.block})"
+
+    def sim_reduce_leaf(self, delta, residual, tc, *, num_pods=1, pod_grouped=False):
+        payloads, new_r = [], []
+        for g in range(delta.shape[0]):
+            p, r = compress_leaf(delta[g], None if residual is None else residual[g],
+                                 bits=self.bits, block=self.block)
+            payloads.append(p)
+            new_r.append(r)
+        return torch.stack(payloads).mean(dim=0), torch.stack(new_r)
+
+
+def _quantize_rows(c: torch.Tensor, *, bits: int, block: int):
+    """(G, ...) fp32 -> (q (G, nq) int8, s (G, nb) fp32, local payload
+    (G, ...) fp32): each group's quantize and its own dequantized copy."""
+    G = c.shape[0]
+    flat = c.reshape(G, -1)
+    n = flat.shape[1]
+    qs = [kops.quantize_blockwise(flat[g], bits=bits, block=block) for g in range(G)]
+    q = torch.stack([x for x, _ in qs])
+    s = torch.stack([x for _, x in qs])
+    local = torch.stack([kops.dequantize_blockwise(q[g], s[g], block=block)[:n]
+                         for g in range(G)])
+    return q, s, local.reshape(c.shape)
+
+
+@dataclass(frozen=True)
+class Int8Wire(OuterSyncStrategy):
+    """The int8 (or int4) wire format with per-source-scale sum semantics.
+
+    Same quantization and error feedback as :class:`Quantized`, but the
+    reduction is the wire ring's: every endpoint's packed payload is
+    dequantized and summed in canonical source order, times ``1/E``
+    (``kernels/wire.py:dequant_sum_sources``). ``reduce_scatter=True`` is
+    the rs-ag path: endpoint ``e`` reduces slot ``e`` of every source,
+    re-quantizes it behind a second residual (``OuterState.residual2``)
+    and all-gathers the slots.
+    """
+
+    bits: int = 8
+    block: int = 256
+    reduce_scatter: bool = False
+
+    needs_residual = True
+
+    @property
+    def needs_residual2(self) -> bool:  # type: ignore[override]
+        return self.reduce_scatter
+
+    @property
+    def name(self) -> str:
+        if self.reduce_scatter:
+            return f"rs-ag(int{self.bits},block={self.block})"
+        return f"int{self.bits}-wire(block={self.block})"
+
+    @property
+    def wire_format(self) -> str:  # type: ignore[override]
+        if self.reduce_scatter:
+            return f"int{self.bits}+scales/rs-ag"
+        return f"int{self.bits}+scales"
+
+    def wire_bytes_per_param(self, tc) -> float:
+        return self.bits / 8.0 + 4.0 / self.block
+
+    def sim_reduce_leaf(self, delta, residual, tc, *, num_pods=1, pod_grouped=False):
+        """The ring's model: under ``pod_grouped`` its endpoints are the
+        pods, one representative each (every group still quantizes, so its
+        residual is its own)."""
+        if self.reduce_scatter:
+            return self._sim_reduce_rs_ag(delta, residual, pod_grouped=pod_grouped)
+        bits, block = self.bits, self.block
+        c = delta.float()
+        if residual is not None:
+            c = c + residual.float()
+        n = c[0].numel()
+        q, s, local = _quantize_rows(c, bits=bits, block=block)
+        new_r = c - local
+        if pod_grouped:
+            G, P = q.shape[0], max(num_pods, 1)
+            q = q.reshape(P, G // P, -1)[:, 0]
+            s = s.reshape(P, G // P, -1)[:, 0]
+        avg = wire.ring_allreduce_qs_ref(q, s, block=block, bits=bits)
+        return avg[:n].reshape(c.shape[1:]), new_r
+
+    def _sim_reduce_rs_ag(self, delta, residual, *, pod_grouped=False):
+        """The rs/ag round trip (``kernels/wire.py:rs_ag_qs_ref``): the G
+        groups are the endpoints. Each group's second residual is stored
+        full-size, zero outside its own slot."""
+        if pod_grouped:
+            raise ValueError(
+                "the rs/ag wire path does not compose with the hierarchical two-stage "
+                "reduce: the reduce-scatter already owns the slow-axis layout")
+        bits, block = self.bits, self.block
+        r1, r2 = residual if isinstance(residual, tuple) else (residual, None)
+        c = delta.float()
+        if r1 is not None:
+            c = c + r1.float()
+        G = c.shape[0]
+        n = c[0].numel()
+        q, s, local = _quantize_rows(c, bits=bits, block=block)
+        new_r1 = c - local
+        E = G
+        if E <= 1:
+            return local[0], (new_r1, r2 if r2 is not None else torch.zeros_like(c))
+        sb = wire.wire_shard_blocks(s.shape[1], E)
+        slot = sb * block
+        diag = torch.arange(E, device=c.device)
+        if r2 is None:
+            r2_shards = torch.zeros((E, slot), dtype=torch.float32, device=c.device)
+        else:  # endpoint g's full-size residual -> its own slot g
+            r2_pad = F.pad(r2.float().reshape(G, -1), (0, E * slot - n))
+            r2_shards = r2_pad.reshape(E, E, slot)[diag, diag]
+        payload, new_r2_shards = wire.rs_ag_qs_ref(q, s, block=block, bits=bits,
+                                                   residual2=r2_shards)
+        new_r2 = torch.zeros((E, E, slot), dtype=torch.float32, device=c.device)
+        new_r2[diag, diag] = new_r2_shards
+        new_r2 = new_r2.reshape(E, E * slot)[:, :n].reshape(c.shape)
+        return payload[:n].reshape(c.shape[1:]), (new_r1, new_r2)
+
+
+@dataclass(frozen=True)
+class Hierarchical(OuterSyncStrategy):
+    """Two-stage reduce: an fp32 mean inside each pod, then ``inner``'s
+    exchange between the pods (with one pod, the global mean once)."""
+
+    inner: OuterSyncStrategy = FlatFP32()
+
+    def __post_init__(self):
+        if self.inner.needs_residual2:
+            raise ValueError(
+                "Hierarchical cannot compose the reduce-scatter wire path: the rs/ag "
+                "exchange already owns the slow-axis layout; use int8-wire under "
+                "Hierarchical, or rs-ag flat")
+
+    @property
+    def name(self) -> str:
+        return f"hierarchical[{self.inner.name}]"
+
+    @property
+    def needs_residual(self) -> bool:  # type: ignore[override]
+        return self.inner.needs_residual
+
+    @property
+    def wire_format(self) -> str:  # type: ignore[override]
+        return self.inner.wire_format
+
+    def wire_bytes_per_param(self, tc) -> float:
+        return self.inner.wire_bytes_per_param(tc)
+
+    def sim_reduce_leaf(self, delta, residual, tc, *, num_pods=1, pod_grouped=False):
+        """Every group of a pod gets the pod's mean (so the residuals stay
+        pod-identical), then the inner strategy reduces over the pods."""
+        P = max(num_pods, 1)
+        G = delta.shape[0]
+        validate_pod_grouping(G, P)
+        pod_mean = delta.reshape(P, G // P, *delta.shape[1:]).mean(dim=1, keepdim=True)
+        delta = pod_mean.expand(P, G // P, *delta.shape[1:]).reshape(delta.shape)
+        return self.inner.sim_reduce_leaf(delta, residual, tc, num_pods=num_pods,
+                                          pod_grouped=True)
+
+
+@dataclass(frozen=True)
+class Chunked(OuterSyncStrategy):
+    """Span combinator: the leaves dispatch as ``num_chunks`` contiguous
+    spans of about equal size. Numerically ``inner``: the simulator
+    dispatches the plan as one computation, as the reference's does, and
+    applies it span by span."""
+
+    inner: OuterSyncStrategy = FlatFP32()
+    num_chunks: int = 2
+
+    def __post_init__(self):
+        if self.inner.needs_residual2:
+            raise ValueError(
+                "Chunked cannot (yet) compose the reduce-scatter wire path; use rs-ag "
+                "with chunks=1")
+
+    @property
+    def name(self) -> str:
+        return f"chunked({self.num_chunks})[{self.inner.name}]"
+
+    @property
+    def needs_residual(self) -> bool:  # type: ignore[override]
+        return self.inner.needs_residual
+
+    @property
+    def wire_format(self) -> str:  # type: ignore[override]
+        return self.inner.wire_format
+
+    def wire_bytes_per_param(self, tc) -> float:
+        return self.inner.wire_bytes_per_param(tc)
+
+    def plan(self, leaves, tc) -> SyncPlan:
+        sizes = leaf_sizes(leaves)
+        # no more chunks than leaves; an empty list keeps one empty span
+        chunks = max(1, min(self.num_chunks, len(sizes)))
+        spans = balanced_spans(sizes, chunks) if sizes else ((0, 0),)
+        return SyncPlan(num_leaves=len(sizes), spans=spans,
+                        needs_residual=self.needs_residual, name=self.name,
+                        wire_format=self.wire_format)
+
+    def sim_dispatch(self, group_leaves, outer, tc, *, mu, lr, num_pods: int = 1,
+                     weights=None, inplace: bool = False):
+        return self.inner.sim_dispatch(group_leaves, outer, tc, mu=mu, lr=lr,
+                                       num_pods=num_pods, weights=weights, inplace=inplace)
+
+    def sim_reduce_leaf(self, delta, residual, tc, *, num_pods=1, pod_grouped=False):
+        return self.inner.sim_reduce_leaf(delta, residual, tc, num_pods=num_pods,
+                                          pod_grouped=pod_grouped)
+
+
+# the strategies the simulator runs (``Sharded`` is not ported)
+PORTED = (FlatFP32, Quantized, Int8Wire, Hierarchical, Chunked)
 
 
 def validate_pod_grouping(num_groups: int, num_pods: int) -> None:
@@ -63,16 +316,39 @@ def validate_pod_grouping(num_groups: int, num_pods: int) -> None:
 
 def resolve_strategy(cfg) -> OuterSyncStrategy:
     """Map an ``OuterCommConfig`` (or a ``TrainConfig`` carrying one) onto
-    the strategy object; only the all-defaults config is ported."""
+    the strategy object, composed as the reference composes it: core, then
+    Hierarchical, then Chunked. ``sharded`` raises ``NotImplementedError``."""
     comm = getattr(cfg, "outer_comm", cfg)
-    if comm.compression not in ("none", "quantize", "int8-wire", "rs-ag"):
+    core: OuterSyncStrategy
+    if comm.compression == "quantize":
+        core = Quantized(bits=comm.bits, block=comm.block)
+    elif comm.compression == "int8-wire":
+        core = Int8Wire(bits=comm.bits, block=comm.block)
+    elif comm.compression == "rs-ag":
+        core = Int8Wire(bits=comm.bits, block=comm.block, reduce_scatter=True)
+    elif comm.compression == "none":
+        core = FlatFP32()
+    else:
         raise ValueError(f"unknown outer compression {comm.compression!r}")
-    unported = [k for k, on in (
-        (f"compression={comm.compression!r}", comm.compression != "none"),
-        ("hierarchical", comm.hierarchical), (f"chunks={comm.chunks}", comm.chunks > 1),
-        ("sharded", comm.sharded)) if on]
-    if unported:
+    if comm.sharded:
         raise NotImplementedError(
-            f"outer strategy with {', '.join(unported)} is not ported yet; the port "
-            f"runs the flat fp32 mean (OuterCommConfig defaults)")
-    return FlatFP32()
+            "the Sharded outer strategy is not ported yet: its layout is the "
+            "in-group mesh's (ROADMAP.md queue 1, item 10)")
+    if comm.hierarchical:
+        core = Hierarchical(inner=core)
+    if comm.chunks > 1:
+        core = Chunked(inner=core, num_chunks=comm.chunks)
+    return core
+
+
+def strategy_name(*, bits: int = 32, block: int = 256, hierarchical: bool = False,
+                  chunks: int = 1, sharded: bool = False,
+                  compression: Optional[str] = None) -> str:
+    """Resolved strategy name for benchmark knobs (``bits >= 32`` = fp32;
+    ``compression=None`` infers fp32 or blockwise quantize from ``bits``)."""
+    if compression is None:
+        compression = "none" if bits >= 32 else "quantize"
+    comm = OuterCommConfig(compression=compression, bits=bits if bits < 32 else 8,
+                           block=block, hierarchical=hierarchical, chunks=chunks,
+                           sharded=sharded)
+    return resolve_strategy(comm).name

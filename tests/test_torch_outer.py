@@ -3,8 +3,10 @@
 Same numpy inputs through ``repro`` and ``repro_torch``: the training
 config copies, the schedule's event streams, the fused outer update (plain
 version and wrapper on the CPU against the reference's oracle and its
-Pallas kernel in interpret mode), the outer algebra and the flat fp32
-dispatch. Elementwise functions must agree bit for bit.
+Pallas kernel in interpret mode), the outer algebra, the flat fp32
+dispatch and the strategies' resolution (the compressed strategies' numerics
+are in ``test_torch_compress.py``). Elementwise functions must agree bit for
+bit.
 """
 
 import dataclasses
@@ -342,8 +344,39 @@ def test_flat_fp32_sim_dispatch_vs_reference(G):
     {"compression": "quantize"}, {"compression": "int8-wire"}, {"compression": "rs-ag"},
     {"hierarchical": True}, {"chunks": 2}, {"sharded": True}])
 def test_unported_strategies_raise(comm):
-    with pytest.raises(NotImplementedError):
-        resolve_strategy(pt_config.OuterCommConfig(**comm))
+    """The five ported strategies resolve as the reference's do: name, wire
+    format, plan spans and wire bytes per parameter (1.015625 B for int8 at
+    block 256). ``sharded`` still raises."""
+    if comm.get("sharded"):
+        with pytest.raises(NotImplementedError, match="queue"):
+            resolve_strategy(pt_config.OuterCommConfig(**comm))
+        return
+    strat = resolve_strategy(pt_config.OuterCommConfig(**comm))
+    jstrat = jax_resolve(jax_config.OuterCommConfig(**comm))
+    shapes = [np.zeros(s, np.float32) for s in ((50, 16), (16,), (3, 5, 7), (64, 64), (9,))]
+    jtc, tc = jax_config.TrainConfig(), pt_config.TrainConfig()
+    plan, jplan = strat.plan(shapes, tc), jstrat.plan(shapes, jtc)
+    assert (strat.name, strat.wire_format) == (jstrat.name, jstrat.wire_format)
+    assert (plan.name, plan.spans, plan.needs_residual, plan.wire_format,
+            plan.needs_residual2) == (jplan.name, jplan.spans, jplan.needs_residual,
+                                      jplan.wire_format, jplan.needs_residual2)
+    assert strat.wire_bytes_per_param(tc) == jstrat.wire_bytes_per_param(jtc)
+    if comm.get("compression") in ("int8-wire", "rs-ag"):
+        assert strat.wire_bytes_per_param(tc) == 1.015625
+    if comm.get("chunks"):
+        assert plan.num_chunks == 2
+
+
+@pytest.mark.parametrize("knobs", [
+    {}, {"bits": 8}, {"bits": 4, "block": 64, "hierarchical": True},
+    {"bits": 8, "chunks": 3}, {"compression": "int8-wire", "bits": 4},
+    {"compression": "rs-ag", "block": 128}, {"hierarchical": True, "chunks": 2}])
+def test_strategy_name_matches_reference(knobs):
+    from repro.sync.strategies import strategy_name as jax_strategy_name
+
+    from repro_torch.sync import strategy_name
+
+    assert strategy_name(**knobs) == jax_strategy_name(**knobs)
 
 
 def test_validate_pod_grouping():
@@ -360,7 +393,22 @@ def test_outer_init_matches_reference():
         for x, y in zip(ps.momentum + ps.anchor, list(js.momentum) + list(js.anchor)):
             assert str(x.dtype) == f"torch.{y.dtype}"
             np.testing.assert_array_equal(x.float().numpy(), np.asarray(y.astype(jnp.float32)))
-    with pytest.raises(NotImplementedError):
-        PO.outer_init(_pt(a), pt_config.TrainConfig(
-            outer_comm=pt_config.OuterCommConfig(compression="quantize")))
+    assert ps.residual is None and ps.residual2 is None and js.residual is None
+    # the compressed strategies' residuals: (G, *leaf) fp32 zeros per leaf
+    for kw in ({}, {"needs_residual2": True}):
+        js = JO.outer_init([jnp.asarray(x) for x in a], jax_config.TrainConfig(
+            outer_comm=jax_config.OuterCommConfig(compression="quantize")), num_groups=3, **kw)
+        ps = PO.outer_init(_pt(a), pt_config.TrainConfig(
+            outer_comm=pt_config.OuterCommConfig(compression="quantize")), num_groups=3, **kw)
+        pairs = list(zip(ps.residual, js.residual))
+        if kw:
+            pairs += list(zip(ps.residual2, js.residual2))
+        else:
+            assert ps.residual2 is None and js.residual2 is None
+        for x, y in pairs:
+            assert x.dtype == torch.float32 and tuple(x.shape) == y.shape
+            np.testing.assert_array_equal(x.numpy(), np.asarray(y))
+        assert len({x.data_ptr() for x, _ in pairs}) == len(pairs)  # nothing shared
+    assert PO.outer_init(_pt(a), pt_config.TrainConfig(), num_groups=2,
+                         needs_residual=True).residual[0].shape == (2, *a[0].shape)
     assert jax.tree_util.tree_structure(js.num_syncs).num_leaves == 1

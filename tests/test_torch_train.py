@@ -36,6 +36,7 @@ from repro_torch.models.transformer import param_leaves  # noqa: E402
 from repro_torch.optim import adamw as PA  # noqa: E402
 from repro_torch.optim.clip import clip_by_global_norm  # noqa: E402
 from repro_torch.optim.schedules import lr_at  # noqa: E402
+from repro_torch.sync import OuterSyncStrategy  # noqa: E402
 
 # the reduced GPT-2 shape of tests/test_simulate.py, tied embeddings
 MC_KW = dict(num_layers=2, d_model=64, num_heads=2, num_kv_heads=2, d_ff=128,
@@ -312,18 +313,25 @@ def test_groups_diverge_then_resync():
 
 
 @pytest.mark.parametrize("kw", [{"sync_controller": object()}, {"membership": object()},
-                                {"checkpoint_manager": object()}, {"num_pods": 2},
+                                {"checkpoint_manager": object()},
+                                {"strategy": OuterSyncStrategy()},
                                 {"strategy": object()}])
 def test_unported_constructor_arguments_raise(kw):
+    """Pods are ported now (``num_pods=2`` runs, below); a strategy that is
+    none of the ported classes still raises."""
     tc = pt_config.TrainConfig(**TC_KW)
     with pytest.raises(NotImplementedError):
         SimulatedRun(PMC, tc, num_groups=2, device="cpu", **kw)
+    run = SimulatedRun(PMC, tc, num_groups=2, num_pods=2, device="cpu")
+    assert run.P == 2 and run.state.outer.residual is None
+    with pytest.raises(ValueError):
+        SimulatedRun(PMC, tc, num_groups=2, num_pods=3, device="cpu")
 
 
 def test_unported_train_configs_raise():
     with pytest.raises(NotImplementedError):
         SimulatedRun(PMC, pt_config.TrainConfig(**TC_KW, outer_comm=pt_config.OuterCommConfig(
-            compression="quantize")), num_groups=2, device="cpu")
+            sharded=True)), num_groups=2, device="cpu")
     with pytest.raises(NotImplementedError):
         SimulatedRun(PMC, pt_config.TrainConfig(**TC_KW, membership=object()),
                      num_groups=2, device="cpu")
