@@ -31,6 +31,16 @@ and no result line:
    queued behind a sleep kernel so host overhead is not counted) beside the
    plain version's and, for attention, ``F.scaled_dot_product_attention``
    (forward, or forward + backward) as a yardstick the port never calls.
+2b. ``check_ring``: the two wire kernels (ring all-gather, shard scatter)
+   between ranks spawned through the port's launcher on the one card (2 and
+   4 ranks, gloo, CUDA-IPC-mapped symmetric buffers), byte for byte against
+   their plain versions on host copies of the same bytes: buffers of 1 B and
+   ragged lengths, the int4 nibble wire, the GPT-2 medium token table's int8
+   payload through the quantized all-reduce, reduce-scatter and all-gather,
+   and every GPT-2 medium leaf's wire packed into one buffer. Times there
+   (CUDA events, median of 25) beside the plain version's and gloo's
+   ``all_gather_into_tensor`` on host copies; a broken peer (one rank skips
+   the launch) must raise at the kernel's 2 s deadline.
 3. ``e2e_vs_cpu``: GPT-2 XL width at 4 layers in fp32, the same seeded
    weights on the card (kernels) and on the CPU (plain versions): a
    teacher-forced paged rollout (prompt 200, 16 decode steps) must agree
@@ -79,8 +89,23 @@ and no result line:
    leaves x outer syncs. After each of the two runs, a
    ``*_dispatch_breakdown`` line: device time by kernel group of one more
    outer dispatch beside its wall time, and the idle share.
+8c. ``train_dist_vs_sim``: the multi-process Trainer (ranks sharing the
+   card) against ``SimulatedRun`` on the card, GPT-2 medium width, 2 layers,
+   fp32, per-group batch 2 x 256, 8 steps without lazy start (four outer
+   syncs): flat, int8-wire and rs-ag at 2 ranks, delay 0 and 1, and
+   Hierarchical over int8-wire at 4 ranks in 2 pods. Losses and parameters
+   within 1e-5 (the wire strategies bit for bit); every rank's launches
+   exactly what its strategy's code path makes (ring and scatter included).
+8d. ``train_dist``: full GPT-2 medium (24 layers, 355 M parameters) on 2
+   ranks sharing the card (G = 2, per-group batch 2 x 1024), 10 steps of the
+   ``train`` schedule, once with int8-wire and once with rs-ag: finite loss,
+   the validation loss falls, launches exact; tokens/s over both ranks,
+   step, dispatch and apply times, ring and scatter times per sync, peak
+   memory per rank. Two ranks share one card, so the rate is not a two-GPU
+   rate.
 9. a ``{"kernels": [...]}`` line: per kernel its launches on the main-path
-   runs (serve, train and train_compressed), max error, kernel / plain / library times and
+   runs (serve, train, train_compressed and, summed over ranks,
+   train_dist), max error, kernel / plain / library times and
    the bound at the main path's shape (bytes over 3.35 TB/s and operations
    over the peak rate of the inputs' type, the larger of the two; H100 SXM
    data sheet).
@@ -1350,6 +1375,375 @@ def build_times(torch):
     shutil.rmtree(base, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phases 9-11: the multi-process Trainer and the wire kernels, ranks on the card
+# ---------------------------------------------------------------------------
+
+DIST_DEADLINE_S = 600   # a spawned world; every rank is killed past it
+BROKEN_TIMEOUT_S = 2.0  # the broken-peer case's in-kernel deadline
+
+
+def _medium_leaf_sizes(torch, bits: int = 8, block: int = 256):
+    """Per GPT-2 medium leaf: (wire bytes, scale count) of its quantized
+    payload, from the shapes of seeded parameters made on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry as R
+    from repro_torch.models.transformer import param_leaves
+
+    p = R.init_params(get_config("gpt2-medium"), seed=0, device="cuda", training=True)
+    out = []
+    for _, t in param_leaves(p):
+        nb = -(-t.numel() // block)
+        out.append((nb * block if bits >= 8 else (nb * block + 1) // 2, nb))
+    del p
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ring_worker(info):
+    """check_ring on one rank: every kernel case against its plain version
+    on host copies of the same bytes (gloo), kernel and plain times, and
+    the broken peer (E = 2). Returns this rank's lines."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import quantize as QK
+    from repro_torch.kernels import ring_allreduce as RA
+    from repro_torch.kernels.symm import Exchange, SymmBuffer
+    from repro_torch.kernels.wire import pack_wire
+
+    E, r, dev = info.world, info.rank, info.device
+    ranks = list(range(E))
+    pg = dist.new_group(ranks)
+    ex = Exchange(group=pg, ranks=ranks, index=r)
+    cpu_ex = Exchange(group=pg, ranks=ranks, index=r)
+    sizes = _medium_leaf_sizes(torch)
+    layout = RA.WireLayout(sizes)
+    slot_layout = RA.WireLayout([(-(-nw // E), -(-nb // E)) for nw, nb in sizes])
+    cap = E * max(layout.nbytes, slot_layout.nbytes + 16)
+    ex.symm = SymmBuffer(pg, E, r, cap, dev)
+    g = torch.Generator(device=dev).manual_seed(1000 + r)
+    lines = []
+
+    def same(name, kernel, plain, **extra):
+        eq = torch.equal(kernel.cpu(), plain.cpu())
+        err = 0.0 if eq else float((kernel.cpu().double() - plain.cpu().double()).abs().max())
+        lines.append({"case": name, "E": E, "rank": r, "bitwise_equal": eq,
+                      "max_abs_err": err, **extra})
+
+    def rand_bytes(n):
+        return torch.randint(0, 256, (n,), generator=g, device=dev, dtype=torch.uint8)
+
+    # raw buffers: one byte, ragged lengths (byte path), 16-byte multiples
+    for n in (1, 1_000_003, 65_552):
+        x = rand_bytes(n)
+        same(f"ring_bytes_{n}", RA.ring_allgather(x, ex), RA.ring_allgather(x.cpu(), cpu_ex))
+        s = rand_bytes(E * (n // E + 1)).reshape(E, -1)
+        same(f"scatter_bytes_{s.shape[1]}", RA.shard_scatter(s, ex),
+             RA.shard_scatter(s.cpu(), cpu_ex))
+    # the int4 nibble wire and the GPT-2 medium token table's int8 payload
+    for name, n, bits, block in (("int4_b64", 300_001, 4, 64),
+                                 ("token_table_int8_b256", 50304 * 1024, 8, 256)):
+        x = torch.randn(n, generator=g, device=dev) * 1e-3
+        q, s = QK.quantize_blockwise(x, bits=bits, block=block)
+        qc, sc = q.cpu(), s.cpu()
+        kw = dict(bits=bits, block=block)
+        got = RA.gather_wire([(pack_wire(q, bits), s)], ex, bits=bits)[0]
+        ref = RA.gather_wire([(pack_wire(qc, bits), sc)], cpu_ex, bits=bits)[0]
+        same(f"gather_{name}", got[0], ref[0])
+        same(f"gather_scales_{name}", got[1], ref[1])
+        same(f"allreduce_{name}", RA.ring_allreduce_quantized(q, s, ex, **kw),
+             RA.ring_allreduce_quantized(qc, sc, cpu_ex, **kw))
+        red = RA.reduce_scatter_qs(q, s, ex, **kw)
+        same(f"reduce_scatter_{name}", red, RA.reduce_scatter_qs(qc, sc, cpu_ex, **kw))
+        q2, s2 = QK.quantize_blockwise(red, bits=bits, block=block)
+        same(f"allgather_{name}", RA.allgather_qs(q2, s2, ex, **kw),
+             RA.allgather_qs(q2.cpu(), s2.cpu(), cpu_ex, **kw))
+        del x, q, s, red, q2, s2, got
+    # the whole model packed: the main path's shapes (one launch per stage)
+    timings = {}
+    xs = {"ring_allgather": rand_bytes(layout.nbytes),
+          "shard_scatter": rand_bytes(E * slot_layout.nbytes).reshape(E, -1)}
+    for kname, x in xs.items():
+        fn = RA.ring_allgather if kname == "ring_allgather" else RA.shard_scatter
+        xc = x.cpu()
+        same(f"{kname}_whole_model", fn(x, ex), fn(xc, cpu_ex), nbytes=x.numel())
+        torch.cuda.synchronize()
+        dist.barrier(group=pg)
+        evs = []
+        for _ in range(REPS):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn(x, ex)
+            b.record()
+            evs.append((a, b))
+        torch.cuda.synchronize()
+        ms = statistics.median(a.elapsed_time(b) for a, b in evs)
+        plain, lib = [], []
+        for _ in range(3):
+            dist.barrier(group=pg)
+            t0 = time.perf_counter()
+            fn(xc, cpu_ex)
+            plain.append(1e3 * (time.perf_counter() - t0))
+            flat = xc.reshape(-1)
+            outl = torch.empty(E * flat.numel(), dtype=torch.uint8)
+            dist.barrier(group=pg)
+            t0 = time.perf_counter()
+            dist.all_gather_into_tensor(outl, flat, group=pg)
+            if kname == "shard_scatter":  # the all-gather and this member's column
+                outl = outl.reshape(E, E, -1)[:, r].contiguous()
+            lib.append(1e3 * (time.perf_counter() - t0))
+        timings[kname] = {"ms": ms, "plain_ms": statistics.median(plain),
+                          "library_ms": statistics.median(lib), "nbytes_per_rank": x.numel()}
+    ex.symm.check("check_ring")
+    broken = None
+    if E == 2:
+        # a broken peer: rank 1 never launches; rank 0's kernel must give up
+        # at its deadline and the flag must raise, not hang
+        dist.barrier(group=pg)
+        if r == 0:
+            x = rand_bytes(4096)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            RA.ring_allgather(x, ex, timeout_s=BROKEN_TIMEOUT_S)
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
+            try:
+                ex.symm.check("broken peer")
+                raised = None
+            except RuntimeError as e:
+                raised = str(e)
+            broken = {"seconds": elapsed, "deadline_s": BROKEN_TIMEOUT_S, "raised": raised}
+        dist.barrier(group=pg)
+    ex.symm.close()
+    return {"lines": lines, "timings": timings, "broken": broken,
+            "launches": {"ring_allgather": RA.ring_launches,
+                         "shard_scatter": RA.scatter_launches}}
+
+
+def check_ring(torch, results):
+    """Both wire kernels against their plain versions, at E = 2 and 4 ranks
+    sharing the card, and their times at the main path's shapes (E = 2)."""
+    from repro_torch.launch.train import spawn
+
+    for E in (2, 4):
+        t0 = time.perf_counter()
+        outs = spawn(_ring_worker, nproc=E, device="cuda", timeout=DIST_DEADLINE_S)
+        bad = [ln for o in outs for ln in o["lines"] if not ln["bitwise_equal"]]
+        for ln in outs[0]["lines"]:
+            emit({"phase": "check_ring", **ln})
+        tm = outs[0]["timings"]
+        emit({"phase": "check_ring", "E": E, "timings_rank0": tm,
+              "broken_peer": outs[0]["broken"], "seconds": time.perf_counter() - t0})
+        if bad:
+            raise AssertionError(f"check_ring E={E}: kernel != plain version: {bad[:3]}")
+        if E == 2:
+            br = outs[0]["broken"]
+            if br is None or br["raised"] is None or br["seconds"] > BROKEN_TIMEOUT_S + 5:
+                raise AssertionError(f"check_ring: the broken peer did not raise within the "
+                                     f"deadline: {br}")
+            for kname, row, src in (("ring_allgather", 300, "ring_allgather.cu"),
+                                    ("shard_scatter", 386, "shard_scatter.cu")):
+                n = tm[kname]["nbytes_per_rank"]
+                # each member's input read once and its (E, n) output written
+                # once; the ring also moves about 2 E (E - 1) n through the
+                # one HBM that the ranks share
+                moved = E * n + E * n * (E if kname == "ring_allgather" else 1)
+                b, by = bound_ms(moved, 0, "float32")
+                results[kname] = {
+                    "name": kname, "route": "cuda",
+                    "source": f"src/repro_torch/kernels/csrc/{src}",
+                    "replaces": f"src/repro/kernels/ring_allreduce.py:{row}",
+                    "shape": (f"GPT-2 medium, every leaf's int8 wire and scales packed, "
+                              f"{n} B a rank" + (", as (E, n/E) slots"
+                                                 if kname == "shard_scatter" else "")
+                              + f", E = {E} ranks on one card"),
+                    "max_abs_err": 0.0, "ms": tm[kname]["ms"], "kernel_ms": tm[kname]["ms"],
+                    "plain_ms": tm[kname]["plain_ms"], "bound_ms": b, "bound_by": by,
+                    "traffic_bound_ms": 2 * E * (E - 1) * n / HBM_BYTES_PER_S * 1e3,
+                    "library_ms": tm[kname]["library_ms"],
+                    "library": ("gloo all_gather_into_tensor on host copies"
+                                + (" and this rank's column"
+                                   if kname == "shard_scatter" else ""))}
+
+
+def _dist_expect(strategy, E: int, leaves: int, layers: int, steps: int, syncs: int):
+    """Launches of one rank's main path: its one replica's attention, the
+    outer update, and the exchange's kernels per leaf and sync as
+    ``sync/strategies.py`` makes them (``E`` the wire's endpoints)."""
+    from repro_torch.sync import Hierarchical, Int8Wire
+
+    inner = strategy.inner if isinstance(strategy, Hierarchical) else strategy
+    nq = ndq = ring = scatter = 0
+    if isinstance(inner, Int8Wire) and E > 1:
+        if inner.reduce_scatter:
+            # q, dq of the payload; E dq for the slot's sum; q2, dq of the
+            # second residual; E dq for the concatenation
+            nq, ndq, ring, scatter = 2, 1 + E + 1 + E, 1, 1
+        else:
+            nq, ndq, ring = 1, 1 + E, 1
+    return {"flash_attention": layers * steps, "flash_attention_bwd": layers * steps,
+            "pier_update": leaves * syncs, "quantize_blockwise": nq * leaves * syncs,
+            "dequantize_blockwise": ndq * leaves * syncs, "ring_allgather": ring * syncs,
+            "shard_scatter": scatter * syncs}
+
+
+def _syncs(tc, steps):
+    from repro_torch.core.pier import PierSchedule
+
+    sched = PierSchedule(tc)
+    return (sum(1 for s in range(steps) for ev in sched.events(s)
+                if ev.kind == "dispatch" and ev.op == "outer"),
+            sum(1 for s in range(steps) if sched.phase(s) == "warmup"))
+
+
+# (name, OuterCommConfig kwargs, ranks, pods, sync_delay)
+DIST_VS_SIM = [("flat_d0", {}, 2, 1, 0), ("flat_d1", {}, 2, 1, 1),
+               ("int8_wire_d0", {"compression": "int8-wire"}, 2, 1, 0),
+               ("int8_wire_d1", {"compression": "int8-wire"}, 2, 1, 1),
+               ("rs_ag_d0", {"compression": "rs-ag"}, 2, 1, 0),
+               ("rs_ag_d1", {"compression": "rs-ag"}, 2, 1, 1),
+               ("hier_int8_wire_g4_p2", {"compression": "int8-wire", "hierarchical": True},
+                4, 2, 1)]
+
+
+def train_dist_vs_sim(torch):
+    """The Trainer (ranks on the card) against ``SimulatedRun`` on the card:
+    GPT-2 medium width, 2 layers, fp32, per-group batch 2 x 256, 8 steps of
+    the 40-step schedule with no lazy start (four outer syncs)."""
+    from repro_torch.config import OuterCommConfig, ParallelConfig, TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core.simulate import SimulatedRun
+    from repro_torch.launch.train import spawn, train_jobs
+    from repro_torch.models import registry as R
+    from repro_torch.models.transformer import param_leaves
+    from repro_torch.sync import resolve_strategy
+
+    cfg = get_config("gpt2-medium").replace(num_layers=2, dtype="float32")
+    steps, per, seq, tol = 8, 2, 256, 1e-5
+    base = R.init_params(cfg, seed=0, device="cpu", training=True)
+    sd = {k: v.detach().clone() for k, v in base.state_dict().items()}
+    for E in (2, 4):
+        cases = [c for c in DIST_VS_SIM if c[2] == E]
+        jobs, tcs = [], []
+        for name, comm, ranks, P, delay in cases:
+            tc = TrainConfig(**TRAIN_TC, global_batch_size=ranks * per, seq_len=seq,
+                             sync_delay=delay, outer_comm=OuterCommConfig(**comm))
+            tc = tc.replace(warmup_frac=0.0)
+            pc = ParallelConfig(data_axis_size=ranks // P, data_outer=ranks // P, num_pods=P)
+            tcs.append(tc)
+            jobs.append(((cfg, tc, pc, steps), {"params": sd, "keep_params": True}))
+        t0 = time.perf_counter()
+        outs = spawn(train_jobs, (jobs,), nproc=E, device="cuda", timeout=DIST_DEADLINE_S)
+        t_dist = time.perf_counter() - t0
+        for i, (name, comm, ranks, P, delay) in enumerate(cases):
+            tc = tcs[i]
+            run = SimulatedRun(cfg, tc, num_groups=ranks, num_pods=P, device="cuda",
+                               params=copy.deepcopy(base))
+            hist = run.run(steps)
+            run.flush()
+            torch.cuda.synchronize()
+            loss = [h["loss"] for h in outs[0][i]["history"]]
+            loss_err = max(abs(a - b) for a, b in zip(loss, hist["train_loss"]))
+            p_err, bitwise = 0.0, True
+            for g in range(ranks):
+                mine = outs[g][i]["params"]
+                sim = [t.detach().cpu() for _, t in param_leaves(run.state.group_params[g])]
+                p_err = max(p_err, max(float((a - b).abs().max()) for a, b in zip(mine, sim)))
+                bitwise = bitwise and all(torch.equal(a, b) for a, b in zip(mine, sim))
+            syncs, _ = _syncs(tc, steps)
+            E_wire = P if comm.get("hierarchical") else ranks
+            expect = _dist_expect(resolve_strategy(tc), E_wire, len(sd), cfg.num_layers, steps,
+                                  syncs)
+            launches = [o[i]["launches"] for o in outs]
+            emit({"phase": "train_dist_vs_sim", "case": name, "strategy": outs[0][i]["strategy"],
+                  "config": "gpt2-medium width, 2 layers, float32", "ranks": ranks, "pods": P,
+                  "sync_delay": delay, "steps": steps, "outer_syncs": syncs,
+                  "per_group_batch": per, "seq_len": seq, "loss_dist": loss,
+                  "loss_sim": hist["train_loss"], "max_abs_loss_err": loss_err,
+                  "max_abs_param_err": p_err, "tol": tol, "bitwise_equal": bitwise,
+                  "launches_rank0": launches[0], "expected_launches_per_rank": expect,
+                  "backend": outs[0][i]["backend"], "world_seconds": t_dist})
+            if loss_err > tol or p_err > tol:
+                raise AssertionError(f"train_dist_vs_sim {name}: loss err {loss_err}, param "
+                                     f"err {p_err} (limit {tol})")
+            if any(ln != expect for ln in launches):
+                raise AssertionError(f"train_dist_vs_sim {name}: launches {launches} != "
+                                     f"{expect} per rank")
+            del run
+            free_cuda(torch)
+
+
+def train_dist(torch):
+    """Full GPT-2 medium, 2 ranks sharing the card (G = 2), 10 steps, with
+    int8-wire and with rs-ag; returns the runs' lines."""
+    from repro_torch.config import OuterCommConfig, ParallelConfig, TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import MarkovLM, make_train_batch
+    from repro_torch.launch.train import spawn, train_jobs
+    from repro_torch.sync import resolve_strategy
+
+    cfg = get_config("gpt2-medium")
+    G, per, seq, steps = 2, 2, 1024, 10
+    pc = ParallelConfig(data_axis_size=G, data_outer=G)
+    gen = torch.Generator().manual_seed(99991)
+    val = make_train_batch(MarkovLM(cfg.vocab_size, seed=1234), gen, 16, seq)
+    tcs = [TrainConfig(**TRAIN_TC, **TRAIN_LR, global_batch_size=G * per, seq_len=seq,
+                       outer_comm=OuterCommConfig(compression=c)) for c in ("int8-wire", "rs-ag")]
+    jobs = [((cfg, tc, pc, steps), {"val_batch": val, "timed": True}) for tc in tcs]
+    t0 = time.perf_counter()
+    outs = spawn(train_jobs, (jobs,), nproc=G, device="cuda", timeout=DIST_DEADLINE_S)
+    wall = time.perf_counter() - t0
+    lines = []
+    for i, tc in enumerate(tcs):
+        r0 = outs[0][i]
+        syncs, warm = _syncs(tc, steps)
+        n_leaves = r0["leaves"]
+        expect = _dist_expect(resolve_strategy(tc), G, n_leaves, cfg.num_layers, steps, syncs)
+        launches = [o[i]["launches"] for o in outs]
+        tm = r0["times_ms"]
+        inner = tm.get("inner_step", [])
+        inner_ss = inner[1:] if len(inner) > 1 else inner
+        p50 = statistics.median(inner_ss) if inner_ss else None
+        per_sync = {k: tm.get(k + "_device", []) for k in ("ring_allgather", "shard_scatter")}
+        line = {
+            "phase": "train_dist", "config": "gpt2-medium 24 layers, bf16 compute, fp32 params",
+            "strategy": r0["strategy"], "ranks": G, "groups": G,
+            "note": "2 ranks share one card: time-sliced contexts, not a two-GPU rate",
+            "backend": r0["backend"], "per_group_batch": per, "seq_len": seq,
+            "steps": steps, "warmup_steps": warm, "outer_syncs": syncs,
+            "init_s": r0["init_s"], "wall_s": r0["wall_s"],
+            "warmup_step_ms": tm.get("warmup_step", []), "inner_step_ms": inner,
+            "inner_step_ms_p50": p50,
+            "tokens_per_s_both_ranks": (G * per * seq / (p50 / 1e3)) if p50 else None,
+            "tokens_per_s_run": steps * G * per * seq / r0["wall_s"],
+            "accumulate_ms": tm.get("accumulate_step", []),
+            "outer_step_ms": tm.get("outer_step", []),
+            "dispatch_ms": tm.get("dispatch_step", []), "apply_ms": tm.get("apply_step", []),
+            "metric_mean_ms": tm.get("metric_mean", []),
+            "ring_device_ms_per_sync": per_sync["ring_allgather"],
+            "scatter_device_ms_per_sync": per_sync["shard_scatter"],
+            "peak_mem_gb_per_rank": [o[i]["peak_mem_bytes"] / 1e9 for o in outs],
+            "loss": [h["loss"] for h in r0["history"]],
+            "val_loss_before": r0["val_loss_before"], "val_loss_after": r0["val_loss_after"],
+            "launches_per_rank": launches, "expected_launches_per_rank": expect,
+            "world_seconds": wall}
+        emit(line)
+        lines.append(line)
+        loss = line["loss"] + [line["val_loss_before"], line["val_loss_after"]]
+        if not all(math.isfinite(x) for x in loss):
+            raise AssertionError(f"train_dist {tc.outer_comm.compression}: non-finite loss")
+        if not line["val_loss_after"] < line["val_loss_before"]:
+            raise AssertionError(f"train_dist {tc.outer_comm.compression}: validation loss "
+                                 f"did not fall: {line['val_loss_before']} -> "
+                                 f"{line['val_loss_after']}")
+        if any(ln != expect for ln in launches):
+            raise AssertionError(f"train_dist {tc.outer_comm.compression}: launches "
+                                 f"{launches} != {expect} per rank")
+    return lines
+
+
 def main(argv) -> int:
     studies = {"--witness-lr", "--build-times"}
     if len(argv) > 1 or not set(argv) <= studies:
@@ -1393,8 +1787,8 @@ def main(argv) -> int:
     if argv == ["--witness-lr"]:
         witness_lr(torch, counters)
         return 0
-    timer = Timer(torch)
     results = {}
+    timer = Timer(torch)
     check_quantize(torch, timer, results)
     check_dequantize(torch, timer, results)
     check_flash(torch, timer, results)
@@ -1403,6 +1797,7 @@ def main(argv) -> int:
     check_flash_bwd(torch, timer, results)
     del timer
     torch.cuda.empty_cache()
+    check_ring(torch, results)
 
     e2e_vs_cpu(torch, counters)
 
@@ -1436,16 +1831,25 @@ def main(argv) -> int:
     free_cuda(torch)
     trains = [train_line, compressed_line]
     runs += trains
+    train_dist_vs_sim(torch)
+    free_cuda(torch)
+    dists = train_dist(torch)
+
+    def dist_launches(line, name):  # every rank's count
+        return sum(ln.get(name, 0) for ln in line["launches_per_rank"])
 
     kernels = []
     for name in ("flash_attention", "paged_decode_attention", "quantize_blockwise",
-                 "pier_update", "flash_attention_bwd", "dequantize_blockwise"):
+                 "pier_update", "flash_attention_bwd", "dequantize_blockwise",
+                 "ring_allgather", "shard_scatter"):
         entry = dict(results[name])
-        entry["launches"] = sum(r["launches"][name] for r in runs)
+        single = sum(r["launches"].get(name, 0) for r in runs)
+        entry["launches"] = single + sum(dist_launches(d, name) for d in dists)
         entry["launches_by_path"] = {
-            "serve": sum(r["launches"][name] for r in runs[:2]),
-            "train": sum(r["launches"][name] for r in trains),
-            "train_by_strategy": {r["strategy"]: r["launches"][name] for r in trains}}
+            "serve": sum(r["launches"].get(name, 0) for r in runs[:2]),
+            "train": sum(r["launches"].get(name, 0) for r in trains),
+            "train_by_strategy": {r["strategy"]: r["launches"].get(name, 0) for r in trains},
+            "train_dist_by_strategy": {d["strategy"]: dist_launches(d, name) for d in dists}}
         kernels.append(entry)
     emit({"phase": "done", "card": smi, "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})

@@ -1,10 +1,12 @@
 """Configuration of the PyTorch port.
 
-Copies of the reference package's ``ModelConfig``, ``OuterCommConfig`` and
-``TrainConfig`` (``src/repro/config.py``), field for field and default for
-default, so that a configuration means the same model and run in both
-packages (``tests/test_torch_model.py`` and ``tests/test_torch_outer.py``
-check that they stay equal). The port imports nothing of the reference package, so it
+Copies of the reference package's ``ModelConfig``, ``ParallelConfig``,
+``OuterCommConfig`` and ``TrainConfig`` (``src/repro/config.py``), field for
+field and default for default (``ParallelConfig`` differs in three
+defaults, which its docstring names), so that a configuration means the
+same model and run in both packages (``tests/test_torch_model.py``,
+``tests/test_torch_outer.py`` and ``tests/test_torch_trainer.py`` check
+that they stay equal). The port imports nothing of the reference package, so it
 keeps this copy. The parameter-count hooks of the original are left out:
 they trace the JAX initializer.
 """
@@ -115,6 +117,79 @@ class ModelConfig:
         return True
 
     def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Parallel layout
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ParallelConfig:
+    """Process layout and Pier group structure (copy of
+    ``repro/config.py:ParallelConfig``).
+
+    A *group* is one ``(pod, data_outer)`` index of ``data_inner`` ranks;
+    inner steps communicate only inside a group, the outer sync only across
+    groups. Field for field the reference's, with three defaults changed so
+    that the all-defaults config is one the port runs: ``model_axis_size``
+    1, ``fsdp`` False and ``shard_experts`` False. In-group tensor
+    parallelism, FSDP and expert sharding are ROADMAP.md queue 1, item 10:
+    asking for them raises ``NotImplementedError``, as does activation
+    checkpointing (``remat``), context parallelism and scanned layers.
+    ``use_pallas`` is kept for the field list and read by nothing: which
+    kernel runs follows the tensor's device.
+    """
+
+    data_axis_size: int = 16
+    model_axis_size: int = 1
+    num_pods: int = 1
+    # Pier groups along the data axis *per pod*; groups per run =
+    # num_pods * data_outer, data_inner = data_axis_size // data_outer
+    data_outer: int = 4
+
+    fsdp: bool = False
+    shard_experts: bool = False
+    remat: str = "none"
+    use_pallas: bool = False
+    num_microbatches: int = 1  # gradient accumulation inside the inner step
+    context_parallel: bool = False
+    scan_layers: bool = False
+
+    def __post_init__(self):
+        unported = {"model_axis_size > 1": self.model_axis_size > 1, "fsdp": self.fsdp,
+                    "shard_experts": self.shard_experts, "remat": self.remat != "none",
+                    "context_parallel": self.context_parallel,
+                    "scan_layers": self.scan_layers}
+        asked = [k for k, v in unported.items() if v]
+        if asked:
+            raise NotImplementedError(
+                f"ParallelConfig: {', '.join(asked)} not ported yet (in-group "
+                f"sharding is ROADMAP.md queue 1, item 10)")
+        if self.num_microbatches < 1:
+            raise ValueError(f"num_microbatches must be >= 1, got {self.num_microbatches}")
+
+    @property
+    def data_inner(self) -> int:
+        assert self.data_axis_size % self.data_outer == 0, (
+            f"data axis {self.data_axis_size} not divisible by "
+            f"data_outer {self.data_outer}")
+        return self.data_axis_size // self.data_outer
+
+    @property
+    def num_groups(self) -> int:
+        return self.num_pods * self.data_outer
+
+    @property
+    def group_size(self) -> int:
+        return self.data_inner * self.model_axis_size
+
+    @property
+    def num_devices(self) -> int:
+        return self.num_pods * self.data_axis_size * self.model_axis_size
+
+    def replace(self, **kw) -> "ParallelConfig":
         return dataclasses.replace(self, **kw)
 
 

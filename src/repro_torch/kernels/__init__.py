@@ -10,6 +10,10 @@
   (``csrc/decode_attention.cu``).
 - ``pier_update``: the fused outer Nesterov/SGD update of every outer sync
   (``csrc/pier_update.cu``).
+- ``ring_allreduce``: the int8 wire's exchange between processes, the ring
+  all-gather and shard-scatter kernels (``csrc/ring_allgather.cu``,
+  ``csrc/shard_scatter.cu``) over the symmetric buffers of ``symm``
+  (``csrc/ipc.cu``: CUDA IPC).
 
 Each wrapper launches its kernel for CUDA tensors and takes the plain
 version in ``ref.py`` for CPU tensors; ``_build`` compiles the sources with

@@ -14,9 +14,13 @@ quantize kernel needs IEEE division and ``rintf``, and the pier-update
 and dequantize kernels unfused products and sums, to match their plain
 versions bit for bit.
 
-Every C entry returns ``cudaGetLastError()`` after its launch; :func:`check`
-raises when it is not 0, because a refused launch (too many threads, too
-much shared memory) never runs and a later synchronize does not report it.
+Every C entry returns a ``cudaError_t``: the launch entries
+``cudaGetLastError()`` after their launch, the symmetric-buffer entries
+(``csrc/ipc.cu``) the result of their runtime call. :func:`check` raises
+when it is not 0, because a refused launch (too many threads, too much
+shared memory) never runs and a later synchronize does not report it.
+Processes that share a build (the ranks of a training world) load the
+library their parent built; ``build`` writes it atomically.
 """
 
 from __future__ import annotations
@@ -42,6 +46,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+_U = ctypes.c_ulonglong
+_PP = ctypes.POINTER(ctypes.c_void_p)
 
 # C signature of every entry point: (name, argtypes). Each returns an int
 # cudaError_t. Pointers and the stream are c_void_p, so a 64-bit address is
@@ -60,6 +66,16 @@ SIGNATURES = {
     "paged_decode_attention_launch": [
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
         _I, _F, _F, _P],
+    "ring_allgather_launch": [_P, _L, _P, _PP, _L, _I, _I, _U, _U, _P, _I, _P],
+    "shard_scatter_launch": [_P, _L, _P, _PP, _L, _I, _I, _U, _U, _P, _I, _P],
+    "symm_alloc": [_I, _L, _PP],
+    "symm_free": [_I, _P],
+    "ipc_get_handle": [_P, _P],
+    "ipc_open_handle": [_I, _P, _PP],
+    "ipc_close_handle": [_I, _P],
+    "host_flag_alloc": [_PP, _PP],
+    "host_flag_free": [_P],
+    "ipc_handle_bytes": [],
 }
 
 _lock = threading.Lock()

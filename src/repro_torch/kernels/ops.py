@@ -3,7 +3,9 @@
 The integration surface between the kernels and the model. Which
 implementation runs follows the tensors' device, inside each kernel's
 wrapper. Only the kernels ported so far are here: ``rmsnorm`` comes with
-its kernel (ROADMAP.md queue 2).
+its kernel (ROADMAP.md queue 2). The wire exchange's two kernels take an
+:class:`~repro_torch.kernels.symm.Exchange` (a process group, its members,
+this member's index and, on the card, the symmetric buffer).
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ from repro_torch.kernels.flash_attention import flash_attention as _flash
 from repro_torch.kernels.pier_update import pier_update as _pier_update
 from repro_torch.kernels.quantize import dequantize_blockwise as _dequantize
 from repro_torch.kernels.quantize import quantize_blockwise as _quantize
+# a module, not its names: ring_allreduce imports wire, which imports this
+from repro_torch.kernels import ring_allreduce as _RA
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
@@ -54,3 +58,15 @@ def pier_update_leaf(a, m, d, tc, *, mu, lr, p_out=None, m_out=None):
     ``a`` and ``m``: see ``kernels/pier_update.py``).
     """
     return _pier_update(a, m, d, mu, lr, tc.outer_optimizer, p_out=p_out, m_out=m_out)
+
+
+def ring_allgather(x, ex):
+    """(n,) uint8 of this member -> (E, n): every member's buffer in its
+    canonical slot (kernels/ring_allreduce, ``csrc/ring_allgather.cu``)."""
+    return _RA.ring_allgather(x, ex)
+
+
+def shard_scatter(slots, ex):
+    """(E, m) uint8, row e for member e -> (E, m), row j member j's slot for
+    this member (kernels/ring_allreduce, ``csrc/shard_scatter.cu``)."""
+    return _RA.shard_scatter(slots, ex)

@@ -205,3 +205,28 @@ def paged_decode_attention_ref(
     l = p.sum(dim=-1, keepdim=True)
     out = torch.einsum("bhgk,bkhd->bhgd", p, v) / l.clamp_min(1e-30)
     return out.reshape(B, H, hd).to(q.dtype)
+
+
+def ring_allgather_ref(x: torch.Tensor, group, size: int) -> torch.Tensor:
+    """Plain version of the ring all-gather: every member's flat ``x`` in
+    canonical slots, ``(size, n)``. ``group`` is a ``torch.distributed``
+    process group whose members, in rank order, are the canonical sources
+    (``None`` when ``size`` is 1). Each member passes the same length."""
+    import torch.distributed as dist
+
+    if size == 1:
+        return x.reshape(1, -1).clone()
+    out = [torch.empty_like(x) for _ in range(size)]
+    dist.all_gather(out, x.contiguous(), group=group)
+    return torch.stack(out)
+
+
+def shard_scatter_ref(slots: torch.Tensor, group, size: int, index: int) -> torch.Tensor:
+    """Plain version of the shard scatter: ``slots`` (E, m), slot ``e``
+    meant for member ``e`` -> (E, m), row ``j`` the slot ``index`` of member
+    ``j``. An all-gather of the slot stacks and this member's column (the
+    reference's one-hot lane; gloo has no all-to-all on every build)."""
+    if size == 1:
+        return slots.clone()
+    every = ring_allgather_ref(slots.reshape(-1), group, size)  # (E, E*m)
+    return every.reshape(size, size, -1)[:, index].contiguous()

@@ -1,1 +1,2 @@
-"""Step builders of the port (mesh-free so far)."""
+"""Step functions of the port: one rank's training steps over a PierMesh, and
+the paged serve steps."""

@@ -4,8 +4,11 @@ An :class:`OuterSyncStrategy` owns the host-side plan of an outer sync
 (:meth:`~OuterSyncStrategy.plan`: contiguous leaf spans, whether the state
 carries error-feedback residuals) and the simulator's numeric model of the
 reduction over the groups' replicas (:meth:`~OuterSyncStrategy.sim_dispatch`
-and the per-leaf :meth:`~OuterSyncStrategy.sim_reduce_leaf`). The
-distributed ``reduce_leaf`` comes with the multi-process Trainer.
+and the per-leaf :meth:`~OuterSyncStrategy.sim_reduce_leaf`), and the
+multi-process Trainer's exchange: :meth:`~OuterSyncStrategy.reduce_leaves`
+over a :class:`ReduceCtx` (the reference's ``reduce_leaf``, one leaf at a
+time there, a list of leaves here so that a stage takes one collective or
+one kernel launch), finished by :meth:`PendingReduce.wait`.
 
 The port works one leaf at a time where the reference maps over the whole
 tree, so that the temporaries of a dispatch (the G deltas, the quantized
@@ -14,12 +17,15 @@ payloads, the new residuals) are one leaf's size.
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import NamedTuple, Tuple
+from dataclasses import dataclass
+from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.core.outer import OuterState, outer_reduce_leaves
+from repro_torch.kernels.symm import Exchange
 from repro_torch.kernels.wire import no_weights
 
 
@@ -42,6 +48,66 @@ class SyncPlan(NamedTuple):
     @property
     def num_chunks(self) -> int:
         return len(self.spans)
+
+
+@dataclass(frozen=True)
+class ReduceCtx:
+    """What a distributed reduce runs over (``repro/sync/base.py:ReduceCtx``).
+
+    ``exchange`` is what the payload exchange reduces over: the ranks of
+    every group that share this rank's ``data_inner`` index, in canonical
+    source order. ``fast`` and ``slow`` split it by pod for the
+    hierarchical reduce (:meth:`narrowed` moves to the slow stage). The
+    reference's axis names, sizes and coordinates become the exchange's
+    process group, its size and this rank's index. Elastic ``weights`` are
+    not ported (ROADMAP.md queue 1, item 9) and raise.
+    """
+
+    exchange: Exchange
+    fast: Optional[Exchange] = None
+    slow: Optional[Exchange] = None
+    weights: Optional[Any] = None
+
+    def __post_init__(self):
+        no_weights(self.weights)
+
+    @property
+    def size(self) -> int:
+        return self.exchange.size
+
+    @property
+    def index(self) -> int:
+        return self.exchange.index
+
+    def narrowed(self) -> "ReduceCtx":
+        """The context of the hierarchical stage 2: the exchange across pods."""
+        if self.slow is None:
+            raise ValueError("ReduceCtx.narrowed needs the slow (across-pod) exchange")
+        return dataclasses.replace(self, exchange=self.slow, fast=None, slow=None)
+
+
+class PendingReduce:
+    """A started reduce: :meth:`wait` gives ``(payloads, new residuals)``.
+
+    ``finish`` runs in :meth:`wait` (the end of a gloo collective started
+    with ``async_op=True``); the wire strategies' kernels are enqueued on
+    the caller's stream when the reduce starts, and their results wait
+    here as they are.
+    """
+
+    def __init__(self, finish: Callable[[], Tuple[List[torch.Tensor], Any]]):
+        self._finish = finish
+        self._result = None
+
+    def wait(self):
+        if self._finish is not None:
+            self._result = self._finish()
+            self._finish = None
+        return self._result
+
+
+def done(payloads, residuals) -> PendingReduce:
+    return PendingReduce(lambda: (payloads, residuals))
 
 
 def balanced_spans(sizes, num_chunks: int) -> Tuple[Tuple[int, int], ...]:
@@ -96,6 +162,23 @@ class OuterSyncStrategy:
         return SyncPlan(num_leaves=n, spans=((0, n),), needs_residual=self.needs_residual,
                         name=self.name, wire_format=self.wire_format,
                         needs_residual2=self.needs_residual2)
+
+    def reduce_leaves(self, deltas: List[torch.Tensor], residuals, tc,
+                      ctx: ReduceCtx) -> PendingReduce:
+        """This rank's Δθ leaves -> the started exchange of the outer sync.
+
+        ``residuals`` is a list of this group's residual leaves (or of
+        ``(r1, r2)`` pairs with :attr:`needs_residual2`), or ``None``; the
+        new ones come back the same way. Every leaf of the plan goes in one
+        call, so a stage makes one collective or one kernel launch.
+        """
+        raise NotImplementedError(
+            f"{type(self).__name__} has no distributed reduce in the port")
+
+    def reduce_leaf(self, d, r, tc, ctx: ReduceCtx):
+        """One leaf, the reference's signature: (payload, new residual)."""
+        payloads, res = self.reduce_leaves([d], None if r is None else [r], tc, ctx).wait()
+        return payloads[0], None if res is None else res[0]
 
     def wire_bytes_per_param(self, tc) -> float:
         """Modeled slow-exchange width in bytes per parameter: 4.0 for the

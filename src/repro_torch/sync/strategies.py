@@ -15,12 +15,17 @@
 - :class:`Chunked`: the leaves dispatch as contiguous spans; numerically
   the inner strategy.
 
-Each is the reference's simulator model of the strategy, with the same
-numerics (``sim_dispatch`` / ``sim_reduce``); on CUDA leaves every
-quantize and dequantize launches its kernel. Still raising
-``NotImplementedError``: ``Sharded`` (ROADMAP.md queue 1, item 10), elastic
-``weights`` (item 9), and the distributed ``reduce_leaf`` (the
-multi-process Trainer, item 7).
+Each carries the reference's simulator model of the strategy, with the
+same numerics (``sim_dispatch`` / ``sim_reduce``), and its distributed
+exchange for the multi-process Trainer (``reduce_leaves``, the reference's
+``reduce_leaf``): fp32 means over ``torch.distributed`` for FlatFP32,
+Quantized and the hierarchical stage 1, and the int8 wire through the ring
+all-gather and shard-scatter kernels (``kernels/ring_allreduce.py``). The
+distributed reductions are the simulator's, so at two groups a dispatch
+gives the simulator's bits. On CUDA leaves every blockwise quantize and
+dequantize launches its kernel. Still raising ``NotImplementedError``:
+``Sharded`` (ROADMAP.md queue 1, item 10), elastic ``weights`` (item 9),
+and ``Chunked`` in the Trainer.
 """
 
 from __future__ import annotations
@@ -34,9 +39,33 @@ import torch.nn.functional as F
 from repro_torch.config import OuterCommConfig
 from repro_torch.core.outer import OuterState, compress_leaf, outer_reduce_leaves
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ring_allreduce as RA
 from repro_torch.kernels import wire
-from repro_torch.sync.base import (OuterSyncStrategy, SyncPlan, balanced_spans,
-                                   leaf_sizes, no_weights)
+from repro_torch.launch.mesh import MeanWork
+from repro_torch.sync.base import (OuterSyncStrategy, PendingReduce, ReduceCtx, SyncPlan,
+                                   balanced_spans, done, leaf_sizes, no_weights)
+
+
+def _mean_pending(payloads, residuals, ctx: ReduceCtx) -> PendingReduce:
+    """The fp32 mean of ``payloads`` over the exchange (the reference's
+    ``pmean``), started now and finished in ``wait``."""
+    if ctx.size <= 1:
+        return done(payloads, residuals)
+    work = MeanWork(payloads, ctx.exchange.group, ctx.size)
+    return PendingReduce(lambda: (work.wait(), residuals))
+
+
+def _quantize_local(d, r, *, bits: int, block: int):
+    """One group's leaf: c = Δθ + r, its (q, s), its own dequantized copy
+    and the new residual ``c − local`` (what ``_quantize_rows`` gives one
+    row of the simulator's stack)."""
+    c = d.float()
+    if r is not None:
+        c = c + r.float()
+    flat = c.reshape(-1)
+    q, s = kops.quantize_blockwise(flat, bits=bits, block=block)
+    local = kops.dequantize_blockwise(q, s, block=block)[:flat.shape[0]].reshape(c.shape)
+    return q, s, local, c - local
 
 
 @dataclass(frozen=True)
@@ -76,6 +105,13 @@ class FlatFP32(OuterSyncStrategy):
     def sim_reduce_leaf(self, delta, residual, tc, *, num_pods=1, pod_grouped=False):
         return delta.mean(dim=0), residual
 
+    def reduce_leaves(self, deltas, residuals, tc, ctx: ReduceCtx) -> PendingReduce:
+        """The fp32 mean of Δθ over the exchange (the reference's ``pmean``).
+
+        Δθ is taken before the mean here, after it in :meth:`sim_dispatch`,
+        as in the reference; the two orders differ in the last bits."""
+        return _mean_pending(list(deltas), residuals, ctx)
+
 
 @dataclass(frozen=True)
 class Quantized(OuterSyncStrategy):
@@ -100,6 +136,14 @@ class Quantized(OuterSyncStrategy):
             payloads.append(p)
             new_r.append(r)
         return torch.stack(payloads).mean(dim=0), torch.stack(new_r)
+
+    def reduce_leaves(self, deltas, residuals, tc, ctx: ReduceCtx) -> PendingReduce:
+        """Compress this group's Δθ with error feedback, then the fp32 mean
+        of the dequantized payloads over the exchange."""
+        rs = residuals if residuals is not None else [None] * len(deltas)
+        out = [compress_leaf(d, r, bits=self.bits, block=self.block)
+               for d, r in zip(deltas, rs)]
+        return _mean_pending([p for p, _ in out], [r for _, r in out], ctx)
 
 
 def _quantize_rows(c: torch.Tensor, *, bits: int, block: int):
@@ -173,6 +217,64 @@ class Int8Wire(OuterSyncStrategy):
             s = s.reshape(P, G // P, -1)[:, 0]
         avg = wire.ring_allreduce_qs_ref(q, s, block=block, bits=bits)
         return avg[:n].reshape(c.shape[1:]), new_r
+
+    def reduce_leaves(self, deltas, residuals, tc, ctx: ReduceCtx) -> PendingReduce:
+        """Quantize this group's Δθ + residual, all-gather every member's
+        packed wire and scales (one ring launch for all leaves on the card)
+        and reduce them in canonical source order: ``sim_reduce_leaf``'s
+        numbers. With one member the local dequantized payload returns, as
+        the reference's ``reduce_leaf`` does."""
+        if self.reduce_scatter:
+            return self._reduce_leaves_rs_ag(deltas, residuals, ctx)
+        bits, block = self.bits, self.block
+        rs = residuals if residuals is not None else [None] * len(deltas)
+        local = [_quantize_local(d, r, bits=bits, block=block) for d, r in zip(deltas, rs)]
+        new_r = [x[3] for x in local]
+        if ctx.size <= 1:
+            return done([x[2] for x in local], new_r)
+        avgs = RA.ring_allreduce_quantized_many([(q, s) for q, s, _, _ in local], ctx.exchange,
+                                                bits=bits, block=block)
+        return done([a[:d.numel()].reshape(d.shape) for a, d in zip(avgs, deltas)], new_r)
+
+    def _reduce_leaves_rs_ag(self, deltas, residuals, ctx: ReduceCtx) -> PendingReduce:
+        """The reduce-scatter + all-gather exchange (``_sim_reduce_rs_ag``
+        per member): one scatter launch, the second error feedback on this
+        member's reduced slot, one ring launch. Each residual pair comes in
+        and goes out as ``(r1, r2)``; ``r2`` is stored full size, zero
+        outside this member's own slot."""
+        bits, block = self.bits, self.block
+        rs = residuals if residuals is not None else [(None, None)] * len(deltas)
+        local = [_quantize_local(d, r1, bits=bits, block=block)
+                 for d, (r1, _) in zip(deltas, rs)]
+        E, idx = ctx.size, ctx.index
+        if E <= 1:
+            return done([x[2] for x in local],
+                        [(x[3], r2 if r2 is not None else torch.zeros_like(x[3]))
+                         for x, (_, r2) in zip(local, rs)])
+        reduced = RA.reduce_scatter_qs_many([(q, s) for q, s, _, _ in local], ctx.exchange,
+                                            bits=bits, block=block)
+        q2s, shards = [], []
+        for (q, s, _, _), (_, r2), red, d in zip(local, rs, reduced, deltas):
+            n = d.numel()
+            slot = wire.wire_shard_blocks(s.shape[0], E) * block
+            if r2 is None:
+                r2_shard = torch.zeros((slot,), dtype=torch.float32, device=d.device)
+            else:
+                r2_shard = F.pad(r2.float().reshape(-1), (0, E * slot - n))[
+                    idx * slot:(idx + 1) * slot]
+            c2 = red + r2_shard
+            q2, s2 = kops.quantize_blockwise(c2, bits=bits, block=block)
+            shards.append(c2 - kops.dequantize_blockwise(q2, s2, block=block)[:slot])
+            q2s.append((q2, s2))
+        gathered = RA.allgather_qs_many(q2s, ctx.exchange, bits=bits, block=block)
+        payloads, new_rs = [], []
+        for (_, _, _, new_r1), shard, full, d in zip(local, shards, gathered, deltas):
+            n, slot = d.numel(), shard.shape[0]
+            new_r2 = torch.zeros((E * slot,), dtype=torch.float32, device=d.device)
+            new_r2[idx * slot:(idx + 1) * slot] = shard
+            payloads.append(full[:n].reshape(d.shape))
+            new_rs.append((new_r1, new_r2[:n].reshape(d.shape)))
+        return done(payloads, new_rs)
 
     def _sim_reduce_rs_ag(self, delta, residual, *, pod_grouped=False):
         """The rs/ag round trip (``kernels/wire.py:rs_ag_qs_ref``): the G
@@ -250,6 +352,16 @@ class Hierarchical(OuterSyncStrategy):
         return self.inner.sim_reduce_leaf(delta, residual, tc, num_pods=num_pods,
                                           pod_grouped=True)
 
+    def reduce_leaves(self, deltas, residuals, tc, ctx: ReduceCtx) -> PendingReduce:
+        """Stage 1: the fp32 mean over this pod's groups (the fast
+        exchange), finished before stage 2 starts; stage 2: the inner
+        strategy over the pods (the slow exchange)."""
+        fast = ctx.fast
+        if fast is not None and fast.size > 1:
+            deltas = MeanWork(list(deltas), fast.group, fast.size).wait()
+        inner_ctx = ctx.narrowed() if ctx.slow is not None else ctx
+        return self.inner.reduce_leaves(deltas, residuals, tc, inner_ctx)
+
 
 @dataclass(frozen=True)
 class Chunked(OuterSyncStrategy):
@@ -290,6 +402,11 @@ class Chunked(OuterSyncStrategy):
         return SyncPlan(num_leaves=len(sizes), spans=spans,
                         needs_residual=self.needs_residual, name=self.name,
                         wire_format=self.wire_format)
+
+    def reduce_leaves(self, deltas, residuals, tc, ctx):
+        raise NotImplementedError(
+            "Chunked is not ported to the multi-process Trainer yet (per-span dispatch "
+            "and apply over torch.distributed; ROADMAP.md queue 1, item 8)")
 
     def sim_dispatch(self, group_leaves, outer, tc, *, mu, lr, num_pods: int = 1,
                      weights=None, inplace: bool = False):
