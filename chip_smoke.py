@@ -17,7 +17,17 @@ and no result line:
    (GQA/MQA, window, softcap, fp32, hd 40 to 256, empty slots, ragged
    sizes), and the dequantize kernel on the quantize kernel's outputs (block
    256, 64, 32, int4, a ragged length, a block of 33 and an unaligned view,
-   one GPT-2 XL token-table leaf) with a ragged payload that must raise.
+   one GPT-2 XL token-table leaf) with a ragged payload that must raise;
+   attention and paged decode at Qwen3-1.7B's head layout too (H 16, Hkv
+   8, hd 128, bf16), quantize at its KV rows (block 128, a prefill layer's
+   and a decode step's, bit for bit, the prefill one timed), and the
+   RMSNorm forward and backward kernels
+   (``check_rmsnorm``) at Qwen3's shapes (block norms at D 2048, qk-norm at
+   D 128 and eps 1e-6, training, prefill and decode rows) and edge shapes
+   (D 40, 41 and 5000, one row, fp32): output, rstd and dx within 2e-6 of
+   the largest |value| in fp32, one bf16 ulp in bf16 (dx plus 2e-6 of its
+   largest |value|), dscale within 1e-5; the outputs of the autograd path
+   bitwise those of the direct launches.
    Tolerances: quantize, dequantize and pier update bit for bit; attention
    forward and backward 1e-4 in fp32; the forward's log-sum-exp 1e-4
    against ``flash_attention_fwd_ref``, and its output bitwise the same
@@ -53,6 +63,12 @@ and no result line:
    0 just before each run and must show every kernel of the path ran:
    flash = prefills x 48, decode = decode steps x 48, quantize = 2 x 48 x
    (prefills + decode steps) with int8 KV and 0 without.
+4b. ``serve_qwen3``: the same two runs with full Qwen3-1.7B (28 layers),
+   where rmsnorm = 113 x (prefills + decode steps) as well; then
+   ``serve_qwen3_int8_kv``: teacher-forced rollouts (prompt 200, 16 decode
+   steps) with int8 KV blocks: at 4 layers in fp32 against the fp32-KV
+   rollout, every logit within 2% of max |logit|; at full depth in bf16
+   against the bf16-KV rollout, reported.
 5. ``breakdown``: device time by kernel group (``torch.profiler``) beside
    the host's wall time, for one 512-token prefill and for decode steps
    over 4 slots of the bf16 serve path; the device's idle share is one
@@ -73,6 +89,11 @@ and no result line:
    hierarchical[int8-wire] at G = 4 in 2 pods, chunked(2)[quantize]. Loss
    and final parameters within 1e-3; the quantize and dequantize launches
    exactly what the strategy's code path makes per leaf and sync.
+6c. ``qwen3_vs_cpu``: Qwen3-1.7B width at 2 layers in fp32, the same
+   seeded parameters on the card and on the CPU: one 128-token prefill's
+   logits, one batch's loss and gradients, and 8 steps of ``SimulatedRun``
+   (G = 2, per-group batch 2 x 128, flat sync), all within 1e-3; rmsnorm =
+   rmsnorm_bwd = 9 per forward and backward, every launch count exact.
 7. ``train``: full GPT-2 XL (bf16 compute, fp32 parameters and state),
    G = 2, sync_delay 0, per-group batch 2 x 1024 tokens, 10 steps of the
    same schedule shape (inner LR 5e-5, warmed up over the lazy start).
@@ -83,6 +104,9 @@ and no result line:
    fixed validation batch, which must fall from before the run to after.
 8. ``train_breakdown``: device time by kernel group of one inner step of
    that run, beside its wall time, and the idle share.
+8a. ``train_qwen3`` and ``train_qwen3_breakdown``: the ``train`` run and
+   its breakdown with full Qwen3-1.7B (1.72 B parameters, 310 leaves),
+   where rmsnorm = rmsnorm_bwd = 113 x forwards as well.
 8b. ``train_compressed``: the ``train`` run again after it is freed, with
    the quantized outer sync (int8, block 256, error feedback; the residual
    adds 2 x 6.25 GB): the same checks, and quantize = dequantize = 2 x 484
@@ -104,19 +128,21 @@ and no result line:
    memory per rank. Two ranks share one card, so the rate is not a two-GPU
    rate.
 9. a ``{"kernels": [...]}`` line: per kernel its launches on the main-path
-   runs (serve, train, train_compressed and, summed over ranks,
-   train_dist), max error, kernel / plain / library times and
+   runs (serve and serve_qwen3, train, train_compressed, train_qwen3 and,
+   summed over ranks, train_dist), max error, kernel / plain / library times and
    the bound at the main path's shape (bytes over 3.35 TB/s and operations
    over the peak rate of the inputs' type, the larger of the two; H100 SXM
    data sheet).
 10. the last line, ``{"ok": true, "device": {...}}``.
 
-Two studies run instead of the phases above when asked for, each after
+Three studies run instead of the phases above when asked for, each after
 the build, and print their own JSON lines:
 
-    python3 chip_smoke.py --witness-lr   # the train run at Table I's LR,
-                                         # kernels vs plain attention
-    python3 chip_smoke.py --build-times  # parallel build vs one nvcc call
+    python3 chip_smoke.py --witness-lr     # the train run at Table I's LR,
+                                           # kernels vs plain attention
+    python3 chip_smoke.py --build-times    # parallel build vs one nvcc call
+    python3 chip_smoke.py --int8-kv-depth  # full-depth Qwen3: int8 KV vs
+                                           # bf16 / fp32 KV, bf16 vs fp32
 """
 
 from __future__ import annotations
@@ -259,6 +285,8 @@ def check_quantize(torch, timer, results):
         ("decode_kv_rows_bf16", 4 * 25 * 64, torch.bfloat16, 8, 64),
         ("prefill_kv_rows_bf16", 512 * 25 * 64, torch.bfloat16, 8, 64),
         ("prefill_kv_rows_f32", 512 * 25 * 64, torch.float32, 8, 64),
+        ("qwen3_decode_kv_rows_bf16", 4 * 8 * 128, torch.bfloat16, 8, 128),
+        ("qwen3_prefill_kv_rows_bf16", 512 * 8 * 128, torch.bfloat16, 8, 128),
         ("outer_block256_ragged", 100_003, torch.float32, 8, 256),
         ("int4_block256", 65_536, torch.float32, 4, 256),
     ]
@@ -286,6 +314,12 @@ def check_quantize(torch, timer, results):
     n = x.numel()
     nbytes = n * 2 + n * 1 + (n // 64) * 4
     b, by = bound_ms(nbytes, 4 * n, "float32")
+    # Qwen3-1.7B's: one prefill layer's K rows (S=512, 8 KV heads, hd 128)
+    xq = torch.randn(512 * 8 * 128, generator=g, device="cuda").to(torch.bfloat16)
+    t_kq = timer.ms(lambda: QK.quantize_blockwise(xq, bits=8, block=128))
+    t_pq = timer.ms(lambda: quantize_blockwise_ref(xq, bits=8, block=128))
+    nq = xq.numel()
+    b_q, _ = bound_ms(nq * 2 + nq + (nq // 128) * 4, 4 * nq, "float32")
     # the training path's shape: one outer sync's largest leaf, fp32, block 256
     xt = torch.randn(XL_LEAF, generator=g, device="cuda") * 1e-3
     t_kt = timer.ms(lambda: QK.quantize_blockwise(xt, bits=8, block=256))
@@ -298,6 +332,8 @@ def check_quantize(torch, timer, results):
         "shape": "bf16 (512*25*64,) block 64 (one prefill layer's K rows)",
         "max_abs_err": worst, "ms": t_k, "kernel_ms": t_k, "plain_ms": t_p,
         "bound_ms": b, "bound_by": by, "library_ms": None,
+        "qwen3_shape": "bf16 (512*8*128,) block 128 (one Qwen3-1.7B prefill layer's K rows)",
+        "qwen3_shape_ms": t_kq, "qwen3_shape_plain_ms": t_pq, "qwen3_shape_bound_ms": b_q,
         "train_shape": "fp32 (50304*1600,) block 256 (GPT-2 XL token table)",
         "train_shape_ms": t_kt, "train_shape_bound_ms": b_t}
 
@@ -403,6 +439,9 @@ def check_flash(torch, timer, results):
         ("xl_s512_bf16", 1, 512, 25, 25, 64, torch.bfloat16, True, 0, 0.0),
         ("xl_s700_bf16", 1, 700, 25, 25, 64, torch.bfloat16, True, 0, 0.0),
         ("xl_train_b2_s1024_bf16", 2, 1024, 25, 25, 64, torch.bfloat16, True, 0, 0.0),
+        ("qwen3_s512_bf16", 1, 512, 16, 8, 128, torch.bfloat16, True, 0, 0.0),
+        ("qwen3_s200_bf16", 1, 200, 16, 8, 128, torch.bfloat16, True, 0, 0.0),
+        ("qwen3_train_b2_s1024_bf16", 2, 1024, 16, 8, 128, torch.bfloat16, True, 0, 0.0),
         ("xl_s512_f32", 1, 512, 25, 25, 64, torch.float32, True, 0, 0.0),
         ("gqa4_f32", 2, 200, 8, 2, 64, torch.float32, True, 0, 0.0),
         ("mqa_hd128_f32", 1, 100, 8, 1, 128, torch.float32, True, 0, 0.0),
@@ -451,13 +490,27 @@ def check_flash(torch, timer, results):
     nbytes = 4 * B * S * H * hd * 2
     ops = 4 * hd * H * B * (S * (S + 1) // 2)  # QK^T and PV over unmasked pairs
     b, by = bound_ms(nbytes, ops, "bfloat16")
+    # Qwen3-1.7B's prefill layer: 16 query heads over 8 KV heads, hd 128
+    H3, Hkv3, hd3 = 16, 8, 128
+    q3 = rand((B, S, H3, hd3), torch.bfloat16)
+    k3, v3 = (rand((B, S, Hkv3, hd3), torch.bfloat16) for _ in range(2))
+    t3_k = timer.ms(lambda: FK.flash_attention(q3, k3, v3, causal=True))
+    t3_p = timer.ms(lambda: flash_attention_ref(q3, k3, v3, causal=True))
+    qt3, kt3, vt3 = (t.transpose(1, 2).contiguous() for t in (q3, k3, v3))
+    t3_l = timer.ms(lambda: F.scaled_dot_product_attention(
+        qt3, kt3, vt3, is_causal=True, enable_gqa=True))
+    b3, by3 = bound_ms(2 * B * S * (H3 + Hkv3) * hd3 * 2,
+                       4 * hd3 * H3 * B * (S * (S + 1) // 2), "bfloat16")
     results["flash_attention"] = {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:42",
         "shape": "bf16 B=1 S=512 H=Hkv=25 hd=64 causal (one prefill layer)",
         "max_abs_err": worst, "ms": t_k, "kernel_ms": t_k, "plain_ms": t_p,
-        "bound_ms": b, "bound_by": by, "library_ms": t_l}
+        "bound_ms": b, "bound_by": by, "library_ms": t_l,
+        "qwen3": {"shape": "bf16 B=1 S=512 H=16 Hkv=8 hd=128 causal (one prefill layer)",
+                  "ms": t3_k, "plain_ms": t3_p, "bound_ms": b3, "bound_by": by3,
+                  "library_ms": t3_l}}
 
 
 def _paged_inputs(torch, g, *, B, H, Hkv, hd, bs, cls, dt, quantized, T=None):
@@ -498,6 +551,9 @@ def check_decode(torch, timer, results):
         ("xl_4slots_int8", 4, 25, 25, 64, 16, xl_cls, torch.bfloat16, True, 0, 0.0),
         ("xl_4slots_f32", 4, 25, 25, 64, 16, xl_cls, torch.float32, False, 0, 0.0),
         ("xl_int8_f32q", 4, 25, 25, 64, 16, xl_cls, torch.float32, True, 0, 0.0),
+        ("qwen3_4slots_bf16", 4, 16, 8, 128, 16, xl_cls, torch.bfloat16, False, 0, 0.0),
+        ("qwen3_4slots_int8", 4, 16, 8, 128, 16, xl_cls, torch.bfloat16, True, 0, 0.0),
+        ("qwen3_4slots_f32", 4, 16, 8, 128, 16, xl_cls, torch.float32, False, 0, 0.0),
         ("gqa4_f32", 3, 8, 2, 64, 16, [37, 1, 300], torch.float32, False, 0, 0.0),
         ("mqa_f32", 2, 8, 1, 32, 8, [60, 17], torch.float32, False, 0, 0.0),
         ("window40_f32", 2, 4, 2, 64, 16, [200, 33], torch.float32, False, 40, 0.0),
@@ -539,6 +595,14 @@ def check_decode(torch, timer, results):
     b, by = bound_ms(nbytes, 4 * pos * H * hd, "bfloat16")
     nbytes8 = 2 * pos * H * (hd + 4) + 2 * 4 * H * hd * 2 + 4 * 34 * 4 + 4 * 4
     b8, _ = bound_ms(nbytes8, 4 * pos * H * hd, "bfloat16")
+    # Qwen3-1.7B's decode layer: 16 query heads over 8 KV heads, hd 128
+    H3, Hkv3, hd3 = 16, 8, 128
+    args3 = _paged_inputs(torch, g, B=4, H=H3, Hkv=Hkv3, hd=hd3, bs=16, cls=xl_cls,
+                          dt=torch.bfloat16, quantized=False, T=34)
+    t3_k = timer.ms(lambda: DK.paged_decode_attention(*args3))
+    t3_p = timer.ms(lambda: paged_decode_attention_ref(*args3))
+    b3, by3 = bound_ms(2 * pos * Hkv3 * hd3 * 2 + 2 * 4 * H3 * hd3 * 2 + 4 * 34 * 4 + 4 * 4,
+                       4 * pos * H3 * hd3, "bfloat16")
     results["paged_decode_attention"] = {
         "name": "paged_decode_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -546,7 +610,10 @@ def check_decode(torch, timer, results):
         "shape": "bf16 4 slots, contexts 100/250/400/544, bs 16, H=Hkv=25, hd 64 (one layer)",
         "max_abs_err": worst, "ms": t_k, "kernel_ms": t_k, "plain_ms": t_p,
         "bound_ms": b, "bound_by": by, "library_ms": None,
-        "int8_pools_ms": t_k8, "int8_pools_bound_ms": b8}
+        "int8_pools_ms": t_k8, "int8_pools_bound_ms": b8,
+        "qwen3": {"shape": "bf16 4 slots, contexts 100/250/400/544, bs 16, H=16 Hkv=8 "
+                           "hd 128 (one layer)",
+                  "ms": t3_k, "plain_ms": t3_p, "bound_ms": b3, "bound_by": by3}}
 
 
 def check_pier_update(torch, timer, results):
@@ -597,6 +664,156 @@ def check_pier_update(torch, timer, results):
         "bound_ms": b, "bound_by": by, "library_ms": None}
 
 
+# RMSNorm: fp32 outputs, rstd and dx within 2e-6 of the largest |value|
+# (the mean of squares and sum_j g_j s_j x_j are summed in another order);
+# bf16 outputs within one bf16 ulp of the plain version's (the fp32 values
+# differ by about 1e-7 relative, so their roundings differ by one ulp at
+# most), bf16 dx the same plus 2e-6 of its largest |value| (its two terms
+# may cancel to near zero); dscale, a sum over every row, within 1e-5 of
+# its largest |value|.
+RMS_F32_REL, RMS_DSCALE_REL = 2e-6, 1e-5
+
+
+def bf16_ulps(torch, a, b, atol: float = 0.0) -> float:
+    """Largest (|a - b| - atol) in units of one bf16 ulp of b."""
+    bf = b.float()
+    ulp = torch.exp2(torch.floor(torch.log2(bf.abs().clamp_min(1e-30))) - 7)
+    return float((((a.float() - bf).abs() - atol).clamp_min(0) / ulp).max())
+
+
+def rel_max(a, b) -> float:
+    """max |a - b| over max |b|."""
+    scale = float(b.float().abs().max())
+    return max_err(a, b) / scale if scale > 0 else max_err(a, b)
+
+
+def check_rmsnorm(torch, timer, results):
+    """The RMSNorm forward and backward kernels against ``rmsnorm_ref`` and
+    ``rmsnorm_bwd_ref`` at Qwen3-1.7B's shapes (block norms at d_model
+    2048, qk-norm at head_dim 128 and eps 1e-6; training, prefill and
+    decode rows) and at edge shapes (D 40 and 41, one row, D 5000 with
+    several vectors a thread, fp32)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import rmsnorm as RK
+    from repro_torch.kernels.ref import rmsnorm_bwd_ref, rmsnorm_ref
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def inputs(rows, D, dt):
+        x = (torch.randn((rows, D), generator=g, device="cuda") * 2 + 0.5).to(dt)
+        s = 1 + 0.1 * torch.randn((D,), generator=g, device="cuda")
+        dy = torch.randn((rows, D), generator=g, device="cuda").to(dt)
+        return x, s, dy
+
+    cases = [
+        # name, rows, D, dtype, eps
+        ("train_block_norm_2048x2048_bf16", 2048, 2048, bf16, 1e-5),
+        ("train_qk_norm_32768x128_bf16", 32768, 128, bf16, 1e-6),
+        ("prefill_512x2048_bf16", 512, 2048, bf16, 1e-5),
+        ("decode_4x2048_bf16", 4, 2048, bf16, 1e-5),
+        ("decode_qk_64x128_bf16", 64, 128, bf16, 1e-6),
+        ("d40_37rows_bf16", 37, 40, bf16, 1e-5),
+        ("d40_37rows_f32", 37, 40, f32, 1e-5),
+        ("d41_scalar_f32", 5, 41, f32, 1e-6),
+        ("one_row_2048_f32", 1, 2048, f32, 1e-5),
+        ("train_block_norm_2048x2048_f32", 2048, 2048, f32, 1e-5),
+        ("qk_norm_4096x128_f32", 4096, 128, f32, 1e-6),
+        ("d5000_3rows_f32", 3, 5000, f32, 1e-5),
+    ]
+    worst_fwd = worst_bwd = 0.0
+    for name, rows, D, dt, eps in cases:
+        x, s, dy = inputs(rows, D, dt)
+        out = RK.rmsnorm(x, s, eps=eps)
+        out_t, rstd = RK._launch_fwd(x, s, eps, want_rstd=True)
+        dx, ds = RK._launch_bwd(x, s, rstd, dy)
+        xg, sg = x.clone().requires_grad_(), s.clone().requires_grad_()
+        RK.rmsnorm(xg, sg, eps=eps).backward(dy)
+        ref = rmsnorm_ref(x, s, eps=eps)
+        rstd_ref = torch.rsqrt(x.float().square().mean(-1) + eps)
+        dx_ref, ds_ref = rmsnorm_bwd_ref(x, s, dy, eps=eps)
+        torch.cuda.synchronize()
+        errs = {"out_max_abs_err": max_err(out, ref), "rstd_rel_err": rel_max(rstd, rstd_ref),
+                "dx_max_abs_err": max_err(dx, dx_ref), "dscale_rel_err": rel_max(ds, ds_ref)}
+        same = (torch.equal(out_t, out) and torch.equal(xg.grad, dx)
+                and torch.equal(sg.grad, ds))
+        if dt == f32:
+            errs.update(out_rel_err=rel_max(out, ref), dx_rel_err=rel_max(dx, dx_ref))
+            ok = errs["out_rel_err"] <= RMS_F32_REL and errs["dx_rel_err"] <= RMS_F32_REL
+            tol = {"out_rel": RMS_F32_REL, "dx_rel": RMS_F32_REL}
+            worst_fwd = max(worst_fwd, errs["out_max_abs_err"])
+            worst_bwd = max(worst_bwd, errs["dx_max_abs_err"])
+        else:
+            atol = RMS_F32_REL * float(dx_ref.float().abs().max())
+            errs.update(out_bf16_ulps=bf16_ulps(torch, out, ref),
+                        dx_bf16_ulps_beyond_atol=bf16_ulps(torch, dx, dx_ref, atol))
+            ok = errs["out_bf16_ulps"] <= 1 and errs["dx_bf16_ulps_beyond_atol"] <= 1
+            tol = {"out_bf16_ulps": 1, "dx_bf16_ulps": 1, "dx_atol_rel": RMS_F32_REL}
+        ok = (ok and errs["rstd_rel_err"] <= RMS_F32_REL
+              and errs["dscale_rel_err"] <= RMS_DSCALE_REL
+              and same and out.dtype == dx.dtype == dt and ds.dtype == f32)
+        tol.update(rstd_rel=RMS_F32_REL, dscale_rel=RMS_DSCALE_REL)
+        emit({"phase": "kernels", "kernel": "rmsnorm", "case": name, "rows": rows, "D": D,
+              "dtype": str(dt).replace("torch.", ""), "eps": eps, **errs, "tol": tol,
+              "with_rstd_and_autograd_bitwise_equal": same})
+        if not ok:
+            raise AssertionError(f"rmsnorm {name}: errors {errs}, limits {tol}, "
+                                 f"outputs of both paths equal: {same}")
+
+    def fwd_bytes(rows, D, rstd):  # x in, y out (bf16); scale in; rstd out
+        return 2 * rows * D * 2 + 4 * D + (4 * rows if rstd else 0)
+
+    def bwd_bytes(rows, D):  # x, dy in, dx out (bf16); rstd, scale in; dscale out
+        return 3 * rows * D * 2 + 4 * rows + 8 * D
+
+    # main path's shapes, bf16: the training block norm and qk-norm (with
+    # rstd, as autograd runs them, and their backward), one 512-token
+    # prefill's block norm and one decode step's (4 rows)
+    fwd, bwd = {}, {}
+    for key, rows, D, eps, train in (("train_block", 2048, 2048, 1e-5, True),
+                                     ("train_qk", 32768, 128, 1e-6, True),
+                                     ("prefill", 512, 2048, 1e-5, False),
+                                     ("decode", 4, 2048, 1e-5, False)):
+        x, s, dy = inputs(rows, D, bf16)
+        b, by = bound_ms(fwd_bytes(rows, D, train), 4 * rows * D, "float32")
+        fwd[key] = {"rows": rows, "D": D, "bound_ms": b, "bound_by": by,
+                    "ms": timer.ms(lambda: RK._launch_fwd(x, s, eps, want_rstd=train))}
+        if train:
+            _, rstd = RK._launch_fwd(x, s, eps, want_rstd=True)
+            b, by = bound_ms(bwd_bytes(rows, D), 8 * rows * D, "float32")
+            bwd[key] = {"rows": rows, "D": D, "bound_ms": b, "bound_by": by,
+                        "ms": timer.ms(lambda: RK._launch_bwd(x, s, rstd, dy))}
+        if key == "train_block":  # the plain versions and the library beside it
+            xf, sf = x.float().requires_grad_(), s.clone().requires_grad_()
+            yl = F.rms_norm(xf, (D,), sf, eps)
+
+            def lib_bwd():
+                dxl, _ = torch.autograd.grad(yl, (xf, sf), dy.float(), retain_graph=True)
+                dxl.to(x.dtype)
+
+            fwd[key].update(plain_ms=timer.ms(lambda: rmsnorm_ref(x, s, eps=eps)),
+                            library_ms=timer.ms(
+                                lambda: F.rms_norm(x.float(), (D,), s, eps).to(x.dtype)))
+            bwd[key].update(plain_ms=timer.ms(lambda: rmsnorm_bwd_ref(x, s, dy, eps=eps)),
+                            library_ms=timer.ms(lib_bwd))
+    for name, times, worst, lib, note in (
+            ("rmsnorm", fwd, worst_fwd, "F.rms_norm on x.float(), cast back", None),
+            ("rmsnorm_bwd", bwd, worst_bwd, "the backward of F.rms_norm on x.float()",
+             "no Pallas backward exists; the gradient of the TPU kernel's function, "
+             "which the reference leaves to XLA")):
+        m = times["train_block"]
+        results[name] = {
+            "name": name, "route": "cuda", "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+            "replaces": "src/repro/kernels/rmsnorm.py:22",
+            **({"replaces_note": note} if note else {}),
+            "shape": "bf16 (2048, 2048), eps 1e-5: one training block norm of Qwen3-1.7B "
+                     "(2 x 1024 tokens)",
+            "max_abs_err": worst, "ms": m["ms"], "kernel_ms": m["ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+            "library": lib, "other_shapes": {k: v for k, v in times.items() if k != "train_block"}}
+
+
 def check_flash_bwd(torch, timer, results):
     import torch.nn.functional as F
 
@@ -623,6 +840,9 @@ def check_flash_bwd(torch, timer, results):
         ("xl_s256_bf16", 2, 256, 25, 25, 64, torch.bfloat16, True, 0, 0.0),
         ("xl_s700_bf16", 1, 700, 25, 25, 64, torch.bfloat16, True, 0, 0.0),
         ("xl_train_b2_s1024_bf16", 2, 1024, 25, 25, 64, torch.bfloat16, True, 0, 0.0),
+        ("qwen3_s256_bf16", 2, 256, 16, 8, 128, torch.bfloat16, True, 0, 0.0),
+        ("qwen3_train_b2_s1024_bf16", 2, 1024, 16, 8, 128, torch.bfloat16, True, 0, 0.0),
+        ("qwen3_s300_f32", 1, 300, 16, 8, 128, torch.float32, True, 0, 0.0),
     ]
     worst = 0.0
     for name, B, S, H, Hkv, hd, dt, causal, window, softcap in cases:
@@ -675,6 +895,19 @@ def check_flash_bwd(torch, timer, results):
     ops = 5 * 2 * hd * pairs  # recompute S; dP, dV, dK, dQ over unmasked pairs
     nbytes = 8 * B * S * H * hd * 2 + 4 * B * H * S  # q k v o dO + lse in; dq dk dv out
     b, by = bound_ms(nbytes, ops, "bfloat16")
+    # Qwen3-1.7B's training layer: 16 query heads over 8 KV heads, hd 128
+    H3, Hkv3, hd3 = 16, 8, 128
+    q3, do3 = (rand((B, S, H3, hd3), torch.bfloat16) for _ in range(2))
+    k3, v3 = (rand((B, S, Hkv3, hd3), torch.bfloat16) for _ in range(2))
+    out3, lse3 = FK._launch_fwd(q3, k3, v3, True, 0, 0.0, want_lse=True)
+    t3_k = timer.ms(lambda: FK._launch_bwd(q3, k3, v3, out3, lse3, do3, True, 0, 0.0))
+    t3_p = timer.ms(lambda: flash_attention_bwd_ref(q3, k3, v3, out3, lse3, do3, causal=True))
+    qt3, kt3, vt3, dot3 = (t.transpose(1, 2).contiguous() for t in (q3, k3, v3, do3))
+    qt3, kt3, vt3 = (t.requires_grad_() for t in (qt3, kt3, vt3))
+    t3_l = timer.ms(lambda: F.scaled_dot_product_attention(
+        qt3, kt3, vt3, is_causal=True, enable_gqa=True).backward(dot3))
+    b3, by3 = bound_ms(2 * B * S * (2 * H3 + 2 * Hkv3) * hd3 * 2 + 4 * B * H3 * S,
+                       5 * 2 * hd3 * B * H3 * (S * (S + 1) // 2), "bfloat16")
     results["flash_attention_bwd"] = {
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
@@ -684,7 +917,10 @@ def check_flash_bwd(torch, timer, results):
         "shape": "bf16 B=2 S=1024 H=Hkv=25 hd=64 causal (one training layer)",
         "max_abs_err": worst, "ms": t_k, "kernel_ms": t_k, "plain_ms": t_p,
         "bound_ms": b, "bound_by": by, "library_ms": t_l,
-        "library": "F.scaled_dot_product_attention forward + backward"}
+        "library": "F.scaled_dot_product_attention forward + backward",
+        "qwen3": {"shape": "bf16 B=2 S=1024 H=16 Hkv=8 hd=128 causal (one training layer)",
+                  "ms": t3_k, "plain_ms": t3_p, "bound_ms": b3, "bound_by": by3,
+                  "library_ms": t3_l}}
 
 
 # ---------------------------------------------------------------------------
@@ -754,7 +990,8 @@ def e2e_vs_cpu(torch, counters):
     L = cfg.num_layers
     if launches != {"flash_attention": L, "flash_attention_bwd": 0,
                     "paged_decode_attention": D * L, "quantize_blockwise": 0,
-                    "dequantize_blockwise": 0, "pier_update": 0}:
+                    "dequantize_blockwise": 0, "pier_update": 0, "rmsnorm": 0,
+                    "rmsnorm_bwd": 0}:
         raise AssertionError(f"card rollout launches {launches}")
 
 
@@ -763,7 +1000,18 @@ def e2e_vs_cpu(torch, counters):
 # ---------------------------------------------------------------------------
 
 
-def serve(torch, params, cfg, counters, *, quantized: bool):
+def norm_launches(cfg) -> int:
+    """RMSNorm kernel launches of one forward (a prefill, a decode step or
+    a training forward): norm1 and norm2 of every layer, q- and k-norm with
+    qk-norm, and the final norm; 0 for a LayerNorm model."""
+    if cfg.norm != "rmsnorm":
+        return 0
+    return (2 + 2 * int(cfg.use_qk_norm)) * cfg.num_layers + 1
+
+
+def serve(torch, params, cfg, counters, *, quantized: bool, phase: str = "serve"):
+    """One run of the serve traffic through ``ServeEngine`` on ``cfg``'s
+    full model; returns its line."""
     import numpy as np
 
     from repro_torch.parallel.steps import build_paged_serve_steps
@@ -818,8 +1066,8 @@ def serve(torch, params, cfg, counters, *, quantized: bool):
     ttft = sorted(r.first_token_at - t0 for r in results)
     dec = sorted(1e3 * t for t in times["decode"])
     line = {
-        "phase": "serve", "kv": "int8" if quantized else "bf16",
-        "config": "gpt2-xl 48 layers bf16", "requests": len(lens),
+        "phase": phase, "kv": "int8" if quantized else "bf16",
+        "config": f"{cfg.name} {cfg.num_layers} layers bf16", "requests": len(lens),
         "prompt_lens": lens, "new_tokens": new_tokens, "slots": slots,
         "block_size": bs, "wall_s": wall, "tokens_out": st["tokens_out"],
         "tokens_per_s": st["tokens_out"] / wall,
@@ -833,11 +1081,13 @@ def serve(torch, params, cfg, counters, *, quantized: bool):
         "launches": launches,
     }
     emit(line)
-    L = NUM_LAYERS_XL
-    want_q = 2 * L * (st["prefills"] + st["decode_steps"]) if quantized else 0
+    L = cfg.num_layers
+    calls = st["prefills"] + st["decode_steps"]
+    want_q = 2 * L * calls if quantized else 0
     expect = {"flash_attention": st["prefills"] * L, "flash_attention_bwd": 0,
               "paged_decode_attention": st["decode_steps"] * L,
-              "quantize_blockwise": want_q, "dequantize_blockwise": 0, "pier_update": 0}
+              "quantize_blockwise": want_q, "dequantize_blockwise": 0, "pier_update": 0,
+              "rmsnorm": norm_launches(cfg) * calls, "rmsnorm_bwd": 0}
     if launches != expect:
         raise AssertionError(f"launch counters {launches} != expected {expect}")
     if st["prefills"] != len(lens) or st["decode_steps"] == 0:
@@ -846,6 +1096,77 @@ def serve(torch, params, cfg, counters, *, quantized: bool):
         if len(r.tokens) != new_tokens or not all(0 <= t < cfg.vocab_size for t in r.tokens):
             raise AssertionError(f"request {r.uid}: bad tokens {r.tokens}")
     return line
+
+
+def _kv_rollouts(torch, params, cfg):
+    """Teacher-forced paged rollouts (prompt 200, 16 decode steps) with KV
+    in the compute dtype and with int8 KV blocks, on the same tokens."""
+    from repro_torch.serve.kv_cache import PagedCacheConfig
+
+    S, D = 200, 16
+    toks = torch.randint(0, cfg.vocab_size, (S + D,), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(12))
+    pcfg = PagedCacheConfig(num_blocks=16, block_size=16)
+    return (rollout(torch, params, cfg, toks, S, D, pcfg, "cuda"),
+            rollout(torch, params, cfg, toks, S, D,
+                    dataclasses.replace(pcfg, quantized=True), "cuda"))
+
+
+def _rel(a, b) -> float:  # max |a - b| over max |b|
+    return float((a - b).abs().max()) / float(b.abs().max())
+
+
+def qwen3_int8_kv(torch, params, cfg):
+    """Rollouts with int8 KV blocks against the same without. At 4 layers
+    in fp32, every logit within 2% of max |logit|, the reference's int8
+    tolerance, as ``e2e_vs_cpu`` holds GPT-2 XL. At full depth in bf16 the
+    error of int8 against bf16 KV is reported: there the bf16 rounding of
+    the model itself is larger than the bound (``--int8-kv-depth``)."""
+    from repro_torch.models import registry as R
+
+    out = dict(zip(("bf16", "bf16_int8kv"), _kv_rollouts(torch, params, cfg)))
+    c = cfg.replace(num_layers=4, dtype="float32")
+    p = R.init_params(c, seed=0, device="cuda")
+    out.update(zip(("layers4_f32", "layers4_f32_int8kv"), _kv_rollouts(torch, p, c)))
+    del p
+    torch.cuda.empty_cache()
+
+    err4, lim4 = _rel(out["layers4_f32_int8kv"], out["layers4_f32"]), 0.02
+    emit({"phase": "serve_qwen3_int8_kv", "prompt": 200, "decode_steps": 16,
+          "full_depth_int8_vs_bf16_kv_in_bf16": _rel(out["bf16_int8kv"], out["bf16"]),
+          "greedy_agree_int8_vs_bf16_kv": float(
+              (out["bf16_int8kv"].argmax(-1) == out["bf16"].argmax(-1)).float().mean()),
+          "layers4_f32_int8_vs_f32_kv": err4, "tol": lim4})
+    if not all(bool(torch.isfinite(t).all()) and t.shape == (17, cfg.vocab_size)
+               for t in out.values()):
+        raise AssertionError("serve_qwen3_int8_kv: non-finite logits or wrong shape")
+    if err4 > lim4:
+        raise AssertionError(f"serve_qwen3_int8_kv: int8 KV logits differ by {err4} of max "
+                             f"|logit| > {lim4}")
+
+
+def int8_kv_depth(torch):
+    """``--int8-kv-depth``: full Qwen3-1.7B made once in bf16 and once in
+    fp32 from the same seed. Reports int8 against bf16 KV in the bf16
+    model, int8 against fp32 KV in the fp32 model, and the bf16 model
+    against the fp32 one (both with unquantized KV): how far the int8
+    blocks and how far bf16 compute alone move the logits at full depth."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry as R
+
+    out = {}
+    for name, dtype in (("bf16", "bfloat16"), ("f32", "float32")):
+        cfg = get_config("qwen3-1.7b").replace(dtype=dtype)
+        p = R.init_params(cfg, seed=0, device="cuda")
+        out[name], out[name + "_int8kv"] = _kv_rollouts(torch, p, cfg)
+        del p
+        torch.cuda.empty_cache()
+    emit({"phase": "int8_kv_depth", "layers": cfg.num_layers,
+          "int8_vs_bf16_kv_in_bf16": _rel(out["bf16_int8kv"], out["bf16"]),
+          "int8_vs_f32_kv_in_f32": _rel(out["f32_int8kv"], out["f32"]),
+          "bf16_vs_f32": _rel(out["bf16"], out["f32"])})
+    if not all(bool(torch.isfinite(t).all()) for t in out.values()):
+        raise AssertionError("int8_kv_depth: non-finite logits")
 
 
 # ---------------------------------------------------------------------------
@@ -968,18 +1289,21 @@ def _quant_launches(strategy, G: int, P: int):
     return 0, 0
 
 
-def _train_expect(run, steps: int, num_layers: int, num_leaves: int):
+def _train_expect(run, steps: int, num_leaves: int):
     """Launches the main path must show after ``steps`` steps from 0."""
     sched = run.sched
     warm = sum(1 for s in range(steps) if sched.phase(s) == "warmup")
     syncs = sum(1 for s in range(steps) for ev in sched.events(s)
                 if ev.kind == "dispatch" and ev.op == "outer")
-    fwd = num_layers * (warm + run.G * (steps - warm))
+    forwards = warm + run.G * (steps - warm)  # each with one backward
+    fwd = run.mc.num_layers * forwards
+    norms = norm_launches(run.mc) * forwards
     nq, ndq = _quant_launches(run.strategy, run.G, run.P)
     return {"flash_attention": fwd, "flash_attention_bwd": fwd,
             "pier_update": num_leaves * syncs, "paged_decode_attention": 0,
             "quantize_blockwise": nq * num_leaves * syncs,
-            "dequantize_blockwise": ndq * num_leaves * syncs}, warm, syncs
+            "dequantize_blockwise": ndq * num_leaves * syncs,
+            "rmsnorm": norms, "rmsnorm_bwd": norms}, warm, syncs
 
 
 def train_vs_cpu(torch, counters):
@@ -1015,7 +1339,7 @@ def train_vs_cpu(torch, counters):
         pp = [t.detach() for _, t in param_leaves(runs["cpu"].eval_params())]
         p_err = max(float((a - b).abs().max()) for a, b in zip(pc, pp))
         finals[delay] = pc
-        expect, warm, syncs = _train_expect(runs["cuda"], steps, cfg.num_layers, len(pc))
+        expect, warm, syncs = _train_expect(runs["cuda"], steps, len(pc))
         emit({"phase": "train_vs_cpu", "config": "gpt2-xl width, 4 layers, float32",
               "groups": 2, "sync_delay": delay, "steps": steps, "warmup_steps": warm,
               "outer_syncs": syncs, "per_group_batch": 2, "seq_len": 128,
@@ -1037,6 +1361,91 @@ def train_vs_cpu(torch, counters):
     if not diff > 1e-6:
         raise AssertionError(f"delayed sync equals eager (max diff {diff}): the "
                              f"in-flight snapshot is not held")
+
+
+def qwen3_vs_cpu(torch, counters):
+    """Qwen3-1.7B width at 2 layers, fp32, the same seeded parameters on the
+    card (kernels) and on the CPU (plain versions): one 128-token prefill's
+    logits, one batch's loss and gradients, then 8 steps of ``SimulatedRun``
+    (G = 2, per-group batch 2 x 128, flat sync; 4 warmup steps and two outer
+    syncs). Everything within 1e-3; launches exact."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core.simulate import SimulatedRun
+    from repro_torch.models import registry as R
+    from repro_torch.models.transformer import param_leaves
+
+    cfg = get_config("qwen3-1.7b").replace(num_layers=2, dtype="float32")
+    steps, tol = 8, 1e-3
+    t0 = time.perf_counter()
+    base = R.init_params(cfg, seed=0, device="cpu", training=True)
+    card = copy.deepcopy(base).to("cuda")
+    toks = torch.randint(0, cfg.vocab_size, (2, 129), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(11))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    L, n = cfg.num_layers, norm_launches(cfg)
+    zero = {k: 0 for k in counters}
+
+    def launches_of(fn):
+        for c in counters.values():
+            c.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: c.launches for k, c in counters.items()}
+
+    with torch.no_grad():
+        lg_card, l_prefill = launches_of(
+            lambda: R.forward(card, cfg, {"tokens": batch["tokens"][:1].cuda()})[0])
+        lg_cpu = R.forward(base, cfg, {"tokens": batch["tokens"][:1]})[0]
+    logit_err = max_err(lg_card.cpu(), lg_cpu)
+
+    def loss_and_grads(params, dev):
+        loss, _ = R.loss_fn(params, cfg, {k: v.to(dev) for k, v in batch.items()})
+        loss.backward()
+        return loss
+
+    loss_card, l_grad = launches_of(lambda: loss_and_grads(card, "cuda"))
+    loss_cpu = loss_and_grads(base, "cpu")
+    loss_err = abs(float(loss_card.detach()) - float(loss_cpu.detach()))
+    grad_err = max(max_err(a.grad.cpu(), b.grad)
+                   for (_, a), (_, b) in zip(param_leaves(card), param_leaves(base)))
+    for _, t in param_leaves(card) + param_leaves(base):
+        t.grad = None
+    del card
+
+    tc = TrainConfig(**TRAIN_TC, global_batch_size=4, seq_len=128, sync_delay=0)
+    runs = {dev: SimulatedRun(cfg, tc, num_groups=2, device=dev, params=copy.deepcopy(base))
+            for dev in ("cuda", "cpu")}
+    h_card, l_run = launches_of(lambda: runs["cuda"].run(steps))
+    runs["cuda"].flush()
+    h_cpu = runs["cpu"].run(steps)
+    runs["cpu"].flush()
+    run_loss_err = max(abs(a - b) for a, b in zip(h_card["train_loss"], h_cpu["train_loss"]))
+    pc = [t.detach().cpu() for _, t in param_leaves(runs["cuda"].eval_params())]
+    pp = [t.detach() for _, t in param_leaves(runs["cpu"].eval_params())]
+    p_err = max(float((a - b).abs().max()) for a, b in zip(pc, pp))
+    expect_run, warm, syncs = _train_expect(runs["cuda"], steps, len(pc))
+    expect = {
+        "prefill": dict(zero, flash_attention=L, rmsnorm=n),
+        "loss_and_grads": dict(zero, flash_attention=L, flash_attention_bwd=L, rmsnorm=n,
+                               rmsnorm_bwd=n),
+        "simulated_run": expect_run}
+    got = {"prefill": l_prefill, "loss_and_grads": l_grad, "simulated_run": l_run}
+    errs = {"prefill_max_abs_logit_err": logit_err, "loss_abs_err": loss_err,
+            "max_abs_grad_err": grad_err, "run_max_abs_loss_err": run_loss_err,
+            "run_max_abs_param_err": p_err}
+    emit({"phase": "qwen3_vs_cpu", "config": "qwen3-1.7b width, 2 layers, float32",
+          "leaves": len(pc), "prefill_tokens": 128, "batch": [2, 128], "groups": 2,
+          "steps": steps, "warmup_steps": warm, "outer_syncs": syncs,
+          "per_group_batch": 2, "seq_len": 128, "loss_card": h_card["train_loss"],
+          "loss_cpu": h_cpu["train_loss"], **errs, "tol": tol, "launches": got,
+          "expected_launches": expect, "seconds": time.perf_counter() - t0})
+    if not (torch.isfinite(lg_card).all() and lg_card.shape == (1, 128, cfg.vocab_size)):
+        raise AssertionError("qwen3_vs_cpu: non-finite logits or wrong shape")
+    if not all(math.isfinite(x) for x in h_card["train_loss"]) or max(errs.values()) > tol:
+        raise AssertionError(f"qwen3_vs_cpu: errors {errs} (limit {tol})")
+    if got != expect:
+        raise AssertionError(f"qwen3_vs_cpu launches {got} != {expect}")
 
 
 # (name, OuterCommConfig kwargs, groups, pods, sync_delay)
@@ -1086,7 +1495,7 @@ def train_compressed_vs_cpu(torch, counters):
         p_err = max(float((a - b).abs().max()) for a, b in zip(pc, pp))
         res = runs["cuda"].state.outer.residual
         res_max = max(float(r.abs().max()) for r in res)
-        expect, warm, syncs = _train_expect(runs["cuda"], steps, cfg.num_layers, len(pc))
+        expect, warm, syncs = _train_expect(runs["cuda"], steps, len(pc))
         emit({"phase": "train_compressed_vs_cpu", "case": name,
               "strategy": runs["cuda"].strategy.name,
               "config": "gpt2-xl width, 2 layers, float32", "groups": G, "pods": P,
@@ -1122,16 +1531,18 @@ def _timed(torch, times, kind, fn):
     return call
 
 
-def train(torch, counters, *, phase: str = "train", outer_comm=None):
-    """Full GPT-2 XL through SimulatedRun on the card; returns the run and
-    its line. ``outer_comm`` (an ``OuterCommConfig``) picks the outer
-    strategy; the default is the flat fp32 mean."""
+def train(torch, counters, *, phase: str = "train", outer_comm=None,
+          arch: str = "gpt2-xl"):
+    """Full ``arch`` (GPT-2 XL by default) through SimulatedRun on the
+    card; returns the run and its line. ``outer_comm`` (an
+    ``OuterCommConfig``) picks the outer strategy; the default is the flat
+    fp32 mean."""
     from repro_torch.config import OuterCommConfig, TrainConfig
     from repro_torch.configs import get_config
     from repro_torch.core.simulate import SimulatedRun
     from repro_torch.models.transformer import param_leaves
 
-    cfg = get_config("gpt2-xl")  # bf16 compute, fp32 parameters
+    cfg = get_config(arch)  # bf16 compute, fp32 parameters
     G, per, seq, steps = 2, 2, 1024, 10
     tc = TrainConfig(**TRAIN_TC, **TRAIN_LR, global_batch_size=G * per, seq_len=seq,
                      sync_delay=0, outer_comm=outer_comm or OuterCommConfig())
@@ -1155,13 +1566,14 @@ def train(torch, counters, *, phase: str = "train", outer_comm=None):
     wall = time.perf_counter() - t1
     launches = {k: c.launches for k, c in counters.items()}
     val_after = run.val_loss(run.state.params)
-    expect, warm, syncs = _train_expect(run, steps, cfg.num_layers, n_leaves)
+    expect, warm, syncs = _train_expect(run, steps, n_leaves)
     tokens_warm, tokens_inner = G * per * seq, G * per * seq
     # steady inner step: skip the first (allocator and cuBLAS warm-up)
     inner = times.get("inner_step", [])
     inner_ss = inner[1:] if len(inner) > 1 else inner
     line = {
-        "phase": phase, "config": "gpt2-xl 48 layers, bf16 compute, fp32 params",
+        "phase": phase,
+        "config": f"{cfg.name} {cfg.num_layers} layers, bf16 compute, fp32 params",
         "strategy": run.strategy.name, "params": n_params, "leaves": n_leaves, "groups": G,
         "per_group_batch": per,
         "seq_len": seq, "sync_delay": 0, "steps": steps, "warmup_steps": warm,
@@ -1194,7 +1606,8 @@ def train(torch, counters, *, phase: str = "train", outer_comm=None):
 
 def _train_kernel_group(name: str) -> str:
     for key, group in (("flash_bwd", "flash_attention_bwd"), ("flash_fwd", "flash_attention"),
-                       ("pier_update", "pier_update")):
+                       ("pier_update", "pier_update"), ("rmsnorm_fwd", "rmsnorm"),
+                       ("rmsnorm_bwd", "rmsnorm_bwd"), ("rmsnorm_colsum", "rmsnorm_bwd")):
         if key in name:
             return group
     if any(k in name.lower() for k in ("gemm", "gemv", "nvjet", "xmma", "cutlass")):
@@ -1202,8 +1615,8 @@ def _train_kernel_group(name: str) -> str:
     return "adamw_and_other"
 
 
-def train_breakdown(torch, run):
-    """Device time by kernel group for one inner step of the train run
+def train_breakdown(torch, run, phase: str = "train_breakdown"):
+    """Device time by kernel group for one inner step of a train run
     (both groups' forward, backward, clip and AdamW), beside the wall time
     of another, unprofiled inner step; the idle share is one minus their
     ratio."""
@@ -1227,8 +1640,10 @@ def train_breakdown(torch, run):
             groups[grp] = groups.get(grp, 0.0) + evt.time_range.elapsed_us() / 1e3
             n_kernels += 1
     busy = sum(groups.values())
-    emit({"phase": "train_breakdown",
-          "config": "gpt2-xl 48 layers, G=2, per-group batch 2 x 1024, one inner step",
+    mc = run.mc
+    emit({"phase": phase,
+          "config": f"{mc.name} {mc.num_layers} layers, G={run.G}, per-group batch "
+                    f"{run.tc.global_batch_size // run.G} x {run.tc.seq_len}, one inner step",
           "wall_ms": wall, "device_ms": busy if n_kernels else "not measured",
           "device_idle_share": 1 - busy / wall if n_kernels else "not measured",
           "kernels_per_step": n_kernels, "device_ms_by_group": groups})
@@ -1745,7 +2160,7 @@ def train_dist(torch):
 
 
 def main(argv) -> int:
-    studies = {"--witness-lr", "--build-times"}
+    studies = {"--witness-lr", "--build-times", "--int8-kv-depth"}
     if len(argv) > 1 or not set(argv) <= studies:
         print(f"usage: chip_smoke.py [{' | '.join(sorted(studies))}]", file=sys.stderr)
         return 2
@@ -1765,6 +2180,7 @@ def main(argv) -> int:
     from repro_torch.kernels import flash_attention as FK
     from repro_torch.kernels import pier_update as PK
     from repro_torch.kernels import quantize as QK
+    from repro_torch.kernels import rmsnorm as RK
 
     t_start = time.perf_counter()
     smi = subprocess.run(
@@ -1780,12 +2196,16 @@ def main(argv) -> int:
     counters = {"flash_attention": Counter(FK), "flash_attention_bwd": Counter(FK, "bwd_launches"),
                 "paged_decode_attention": Counter(DK), "quantize_blockwise": Counter(QK),
                 "dequantize_blockwise": Counter(QK, "dequantize_launches"),
-                "pier_update": Counter(PK)}
+                "pier_update": Counter(PK), "rmsnorm": Counter(RK),
+                "rmsnorm_bwd": Counter(RK, "bwd_launches")}
     if argv == ["--build-times"]:
         build_times(torch)
         return 0
     if argv == ["--witness-lr"]:
         witness_lr(torch, counters)
+        return 0
+    if argv == ["--int8-kv-depth"]:
+        int8_kv_depth(torch)
         return 0
     results = {}
     timer = Timer(torch)
@@ -1795,6 +2215,7 @@ def main(argv) -> int:
     check_decode(torch, timer, results)
     check_pier_update(torch, timer, results)
     check_flash_bwd(torch, timer, results)
+    check_rmsnorm(torch, timer, results)
     del timer
     torch.cuda.empty_cache()
     check_ring(torch, results)
@@ -1806,8 +2227,15 @@ def main(argv) -> int:
 
     cfg = get_config("gpt2-xl")
     params = R.init_params(cfg, seed=0, device="cuda")
-    runs = [serve(torch, params, cfg, counters, quantized=q) for q in (False, True)]
+    serves = [serve(torch, params, cfg, counters, quantized=q) for q in (False, True)]
     breakdown(torch, params, cfg)
+    del params
+    torch.cuda.empty_cache()
+    cfg = get_config("qwen3-1.7b")
+    params = R.init_params(cfg, seed=0, device="cuda")
+    serves += [serve(torch, params, cfg, counters, quantized=q, phase="serve_qwen3")
+               for q in (False, True)]
+    qwen3_int8_kv(torch, params, cfg)
     del params
     torch.cuda.empty_cache()
 
@@ -1815,6 +2243,8 @@ def main(argv) -> int:
         emit({"phase": "host_malloc", "thresholds_raised": raised})
         train_vs_cpu(torch, counters)
         train_compressed_vs_cpu(torch, counters)
+        free_cuda(torch)
+        qwen3_vs_cpu(torch, counters)
     free_cuda(torch)
     run, train_line = train(torch, counters)
     train_breakdown(torch, run)
@@ -1829,8 +2259,12 @@ def main(argv) -> int:
     dispatch_breakdown(torch, run, "train_compressed")
     del run
     free_cuda(torch)
-    trains = [train_line, compressed_line]
-    runs += trains
+    run, qwen3_line = train(torch, counters, phase="train_qwen3", arch="qwen3-1.7b")
+    train_breakdown(torch, run, phase="train_qwen3_breakdown")
+    del run
+    free_cuda(torch)
+    trains = [train_line, compressed_line, qwen3_line]
+    runs = serves + trains
     train_dist_vs_sim(torch)
     free_cuda(torch)
     dists = train_dist(torch)
@@ -1841,14 +2275,16 @@ def main(argv) -> int:
     kernels = []
     for name in ("flash_attention", "paged_decode_attention", "quantize_blockwise",
                  "pier_update", "flash_attention_bwd", "dequantize_blockwise",
-                 "ring_allgather", "shard_scatter"):
+                 "ring_allgather", "shard_scatter", "rmsnorm", "rmsnorm_bwd"):
         entry = dict(results[name])
         single = sum(r["launches"].get(name, 0) for r in runs)
         entry["launches"] = single + sum(dist_launches(d, name) for d in dists)
         entry["launches_by_path"] = {
-            "serve": sum(r["launches"].get(name, 0) for r in runs[:2]),
+            "serve": sum(r["launches"].get(name, 0) for r in serves),
+            "serve_by_run": {f"{r['phase']}_{r['kv']}": r["launches"].get(name, 0)
+                             for r in serves},
             "train": sum(r["launches"].get(name, 0) for r in trains),
-            "train_by_strategy": {r["strategy"]: r["launches"].get(name, 0) for r in trains},
+            "train_by_run": {r["phase"]: r["launches"].get(name, 0) for r in trains},
             "train_dist_by_strategy": {d["strategy"]: dist_launches(d, name) for d in dists}}
         kernels.append(entry)
     emit({"phase": "done", "card": smi, "seconds": time.perf_counter() - t_start})

@@ -1,7 +1,8 @@
 """Architecture configuration registry of the PyTorch port.
 
-The port serves the paper's own GPT-2 family so far. Each module is a copy of
-its counterpart in ``src/repro/configs/`` (``tests/test_torch_model.py``
+The port runs the paper's own GPT-2 family and Qwen3-1.7B, the first
+RMSNorm family (RoPE, qk-norm, SwiGLU, GQA). Each module is a copy of its
+counterpart in ``src/repro/configs/`` (``tests/test_torch_model.py``
 checks the copies field by field). An architecture that the reference
 registers but the port does not run yet raises ``NotImplementedError``.
 """
@@ -13,21 +14,24 @@ from typing import List
 
 from repro_torch.config import ModelConfig
 
-ARCH_MODULES = ["gpt2_small", "gpt2_medium", "gpt2_xl", "gpt2_7b"]
+ARCH_MODULES = ["gpt2_small", "gpt2_medium", "gpt2_xl", "gpt2_7b", "qwen3_1_7b"]
 
 # Registered by the reference package, not ported yet (ROADMAP.md queue 1).
 NOT_PORTED = (
     "deepseek-v2-236b", "granite-8b", "minicpm-2b", "qwen3-14b",
-    "qwen3-1.7b", "xlstm-1.3b", "chameleon-34b", "recurrentgemma-9b",
+    "xlstm-1.3b", "chameleon-34b", "recurrentgemma-9b",
     "whisper-large-v3", "kimi-k2-1t-a32b",
 )
 
-_CANONICAL = {m.replace("_", "-"): m for m in ARCH_MODULES}
+# display names as the reference's registry spells them, and its aliases
+_DISPLAY = {"qwen3_1_7b": "qwen3-1.7b"}
+_CANONICAL = {_DISPLAY.get(m, m.replace("_", "-")): m for m in ARCH_MODULES}
+_ALIASES = {"qwen3-1-7b": "qwen3_1_7b"}
 
 
 def _module_for(name: str):
     key = name.replace("_", "-").lower()
-    mod = _CANONICAL.get(key)
+    mod = _ALIASES.get(key) or _CANONICAL.get(key)
     if mod is None:
         if key in NOT_PORTED or key.replace(".", "-") in {
                 n.replace(".", "-") for n in NOT_PORTED}:

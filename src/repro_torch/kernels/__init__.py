@@ -10,6 +10,8 @@
   (``csrc/decode_attention.cu``).
 - ``pier_update``: the fused outer Nesterov/SGD update of every outer sync
   (``csrc/pier_update.cu``).
+- ``rmsnorm``: RMSNorm forward (every norm of an RMSNorm model: block,
+  final, qk-norm) and backward (training), ``csrc/rmsnorm.cu``.
 - ``ring_allreduce``: the int8 wire's exchange between processes, the ring
   all-gather and shard-scatter kernels (``csrc/ring_allgather.cu``,
   ``csrc/shard_scatter.cu``) over the symmetric buffers of ``symm``

@@ -2,8 +2,7 @@
 
 The integration surface between the kernels and the model. Which
 implementation runs follows the tensors' device, inside each kernel's
-wrapper. Only the kernels ported so far are here: ``rmsnorm`` comes with
-its kernel (ROADMAP.md queue 2). The wire exchange's two kernels take an
+wrapper. The wire exchange's two kernels take an
 :class:`~repro_torch.kernels.symm.Exchange` (a process group, its members,
 this member's index and, on the card, the symmetric buffer).
 """
@@ -15,6 +14,7 @@ from repro_torch.kernels.flash_attention import flash_attention as _flash
 from repro_torch.kernels.pier_update import pier_update as _pier_update
 from repro_torch.kernels.quantize import dequantize_blockwise as _dequantize
 from repro_torch.kernels.quantize import quantize_blockwise as _quantize
+from repro_torch.kernels.rmsnorm import rmsnorm as _rmsnorm
 # a module, not its names: ring_allreduce imports wire, which imports this
 from repro_torch.kernels import ring_allreduce as _RA
 
@@ -58,6 +58,12 @@ def pier_update_leaf(a, m, d, tc, *, mu, lr, p_out=None, m_out=None):
     ``a`` and ``m``: see ``kernels/pier_update.py``).
     """
     return _pier_update(a, m, d, mu, lr, tc.outer_optimizer, p_out=p_out, m_out=m_out)
+
+
+def rmsnorm(x, scale, *, eps: float = 1e-5):
+    """Row RMSNorm over the last axis: x (..., D), scale (D,) fp32 ->
+    (..., D) in x.dtype (kernels/rmsnorm, ``csrc/rmsnorm.cu``)."""
+    return _rmsnorm(x, scale, eps=eps)
 
 
 def ring_allgather(x, ex):

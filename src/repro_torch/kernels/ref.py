@@ -115,6 +115,38 @@ def pier_update_ref(anchor, momentum, delta, *, mu, lr,
     return af + lr * step, m_new
 
 
+def rmsnorm_ref(x, scale, *, eps: float = 1e-5):
+    """Row RMSNorm oracle. x: (..., D); scale: (D,).
+
+    Counterpart of ``repro/kernels/ref.py:rmsnorm_ref``: x in fp32, the mean
+    of squares, ``rsqrt(ms + eps)``, times the scale in fp32, cast back to
+    x's dtype. Autograd through it is the CPU's gradient.
+    """
+    xf = x.float()
+    ms = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
+
+
+def rmsnorm_bwd_ref(x, scale, dy, eps: float = 1e-5
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gradient of :func:`rmsnorm_ref` -> (dx in x's dtype, dscale fp32).
+
+    With r = rsqrt(mean(x^2) + eps) per row and g = dy:
+    dx = r s g - x r^3 (sum_j g_j s_j x_j) / D, dscale = sum over rows of
+    g x r, all in fp32. The reference has no such function (it
+    differentiates XLA); this is what the backward kernel computes.
+    """
+    D = x.shape[-1]
+    xf = x.float().reshape(-1, D)
+    gf = dy.float().reshape(-1, D)
+    r = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    gs = gf * scale.float()
+    c = (gs * xf).sum(dim=-1, keepdim=True)
+    dx = r * gs - xf * (r * r * r) * (c / D)
+    dscale = (gf * xf * r).sum(dim=0)
+    return dx.to(x.dtype).reshape(x.shape), dscale
+
+
 def _inv_qmax(bits: int) -> torch.Tensor:
     # 1/qmax computed in double and rounded once to float32, as the
     # reference's ``absmax * (1.0 / qmax)`` does with its Python constant

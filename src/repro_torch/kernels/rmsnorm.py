@@ -1,0 +1,124 @@
+"""RMSNorm forward and backward: the CUDA kernels' wrapper.
+
+Counterpart of ``repro/kernels/rmsnorm.py:rmsnorm``; the kernels are
+``csrc/rmsnorm.cu``. A CPU tensor takes the plain version
+``kernels/ref.py:rmsnorm_ref``, whose gradient is autograd's. A CUDA tensor
+launches the forward kernel (or raises); when autograd needs a gradient it
+goes through :class:`RMSNormFn`, whose forward also writes each row's
+``rsqrt(mean(x^2) + eps)`` and whose backward launches the hand-written
+backward kernels (the reference differentiates XLA's ops, so the backward
+has no TPU kernel to mirror).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import rmsnorm_ref
+
+# Launches in this process: ``launches`` counts the forward kernel,
+# ``bwd_launches`` the backward (one per backward pass, which runs the dx
+# and the dscale column-sum kernels). Each wrapper adds one where it
+# launches and nowhere else; a caller may reset them to 0.
+launches = 0
+bwd_launches = 0
+
+# The backward's grid, and so the rows of its dscale workspace: four blocks
+# an SM of the H100's 132 at most (each block loops over its rows).
+BWD_MAX_BLOCKS = 132 * 4
+# The backward keeps one fp32 dscale accumulator a column in shared memory.
+MAX_BWD_D = 12 * 1024
+
+
+def _check_cuda(x, scale, *more) -> None:
+    ts = (x, scale) + more
+    if any(t.device != x.device for t in ts):
+        raise ValueError("rmsnorm: all tensors must be on one device")
+    if x.dtype not in (torch.float32, torch.bfloat16) or any(t.dtype != x.dtype for t in more):
+        raise TypeError(f"rmsnorm kernel takes float32 or bfloat16 x (and dy) of one dtype, "
+                        f"got {[t.dtype for t in (x,) + more]}")
+    if scale.dtype != torch.float32:
+        raise TypeError(f"rmsnorm kernel takes a float32 scale, got {scale.dtype}")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("rmsnorm kernel needs contiguous tensors")
+
+
+def _launch_fwd(x, scale, eps, want_rstd):
+    """Forward kernel -> (y in x.dtype, rstd fp32 (rows,) or None)."""
+    global launches
+    _check_cuda(x, scale)
+    D = x.shape[-1]
+    rows = x.numel() // D
+    out = torch.empty_like(x)
+    rstd = (torch.empty((rows,), dtype=torch.float32, device=x.device)
+            if want_rstd else None)
+    if rows == 0:
+        return out, rstd
+    err = _build.lib().rmsnorm_fwd_launch(
+        x.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        rstd.data_ptr() if rstd is not None else None,
+        _build.DTYPE_CODES[x.dtype], rows, D, float(eps), _build.stream_ptr(x.device))
+    _build.check(err, "rmsnorm")
+    launches += 1
+    return out, rstd
+
+
+def _launch_bwd(x, scale, rstd, dy):
+    """Backward kernels -> (dx in x.dtype, dscale fp32 (D,))."""
+    global bwd_launches
+    _check_cuda(x, scale, dy)
+    D = x.shape[-1]
+    rows = x.numel() // D
+    if dy.shape != x.shape:
+        raise ValueError(f"rmsnorm backward: dy {tuple(dy.shape)} != x {tuple(x.shape)}")
+    if rstd.dtype != torch.float32 or tuple(rstd.shape) != (rows,) or not rstd.is_contiguous():
+        raise ValueError("rmsnorm backward needs the forward's fp32 (rows,) rstd")
+    if D > MAX_BWD_D:
+        raise ValueError(f"rmsnorm backward kernel takes D <= {MAX_BWD_D}, got {D}")
+    dx = torch.empty_like(x)
+    if rows == 0:
+        return dx, torch.zeros_like(scale)
+    dscale = torch.empty((D,), dtype=torch.float32, device=x.device)
+    nblocks = min(rows, BWD_MAX_BLOCKS)
+    partial = torch.empty((nblocks, D), dtype=torch.float32, device=x.device)
+    err = _build.lib().rmsnorm_bwd_launch(
+        x.data_ptr(), scale.data_ptr(), dy.data_ptr(), rstd.data_ptr(), dx.data_ptr(),
+        dscale.data_ptr(), partial.data_ptr(), _build.DTYPE_CODES[x.dtype], rows, D,
+        nblocks, _build.stream_ptr(x.device))
+    _build.check(err, "rmsnorm backward")
+    bwd_launches += 1
+    return dx, dscale
+
+
+class RMSNormFn(torch.autograd.Function):
+    """RMSNorm whose forward and backward are the hand-written kernels.
+
+    The forward keeps x, the scale and the fp32 per-row rstd.
+    """
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        out, rstd = _launch_fwd(x, scale, eps, want_rstd=True)
+        ctx.save_for_backward(x, scale, rstd)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale, rstd = ctx.saved_tensors
+        dx, dscale = _launch_bwd(x, scale, rstd, dy.contiguous())
+        return dx, dscale, None
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
+    """x (..., D), scale (D,) -> (..., D) in x.dtype."""
+    if scale.dim() != 1 or x.dim() < 1 or x.shape[-1] != scale.shape[0]:
+        raise ValueError(f"rmsnorm: x {tuple(x.shape)} and scale {tuple(scale.shape)} "
+                         f"do not match")
+    if x.device.type == "cpu":
+        return rmsnorm_ref(x, scale, eps=eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"rmsnorm: unsupported device {x.device}")
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return RMSNormFn.apply(x, scale, float(eps))
+    return _launch_fwd(x, scale, eps, want_rstd=False)[0]

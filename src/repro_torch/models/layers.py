@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
+from repro_torch.kernels import ops as kops
 
 # leaves the reference casts to cfg.dtype at every use
 _COMPUTE_DTYPE_LEAVES = frozenset(
@@ -88,14 +89,17 @@ def init_norm(gen: torch.Generator, cfg: ModelConfig, dim: Optional[int] = None)
 
 def apply_norm(p, x, cfg: ModelConfig):
     """RMSNorm or LayerNorm computed in fp32, cast back to x's dtype."""
+    if cfg.norm != "layernorm":
+        return kops.rmsnorm(x, p["scale"], eps=cfg.norm_eps)
     xf = x.float()
-    if cfg.norm == "layernorm":
-        y = F.layer_norm(xf, (xf.shape[-1],), p["scale"].float(),
-                         p["bias"].float(), cfg.norm_eps)
-    else:
-        ms = xf.square().mean(dim=-1, keepdim=True)
-        y = xf * torch.rsqrt(ms + cfg.norm_eps) * p["scale"].float()
+    y = F.layer_norm(xf, (xf.shape[-1],), p["scale"].float(),
+                     p["bias"].float(), cfg.norm_eps)
     return y.to(x.dtype)
+
+
+def rms_norm_headwise(x, scale, eps: float = 1e-6):
+    """Per-head qk-norm (Qwen3/Chameleon): normalize over head_dim."""
+    return kops.rmsnorm(x, scale, eps=eps)
 
 
 # ---------------------------------------------------------------------------
@@ -105,20 +109,25 @@ def apply_norm(p, x, cfg: ModelConfig):
 
 def init_mlp(gen: torch.Generator, cfg: ModelConfig, d_ff: Optional[int] = None):
     d_ff = d_ff or cfg.d_ff
-    return {
-        "w_up": dense_init(gen, (cfg.d_model, d_ff)),
-        "w_down": out_proj_init(gen, (d_ff, cfg.d_model), cfg.num_layers),
-    }
+    p = {}
+    if cfg.activation == "swiglu":
+        p["w_gate"] = dense_init(gen, (cfg.d_model, d_ff))
+    p["w_up"] = dense_init(gen, (cfg.d_model, d_ff))
+    p["w_down"] = out_proj_init(gen, (d_ff, cfg.d_model), cfg.num_layers)
+    return p
 
 
 def apply_mlp(p, x, cfg: ModelConfig):
-    """Position-wise GELU MLP. x: (..., d_model).
+    """Position-wise MLP, SwiGLU or GELU. x: (..., d_model).
 
     ``jax.nn.gelu`` defaults to the tanh approximation, hence
-    ``approximate="tanh"``. SwiGLU is not ported yet
-    (``transformer.check_ported``).
+    ``approximate="tanh"``; ``jax.nn.silu`` is ``F.silu``.
     """
-    h = F.gelu(x @ cast(p["w_up"], cfg), approximate="tanh")
+    up = x @ cast(p["w_up"], cfg)
+    if cfg.activation == "swiglu":
+        h = F.silu(x @ cast(p["w_gate"], cfg)) * up
+    else:
+        h = F.gelu(up, approximate="tanh")
     return h @ cast(p["w_down"], cfg)
 
 
@@ -155,3 +164,29 @@ def lm_logits(p, x, cfg: ModelConfig):
         c = cfg.logit_softcap
         logits = c * torch.tanh(logits / c)
     return logits
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope_frequencies(dim: int, theta: float, device=None):
+    return 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim))
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (B, S, H, hd); positions: (S,) or (B, S). Rotates the two halves
+    of head_dim in fp32 and casts back to x's dtype."""
+    hd = x.shape[-1]
+    freqs = rope_frequencies(hd, theta, device=x.device)  # (hd/2,)
+    if positions.dim() == 1:
+        angles = positions[:, None].float() * freqs[None, :]  # (S, hd/2)
+        angles = angles[None, :, None, :]  # (1, S, 1, hd/2)
+    else:
+        angles = positions[..., None].float() * freqs  # (B, S, hd/2)
+        angles = angles[:, :, None, :]
+    sin, cos = torch.sin(angles), torch.cos(angles)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    rotated = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return rotated.to(x.dtype)

@@ -36,11 +36,11 @@ def check_ported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: recurrent blocks {sorted(kinds - {'attn', 'local_attn'})} "
             f"are not ported yet")
-    if cfg.positional not in ("learned", "none") or cfg.use_qk_norm or cfg.activation != "gelu":
+    if cfg.positional not in ("learned", "rope", "none") or cfg.activation not in (
+            "gelu", "swiglu"):
         raise NotImplementedError(
-            f"{cfg.name}: RoPE, qk-norm and SwiGLU are not ported yet "
-            f"(positional={cfg.positional!r}, qk_norm={cfg.use_qk_norm}, "
-            f"activation={cfg.activation!r})")
+            f"{cfg.name}: positional={cfg.positional!r}, activation="
+            f"{cfg.activation!r} are not ported")
 
 
 def _layer_window(cfg: ModelConfig, layer_idx: int) -> int:

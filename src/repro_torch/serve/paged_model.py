@@ -8,8 +8,13 @@ Counterpart of ``repro/serve/paged_model.py``:
   Pad tokens' K/V lands in the pool but is masked at decode time by
   ``context_lens``.
 - :func:`paged_decode_step` feeds one token per slot at per-sequence
-  positions; its attention is the paged decode kernel gathering through
-  each sequence's block table.
+  positions (RoPE at each slot's own position); its attention is the paged
+  decode kernel gathering through each sequence's block table.
+
+Matmul weights and the learned positions are cast to ``cfg.dtype`` at use
+(``layers.cast``), as the reference does, so either parameter storage
+serves: serving storage (already in ``cfg.dtype``, the cast is a no-op) or
+training storage (fp32 masters).
 
 Only architectures passing ``kv_cache.paged_supported`` (and ported:
 ``transformer.check_ported``) come through here. The pools are updated in
@@ -37,7 +42,7 @@ def _embed(p, tokens, positions, cfg: ModelConfig):
     """
     x = p["tokens"][tokens].to(L.compute_dtype(cfg))
     if cfg.positional == "learned":
-        x = x + p["positions"][positions][:, None]
+        x = x + L.cast(p["positions"][positions], cfg)[:, None]
     return x
 
 
@@ -78,12 +83,17 @@ def paged_decode_step(params, cfg: ModelConfig, pools, tokens, positions,
                                KC.SINK_BLOCK).to(torch.int32)
     slots = (positions % bs).to(torch.int32)
 
-    x = _embed(params["embed"], tokens[:, None].long(), positions.long(), cfg)
+    pos = positions.long()
+    pos2d = pos[:, None]  # (B, 1)
+    x = _embed(params["embed"], tokens[:, None].long(), pos, cfg)
     quantized = "k_scale" in pools
     for kv_i, li in enumerate(KC.kv_layer_indices(cfg)):
         lp = params["layers"][li]
         h = L.apply_norm(lp["norm1"], x, cfg)
         q, k, v = A._project_qkv(lp["mix"], h, h, cfg)  # (B, 1, H/Hkv, hd)
+        if cfg.positional == "rope":
+            q = L.apply_rope(q, pos2d, cfg.rope_theta)
+            k = L.apply_rope(k, pos2d, cfg.rope_theta)
         pools = KC.write_token(pools, kv_i, write_blocks, slots,
                                k[:, 0], v[:, 0], pcfg=pcfg)
         out = kops.paged_decode_attention(
@@ -93,7 +103,8 @@ def paged_decode_step(params, cfg: ModelConfig, pools, tokens, positions,
             pools["v_scale"][kv_i] if quantized else None,
             window=T._layer_window(cfg, li))
         H, hd = out.shape[1], out.shape[2]
-        x = x + (out.reshape(B, H * hd) @ lp["mix"]["wo"].reshape(H * hd, -1))[:, None]
+        wo = L.cast(lp["mix"]["wo"], cfg).reshape(H * hd, -1)
+        x = x + (out.reshape(B, H * hd) @ wo)[:, None]
         if "mlp" in lp:
             h = L.apply_norm(lp["norm2"], x, cfg)
             x = x + L.apply_mlp(lp["mlp"], h, cfg)

@@ -288,8 +288,8 @@ def test_generate_greedy_and_unported_paths():
     assert logits[0, 5:].argmax(-1).tolist() == out[0].tolist()
     with pytest.raises(NotImplementedError):  # the dense serve path is not ported
         generate(params, cfg.replace(block_pattern=("mlstm",)), prompts, 2)
-    with pytest.raises(NotImplementedError):
-        PR.init_params(cfg.replace(activation="swiglu"), device="cpu")
+    with pytest.raises(NotImplementedError):  # MLA is not ported
+        PR.init_params(cfg.replace(attention_kind="mla"), device="cpu")
 
 
 # ===========================================================================
