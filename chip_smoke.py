@@ -28,6 +28,14 @@ and no result line:
    the largest |value| in fp32, one bf16 ulp in bf16 (dx plus 2e-6 of its
    largest |value|), dscale within 1e-5; the outputs of the autograd path
    bitwise those of the direct launches.
+   Attention takes two routes: bf16 at head_dim 64 and 128 the
+   tensor-core kernels (``flash_attention_tc.cu``,
+   ``flash_attention_bwd_tc.cu``), every other case the CUDA-core ones;
+   each case's line names the route its launches took (from the
+   ``tc_launches`` counters) and the run fails if it is not the routing
+   rule's. The tensor-core cases cover GQA 2:1 and 4:1, MQA, window 64,
+   softcap 30, non-causal and ragged S (1, 77, 200, 257, 300, 700) at both
+   head_dims; every backward is run twice and must give the same bits.
    Tolerances: quantize, dequantize and pier update bit for bit; attention
    forward and backward 1e-4 in fp32; the forward's log-sum-exp 1e-4
    against ``flash_attention_fwd_ref``, and its output bitwise the same
@@ -40,7 +48,11 @@ and no result line:
    Device times (CUDA events, median of 25 runs, L2 flushed and the launch
    queued behind a sleep kernel so host overhead is not counted) beside the
    plain version's and, for attention, ``F.scaled_dot_product_attention``
-   (forward, or forward + backward) as a yardstick the port never calls.
+   as a yardstick the port never calls: its forward at the prefill and
+   the training shapes (the training forward with its log-sum-exp), and
+   for the backward SDPA's backward alone and its forward + backward. The
+   CUDA-core attention kernels are timed at the same bf16 shapes through
+   their C entry points, beside the tensor-core ones.
 2b. ``check_ring``: the two wire kernels (ring all-gather, shard scatter)
    between ranks spawned through the port's launcher on the one card (2 and
    4 ranks, gloo, CUDA-IPC-mapped symmetric buffers), byte for byte against
@@ -94,11 +106,23 @@ and no result line:
    logits, one batch's loss and gradients, and 8 steps of ``SimulatedRun``
    (G = 2, per-group batch 2 x 128, flat sync), all within 1e-3; rmsnorm =
    rmsnorm_bwd = 9 per forward and backward, every launch count exact.
+   The fp32 phases 3, 6, 6b, 6c and 8c take the CUDA-core attention
+   kernels: no tensor-core launch.
+6d. ``flash_tc_vs_plain``: GPT-2 XL width at 4 layers and Qwen3-1.7B width
+   at 2 layers, bf16 compute, training storage: one batch's (2 x 1024)
+   loss and every gradient leaf through the tensor-core attention kernels
+   against the same step through the plain attention's autograd. Loss
+   within 1e-3 relative; each leaf's max error within 2% of its max
+   |value| and its relative RMS error within 1e-2; layers flash forward
+   and backward launches, all on the tensor cores. Reported beside it, not
+   checked: the same distance for the plain attention with its keys
+   summed in another fp32 order, the comparison's floor.
 7. ``train``: full GPT-2 XL (bf16 compute, fp32 parameters and state),
    G = 2, sync_delay 0, per-group batch 2 x 1024 tokens, 10 steps of the
    same schedule shape (inner LR 5e-5, warmed up over the lazy start).
    The counters are set to 0 just before the run and must show flash
-   forward = flash backward = 48 x (G x inner steps + warmup steps) and
+   forward = flash backward = 48 x (G x inner steps + warmup steps), all
+   on the tensor cores (as in every bf16 serve and train phase), and
    pier_update = 484 leaves x outer syncs. Step and outer-dispatch times,
    tokens/s, peak memory, the loss history (finite), and the loss on one
    fixed validation batch, which must fall from before the run to after.
@@ -129,13 +153,15 @@ and no result line:
    rate.
 9. a ``{"kernels": [...]}`` line: per kernel its launches on the main-path
    runs (serve and serve_qwen3, train, train_compressed, train_qwen3 and,
-   summed over ranks, train_dist), max error, kernel / plain / library times and
+   summed over ranks, train_dist; for the CUDA-core attention kernels,
+   which those bf16 runs no longer take, their launches in the fp32
+   card-vs-CPU phases), max error, kernel / plain / library times and
    the bound at the main path's shape (bytes over 3.35 TB/s and operations
    over the peak rate of the inputs' type, the larger of the two; H100 SXM
-   data sheet).
+   data sheet). A kernel with no launch fails the run.
 10. the last line, ``{"ok": true, "device": {...}}``.
 
-Three studies run instead of the phases above when asked for, each after
+Four studies run instead of the phases above when asked for, each after
 the build, and print their own JSON lines:
 
     python3 chip_smoke.py --witness-lr     # the train run at Table I's LR,
@@ -143,6 +169,8 @@ the build, and print their own JSON lines:
     python3 chip_smoke.py --build-times    # parallel build vs one nvcc call
     python3 chip_smoke.py --int8-kv-depth  # full-depth Qwen3: int8 KV vs
                                            # bf16 / fp32 KV, bf16 vs fp32
+    python3 chip_smoke.py --flash-precision  # flash_tc_vs_plain's step through
+                                             # other attentions vs the plain one
 """
 
 from __future__ import annotations
@@ -422,6 +450,91 @@ BF16_MAX_REL, BF16_RMS_REL = 2e-2, 1e-2
 LSE_TOL = 1e-4  # fp32 on both sides (the kernel reads bf16 inputs exactly)
 
 
+def _route_of(FK, tc_before: int, launches: int, what: str) -> str:
+    """The route the last ``launches`` launches took, from the tensor-core
+    counter ``what`` (``tc_launches`` or ``tc_bwd_launches``)."""
+    tc = getattr(FK, what) - tc_before
+    if tc not in (0, launches):
+        raise AssertionError(f"{what}: {tc} of {launches} launches took the tensor cores")
+    return "tensor_cores" if tc else "cuda_cores"
+
+
+def tc_rule(dtype: str, hd: int) -> bool:
+    """The flash wrapper's routing rule, restated so that the launch
+    expectations do not read it from the code they check: bf16 at head_dim
+    64 or 128 takes the tensor-core kernels."""
+    return dtype == "bfloat16" and hd in (64, 128)
+
+
+def _core_fwd(torch, q, k, v, lse=None):
+    """The CUDA-core forward kernel through its C entry point, for inputs
+    that the wrapper sends to the tensor cores: its time beside the new
+    route's in one call. Not a path of the port; counts no launch."""
+    from repro_torch.kernels import _build
+
+    B, S, H, hd = q.shape
+    out = torch.empty_like(q)
+    err = _build.lib().flash_attention_fwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if lse is not None else None, _build.DTYPE_CODES[q.dtype], B, S, H,
+        k.shape[2], hd, 1, 0, 0.0, 1.0 / math.sqrt(hd), _build.stream_ptr(q.device))
+    _build.check(err, "flash_attention (CUDA cores)")
+    return out
+
+
+def _core_bwd(torch, q, k, v, out, lse, do):
+    """The CUDA-core backward kernels through their C entry point (as
+    ``_core_fwd``)."""
+    from repro_torch.kernels import _build
+
+    B, S, H, hd = q.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    D = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    err = _build.lib().flash_attention_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), D.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        _build.DTYPE_CODES[q.dtype], B, S, H, k.shape[2], hd, 1, 0, 0.0, 1.0 / math.sqrt(hd),
+        _build.stream_ptr(q.device))
+    _build.check(err, "flash_attention backward (CUDA cores)")
+    return dq, dk, dv
+
+
+# Attention cases: name, B, S, H, Hkv, hd, dtype, causal, window, softcap.
+# bf16 at head_dim 64 and 128 takes the tensor-core route; those cases run
+# GQA 2:1 and 4:1, MQA, window 64, softcap 30, non-causal and ragged S (1,
+# 77, 200, 257, 300, 700) on it. The rest take the CUDA-core route.
+def _flash_cases(torch):
+    bf, f32 = torch.bfloat16, torch.float32
+    return {
+        "tc": [
+            ("tc_gqa2_hd128_s77", 1, 77, 8, 4, 128, bf, True, 0, 0.0),
+            ("tc_gqa4_hd64_s200", 2, 200, 8, 2, 64, bf, True, 0, 0.0),
+            ("tc_gqa4_hd128_s300", 1, 300, 8, 2, 128, bf, True, 0, 0.0),
+            ("tc_mqa_hd64_s77", 2, 77, 4, 1, 64, bf, True, 0, 0.0),
+            ("tc_mqa_hd128_s700", 1, 700, 8, 1, 128, bf, True, 0, 0.0),
+            ("tc_window64_hd64_s300", 1, 300, 4, 4, 64, bf, True, 64, 0.0),
+            ("tc_window64_hd128_s700", 1, 700, 4, 2, 128, bf, True, 64, 0.0),
+            ("tc_softcap30_hd64_s200", 2, 200, 4, 4, 64, bf, True, 0, 30.0),
+            ("tc_softcap30_hd128_s257", 1, 257, 4, 2, 128, bf, True, 0, 30.0),
+            ("tc_noncausal_hd64_s77", 2, 77, 4, 4, 64, bf, False, 0, 0.0),
+            ("tc_noncausal_hd128_s200", 1, 200, 4, 2, 128, bf, False, 0, 0.0),
+            ("tc_noncausal_window64_softcap30_hd64_s700", 1, 700, 4, 2, 64, bf, False, 64, 30.0),
+            ("tc_s1_hd64", 3, 1, 4, 4, 64, bf, True, 0, 0.0),
+            ("tc_s1_hd128", 2, 1, 4, 2, 128, bf, True, 0, 0.0),
+        ],
+        "core": [
+            ("hd40_window_softcap_bf16", 1, 45, 4, 2, 40, bf, True, 16, 10.0),
+            ("hd256_gqa_bf16", 1, 77, 4, 2, 256, bf, True, 0, 0.0),
+            ("gqa4_f32", 2, 200, 8, 2, 64, f32, True, 0, 0.0),
+            ("mqa_hd128_f32", 1, 100, 8, 1, 128, f32, True, 0, 0.0),
+            ("window64_f32", 1, 300, 4, 4, 64, f32, True, 64, 0.0),
+            ("softcap30_f32", 1, 257, 4, 2, 64, f32, True, 0, 30.0),
+            ("noncausal_f32", 2, 77, 4, 4, 64, f32, False, 0, 0.0),
+            ("hd40_s1_f32", 3, 1, 4, 4, 40, f32, True, 0, 0.0),
+        ],
+    }
+
+
 def check_flash(torch, timer, results):
     import torch.nn.functional as F
 
@@ -433,39 +546,38 @@ def check_flash(torch, timer, results):
     def rand(shape, dt):
         return torch.randn(shape, generator=g, device="cuda").to(dt)
 
+    bf, f32 = torch.bfloat16, torch.float32
+    groups = _flash_cases(torch)
     cases = [
-        # name, B, S, H, Hkv, hd, dtype, causal, window, softcap
-        ("xl_s128_bf16", 1, 128, 25, 25, 64, torch.bfloat16, True, 0, 0.0),
-        ("xl_s512_bf16", 1, 512, 25, 25, 64, torch.bfloat16, True, 0, 0.0),
-        ("xl_s700_bf16", 1, 700, 25, 25, 64, torch.bfloat16, True, 0, 0.0),
-        ("xl_train_b2_s1024_bf16", 2, 1024, 25, 25, 64, torch.bfloat16, True, 0, 0.0),
-        ("qwen3_s512_bf16", 1, 512, 16, 8, 128, torch.bfloat16, True, 0, 0.0),
-        ("qwen3_s200_bf16", 1, 200, 16, 8, 128, torch.bfloat16, True, 0, 0.0),
-        ("qwen3_train_b2_s1024_bf16", 2, 1024, 16, 8, 128, torch.bfloat16, True, 0, 0.0),
-        ("xl_s512_f32", 1, 512, 25, 25, 64, torch.float32, True, 0, 0.0),
-        ("gqa4_f32", 2, 200, 8, 2, 64, torch.float32, True, 0, 0.0),
-        ("mqa_hd128_f32", 1, 100, 8, 1, 128, torch.float32, True, 0, 0.0),
-        ("window64_f32", 1, 300, 4, 4, 64, torch.float32, True, 64, 0.0),
-        ("softcap30_f32", 1, 257, 4, 2, 64, torch.float32, True, 0, 30.0),
-        ("noncausal_f32", 2, 77, 4, 4, 64, torch.float32, False, 0, 0.0),
-        ("hd256_f32", 1, 77, 2, 1, 256, torch.float32, True, 0, 0.0),
-        ("hd40_s1_f32", 3, 1, 4, 4, 40, torch.float32, True, 0, 0.0),
-        ("hd40_f32", 1, 45, 4, 2, 40, torch.float32, True, 16, 10.0),
+        ("xl_s128_bf16", 1, 128, 25, 25, 64, bf, True, 0, 0.0),
+        ("xl_s512_bf16", 1, 512, 25, 25, 64, bf, True, 0, 0.0),
+        ("xl_s700_bf16", 1, 700, 25, 25, 64, bf, True, 0, 0.0),
+        ("xl_train_b2_s1024_bf16", 2, 1024, 25, 25, 64, bf, True, 0, 0.0),
+        ("qwen3_s512_bf16", 1, 512, 16, 8, 128, bf, True, 0, 0.0),
+        ("qwen3_s200_bf16", 1, 200, 16, 8, 128, bf, True, 0, 0.0),
+        ("qwen3_train_b2_s1024_bf16", 2, 1024, 16, 8, 128, bf, True, 0, 0.0),
+        *groups["tc"],
+        ("xl_s512_f32", 1, 512, 25, 25, 64, f32, True, 0, 0.0),
+        ("hd256_f32", 1, 77, 2, 1, 256, f32, True, 0, 0.0),
+        ("hd40_f32", 1, 45, 4, 2, 40, f32, True, 16, 10.0),
+        *groups["core"],
     ]
-    worst = 0.0
+    worst = {"tensor_cores": 0.0, "cuda_cores": 0.0}
     for name, B, S, H, Hkv, hd, dt, causal, window, softcap in cases:
         opts = dict(causal=causal, window=window, softcap=softcap)
         q, k, v = rand((B, S, H, hd), dt), rand((B, S, Hkv, hd), dt), rand((B, S, Hkv, hd), dt)
+        tc0 = FK.tc_launches
         out = FK.flash_attention(q, k, v, **opts)
         # the training forward: the same kernel, writing the log-sum-exp too
         out_t, lse = FK._launch_fwd(q, k, v, causal, window, softcap, want_lse=True)
+        route = _route_of(FK, tc0, 2, "tc_launches")
         ref, lse_ref = flash_attention_fwd_ref(q, k, v, **opts)
         torch.cuda.synchronize()
         err, rms = max_err(out, ref), rel_rms(out, ref)
         lse_err = max_err(lse, lse_ref)
         same_out = torch.equal(out_t, out)
         tol = 1e-4 if dt == torch.float32 else 2e-2
-        emit({"phase": "kernels", "kernel": "flash_attention", "case": name,
+        emit({"phase": "kernels", "kernel": "flash_attention", "case": name, "route": route,
               "B": B, "S": S, "H": H, "Hkv": Hkv, "hd": hd,
               "dtype": str(dt).replace("torch.", ""), "causal": causal,
               "window": window, "softcap": softcap, "max_abs_err": err, "tol": tol,
@@ -474,43 +586,69 @@ def check_flash(torch, timer, results):
         ok = out.dtype == q.dtype and err <= tol and lse_err <= LSE_TOL and same_out
         if dt == torch.bfloat16:
             ok = ok and rms <= BF16_RMS_REL
+        if (route == "tensor_cores") != tc_rule(str(dt).replace("torch.", ""), hd):
+            raise AssertionError(f"flash {name}: took the {route} route")
         if not ok:
             raise AssertionError(f"flash {name}: max err {err} (limit {tol}), rel rms "
                                  f"{rms}, lse err {lse_err} (limit {LSE_TOL}), output "
                                  f"with lse equal: {same_out}")
-        worst = max(worst, err)
+        worst[route] = max(worst[route], err)
 
-    # main path's shape: the longest prompt's prefill attention in one layer
-    B, S, H, hd = 1, 512, 25, 64
-    q, k, v = (rand((B, S, H, hd), torch.bfloat16) for _ in range(3))
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    t_k = timer.ms(lambda: FK.flash_attention(q, k, v, causal=True))
-    t_p = timer.ms(lambda: flash_attention_ref(q, k, v, causal=True))
-    t_l = timer.ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
-    nbytes = 4 * B * S * H * hd * 2
-    ops = 4 * hd * H * B * (S * (S + 1) // 2)  # QK^T and PV over unmasked pairs
-    b, by = bound_ms(nbytes, ops, "bfloat16")
-    # Qwen3-1.7B's prefill layer: 16 query heads over 8 KV heads, hd 128
-    H3, Hkv3, hd3 = 16, 8, 128
-    q3 = rand((B, S, H3, hd3), torch.bfloat16)
-    k3, v3 = (rand((B, S, Hkv3, hd3), torch.bfloat16) for _ in range(2))
-    t3_k = timer.ms(lambda: FK.flash_attention(q3, k3, v3, causal=True))
-    t3_p = timer.ms(lambda: flash_attention_ref(q3, k3, v3, causal=True))
-    qt3, kt3, vt3 = (t.transpose(1, 2).contiguous() for t in (q3, k3, v3))
-    t3_l = timer.ms(lambda: F.scaled_dot_product_attention(
-        qt3, kt3, vt3, is_causal=True, enable_gqa=True))
-    b3, by3 = bound_ms(2 * B * S * (H3 + Hkv3) * hd3 * 2,
-                       4 * hd3 * H3 * B * (S * (S + 1) // 2), "bfloat16")
+    def timed(B, S, H, Hkv, hd, want_lse):
+        """Tensor-core, CUDA-core, plain and SDPA times of the causal forward
+        at one shape, and its bound (inputs read and outputs written once;
+        QK^T and PV over the unmasked pairs)."""
+        q = rand((B, S, H, hd), bf)
+        k, v = (rand((B, S, Hkv, hd), bf) for _ in range(2))
+        lse = torch.empty((B, H, S), dtype=torch.float32, device="cuda") if want_lse else None
+        out = {
+            "ms": timer.ms(lambda: FK._launch_fwd(q, k, v, True, 0, 0.0, want_lse=want_lse)),
+            "cuda_cores_ms": timer.ms(lambda: _core_fwd(torch, q, k, v, lse)),
+            "plain_ms": timer.ms(lambda: (flash_attention_fwd_ref if want_lse else
+                                          flash_attention_ref)(q, k, v, causal=True))}
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        out["library_ms"] = timer.ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=Hkv != H))
+        nbytes = 2 * B * S * (2 * H + 2 * Hkv) * hd + (4 * B * H * S if want_lse else 0)
+        out["bound_ms"], out["bound_by"] = bound_ms(
+            nbytes, 4 * hd * H * B * (S * (S + 1) // 2), "bfloat16")
+        return out
+
+    # main path's shapes: the longest prompt's prefill attention in one layer
+    # (GPT-2 XL, Qwen3-1.7B), and one training layer's forward with its lse
+    xl, q3 = timed(1, 512, 25, 25, 64, False), timed(1, 512, 16, 8, 128, False)
+    xl_t, q3_t = timed(2, 1024, 25, 25, 64, True), timed(2, 1024, 16, 8, 128, True)
+    library = "F.scaled_dot_product_attention forward"
+    results["flash_attention_tc"] = {
+        "name": "flash_attention_tc", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:42",
+        "shape": "bf16 B=1 S=512 H=Hkv=25 hd=64 causal (one prefill layer)",
+        "max_abs_err": worst["tensor_cores"], "ms": xl["ms"], "kernel_ms": xl["ms"],
+        "plain_ms": xl["plain_ms"], "bound_ms": xl["bound_ms"], "bound_by": xl["bound_by"],
+        "library_ms": xl["library_ms"], "library": library,
+        "qwen3": {"shape": "bf16 B=1 S=512 H=16 Hkv=8 hd=128 causal (one prefill layer)",
+                  **q3},
+        "train_shape": {"shape": "bf16 B=2 S=1024 H=Hkv=25 hd=64 causal, with lse "
+                                 "(one training layer)", **xl_t},
+        "qwen3_train_shape": {"shape": "bf16 B=2 S=1024 H=16 Hkv=8 hd=128 causal, with "
+                                       "lse (one training layer)", **q3_t}}
     results["flash_attention"] = {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:42",
+        "route_note": "the CUDA-core kernel: fp32 and head_dims other than 64 / 128; timed "
+                      "here through its C entry point at the bf16 shapes the tensor-core "
+                      "kernel now takes",
         "shape": "bf16 B=1 S=512 H=Hkv=25 hd=64 causal (one prefill layer)",
-        "max_abs_err": worst, "ms": t_k, "kernel_ms": t_k, "plain_ms": t_p,
-        "bound_ms": b, "bound_by": by, "library_ms": t_l,
+        "max_abs_err": worst["cuda_cores"], "ms": xl["cuda_cores_ms"],
+        "kernel_ms": xl["cuda_cores_ms"], "plain_ms": xl["plain_ms"],
+        "bound_ms": xl["bound_ms"], "bound_by": xl["bound_by"],
+        "library_ms": xl["library_ms"], "library": library,
         "qwen3": {"shape": "bf16 B=1 S=512 H=16 Hkv=8 hd=128 causal (one prefill layer)",
-                  "ms": t3_k, "plain_ms": t3_p, "bound_ms": b3, "bound_by": by3,
-                  "library_ms": t3_l}}
+                  "ms": q3["cuda_cores_ms"], "plain_ms": q3["plain_ms"],
+                  "bound_ms": q3["bound_ms"], "bound_by": q3["bound_by"],
+                  "library_ms": q3["library_ms"]}}
 
 
 def _paged_inputs(torch, g, *, B, H, Hkv, hd, bs, cls, dt, quantized, T=None):
@@ -826,35 +964,38 @@ def check_flash_bwd(torch, timer, results):
     def rand(shape, dt):
         return torch.randn(shape, generator=g, device="cuda").to(dt)
 
+    bf, f32 = torch.bfloat16, torch.float32
+    groups = _flash_cases(torch)
     cases = [
-        # name, B, S, H, Hkv, hd, dtype, causal, window, softcap
-        ("gqa4_f32", 2, 200, 8, 2, 64, torch.float32, True, 0, 0.0),
-        ("mqa_hd128_f32", 1, 100, 8, 1, 128, torch.float32, True, 0, 0.0),
-        ("window64_f32", 1, 300, 4, 4, 64, torch.float32, True, 64, 0.0),
-        ("softcap30_f32", 1, 257, 4, 2, 64, torch.float32, True, 0, 30.0),
-        ("noncausal_f32", 2, 77, 4, 4, 64, torch.float32, False, 0, 0.0),
-        ("hd40_s1_f32", 3, 1, 4, 4, 40, torch.float32, True, 0, 0.0),
-        ("hd40_window_softcap_f32", 1, 45, 4, 2, 40, torch.float32, True, 16, 10.0),
-        ("xl_s300_f32", 1, 300, 25, 25, 64, torch.float32, True, 0, 0.0),
-        ("hd256_gqa_f32", 1, 77, 4, 2, 256, torch.float32, True, 0, 0.0),
-        ("xl_s256_bf16", 2, 256, 25, 25, 64, torch.bfloat16, True, 0, 0.0),
-        ("xl_s700_bf16", 1, 700, 25, 25, 64, torch.bfloat16, True, 0, 0.0),
-        ("xl_train_b2_s1024_bf16", 2, 1024, 25, 25, 64, torch.bfloat16, True, 0, 0.0),
-        ("qwen3_s256_bf16", 2, 256, 16, 8, 128, torch.bfloat16, True, 0, 0.0),
-        ("qwen3_train_b2_s1024_bf16", 2, 1024, 16, 8, 128, torch.bfloat16, True, 0, 0.0),
-        ("qwen3_s300_f32", 1, 300, 16, 8, 128, torch.float32, True, 0, 0.0),
+        ("xl_s256_bf16", 2, 256, 25, 25, 64, bf, True, 0, 0.0),
+        ("xl_s700_bf16", 1, 700, 25, 25, 64, bf, True, 0, 0.0),
+        ("xl_train_b2_s1024_bf16", 2, 1024, 25, 25, 64, bf, True, 0, 0.0),
+        ("qwen3_s256_bf16", 2, 256, 16, 8, 128, bf, True, 0, 0.0),
+        ("qwen3_train_b2_s1024_bf16", 2, 1024, 16, 8, 128, bf, True, 0, 0.0),
+        *groups["tc"],
+        ("hd40_window_softcap_f32", 1, 45, 4, 2, 40, f32, True, 16, 10.0),
+        ("xl_s300_f32", 1, 300, 25, 25, 64, f32, True, 0, 0.0),
+        ("hd256_gqa_f32", 1, 77, 4, 2, 256, f32, True, 0, 0.0),
+        ("qwen3_s300_f32", 1, 300, 16, 8, 128, f32, True, 0, 0.0),
+        *groups["core"],
     ]
-    worst = 0.0
+    worst = {"tensor_cores": 0.0, "cuda_cores": 0.0}
     for name, B, S, H, Hkv, hd, dt, causal, window, softcap in cases:
         opts = dict(causal=causal, window=window, softcap=softcap)
         ins = [rand((B, S, h, hd), dt).requires_grad_() for h in (H, Hkv, Hkv)]
         do = rand((B, S, H, hd), dt)
+        tc0 = FK.tc_bwd_launches
         FK.flash_attention(*ins, **opts).backward(do)
         got = [t.grad for t in ins]
+        # determinism: the same inputs again give the same bits
+        again = [t.detach().clone().requires_grad_() for t in ins]
+        FK.flash_attention(*again, **opts).backward(do)
+        route = _route_of(FK, tc0, 2, "tc_bwd_launches")
         refs = [t.detach().clone().requires_grad_() for t in ins]
         flash_attention_ref(*refs, **opts).backward(do)
         want = [t.grad for t in refs]
         torch.cuda.synchronize()
+        bitwise = all(torch.equal(a, t.grad) for a, t in zip(got, again))
         # each of dq, dk, dv judged on its own scale
         errs = {n: max_err(a, b) for n, a, b in zip(("dq", "dk", "dv"), got, want)}
         scales = {n: float(b.float().abs().max()) for n, b in zip(("dq", "dk", "dv"), want)}
@@ -867,60 +1008,87 @@ def check_flash_bwd(torch, timer, results):
             tol = {"max_err_over_max_abs": BF16_MAX_REL, "rel_rms_err": BF16_RMS_REL}
             ok = max(rel.values()) <= BF16_MAX_REL and max(rms.values()) <= BF16_RMS_REL
         emit({"phase": "kernels", "kernel": "flash_attention_bwd", "case": name,
-              "B": B, "S": S, "H": H, "Hkv": Hkv, "hd": hd,
+              "route": route, "B": B, "S": S, "H": H, "Hkv": Hkv, "hd": hd,
               "dtype": str(dt).replace("torch.", ""), "causal": causal,
               "window": window, "softcap": softcap, "max_abs_err": errs,
               "max_abs_grad": scales, "max_err_over_max_abs": rel, "rel_rms_err": rms,
-              "tol": tol})
-        if not (all(a.dtype == dt for a in got) and ok):
+              "tol": tol, "bitwise_repeatable": bitwise})
+        if (route == "tensor_cores") != tc_rule(str(dt).replace("torch.", ""), hd):
+            raise AssertionError(f"flash backward {name}: took the {route} route")
+        if not (all(a.dtype == dt for a in got) and ok and bitwise):
             raise AssertionError(f"flash backward {name}: errors {errs}, relative {rel}, "
-                                 f"rel rms {rms}; limits {tol}")
-        if dt == torch.float32:
-            worst = max(worst, max(errs.values()))
+                                 f"rel rms {rms}; limits {tol}; repeatable {bitwise}")
+        # fp32: the largest error (the CUDA-core route's cases); bf16 on the
+        # tensor cores: the largest error over its gradient's max |value|
+        if dt == torch.float32 or route == "tensor_cores":
+            worst[route] = max(worst[route], max((errs if dt == torch.float32
+                                                  else rel).values()))
 
-    # main path's shape: one training layer's attention, B 2, S 1024
-    B, S, H, hd = 2, 1024, 25, 64
-    q, k, v, do = (rand((B, S, H, hd), torch.bfloat16) for _ in range(4))
-    out, lse = FK._launch_fwd(q, k, v, True, 0, 0.0, want_lse=True)
-    t_k = timer.ms(lambda: FK._launch_bwd(q, k, v, out, lse, do, True, 0, 0.0))
-    t_p = timer.ms(lambda: flash_attention_bwd_ref(q, k, v, out, lse, do, causal=True))
-    qt, kt, vt, dot = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
-    qt, kt, vt = (t.requires_grad_() for t in (qt, kt, vt))
+    def timed(B, S, H, Hkv, hd):
+        """Tensor-core, CUDA-core and plain times of the causal backward at
+        one shape, SDPA's backward alone and SDPA's forward + backward, and
+        the bound (5 products over the unmasked pairs; q k v o dO and lse
+        read, dq dk dv written once)."""
+        q, do = rand((B, S, H, hd), bf), rand((B, S, H, hd), bf)
+        k, v = (rand((B, S, Hkv, hd), bf) for _ in range(2))
+        out, lse = FK._launch_fwd(q, k, v, True, 0, 0.0, want_lse=True)
+        res = {
+            "ms": timer.ms(lambda: FK._launch_bwd(q, k, v, out, lse, do, True, 0, 0.0)),
+            "cuda_cores_ms": timer.ms(lambda: _core_bwd(torch, q, k, v, out, lse, do)),
+            "plain_ms": timer.ms(lambda: flash_attention_bwd_ref(q, k, v, out, lse, do,
+                                                                 causal=True))}
+        qt, kt, vt, dot = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+        qt, kt, vt = (t.requires_grad_() for t in (qt, kt, vt))
 
-    def sdpa_fwd_bwd():
-        F.scaled_dot_product_attention(qt, kt, vt, is_causal=True).backward(dot)
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=Hkv != H)
 
-    t_l = timer.ms(sdpa_fwd_bwd)
-    pairs = B * H * (S * (S + 1) // 2)
-    ops = 5 * 2 * hd * pairs  # recompute S; dP, dV, dK, dQ over unmasked pairs
-    nbytes = 8 * B * S * H * hd * 2 + 4 * B * H * S  # q k v o dO + lse in; dq dk dv out
-    b, by = bound_ms(nbytes, ops, "bfloat16")
-    # Qwen3-1.7B's training layer: 16 query heads over 8 KV heads, hd 128
-    H3, Hkv3, hd3 = 16, 8, 128
-    q3, do3 = (rand((B, S, H3, hd3), torch.bfloat16) for _ in range(2))
-    k3, v3 = (rand((B, S, Hkv3, hd3), torch.bfloat16) for _ in range(2))
-    out3, lse3 = FK._launch_fwd(q3, k3, v3, True, 0, 0.0, want_lse=True)
-    t3_k = timer.ms(lambda: FK._launch_bwd(q3, k3, v3, out3, lse3, do3, True, 0, 0.0))
-    t3_p = timer.ms(lambda: flash_attention_bwd_ref(q3, k3, v3, out3, lse3, do3, causal=True))
-    qt3, kt3, vt3, dot3 = (t.transpose(1, 2).contiguous() for t in (q3, k3, v3, do3))
-    qt3, kt3, vt3 = (t.requires_grad_() for t in (qt3, kt3, vt3))
-    t3_l = timer.ms(lambda: F.scaled_dot_product_attention(
-        qt3, kt3, vt3, is_causal=True, enable_gqa=True).backward(dot3))
-    b3, by3 = bound_ms(2 * B * S * (2 * H3 + 2 * Hkv3) * hd3 * 2 + 4 * B * H3 * S,
-                       5 * 2 * hd3 * B * H3 * (S * (S + 1) // 2), "bfloat16")
+        o_l = sdpa()
+        res["library_bwd_ms"] = timer.ms(
+            lambda: torch.autograd.grad(o_l, (qt, kt, vt), dot, retain_graph=True))
+        res["library_ms"] = timer.ms(lambda: sdpa().backward(dot))
+        nbytes = 2 * B * S * (4 * H + 4 * Hkv) * hd + 4 * B * H * S
+        res["bound_ms"], res["bound_by"] = bound_ms(
+            nbytes, 5 * 2 * hd * B * H * (S * (S + 1) // 2), "bfloat16")
+        return res
+
+    # main path's shapes: one training layer's attention, B 2, S 1024
+    xl, q3 = timed(2, 1024, 25, 25, 64), timed(2, 1024, 16, 8, 128)
+    library = ("F.scaled_dot_product_attention forward + backward (library_ms); its "
+               "backward alone (library_bwd_ms)")
+    note = ("no Pallas backward exists; the gradient of the TPU kernel's function, which "
+            "the reference leaves to XLA")
+    results["flash_attention_bwd_tc"] = {
+        "name": "flash_attention_bwd_tc", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd_tc.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:42", "replaces_note": note,
+        "shape": "bf16 B=2 S=1024 H=Hkv=25 hd=64 causal (one training layer)",
+        "max_abs_err": worst["tensor_cores"],
+        "max_abs_err_note": "largest max error over max |gradient| of the bf16 cases",
+        "ms": xl["ms"], "kernel_ms": xl["ms"], "plain_ms": xl["plain_ms"],
+        "bound_ms": xl["bound_ms"], "bound_by": xl["bound_by"],
+        "library_ms": xl["library_ms"], "library_bwd_ms": xl["library_bwd_ms"],
+        "library": library,
+        "qwen3": {"shape": "bf16 B=2 S=1024 H=16 Hkv=8 hd=128 causal (one training layer)",
+                  **q3}}
     results["flash_attention_bwd"] = {
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:42",
-        "replaces_note": "no Pallas backward exists; the gradient of the TPU "
-                         "kernel's function, which the reference leaves to XLA",
+        "replaces": "src/repro/kernels/flash_attention.py:42", "replaces_note": note,
+        "route_note": "the CUDA-core kernels: fp32 and head_dims other than 64 / 128; "
+                      "timed here through their C entry point at the bf16 shapes the "
+                      "tensor-core kernels now take",
         "shape": "bf16 B=2 S=1024 H=Hkv=25 hd=64 causal (one training layer)",
-        "max_abs_err": worst, "ms": t_k, "kernel_ms": t_k, "plain_ms": t_p,
-        "bound_ms": b, "bound_by": by, "library_ms": t_l,
-        "library": "F.scaled_dot_product_attention forward + backward",
+        "max_abs_err": worst["cuda_cores"],
+        "ms": xl["cuda_cores_ms"], "kernel_ms": xl["cuda_cores_ms"],
+        "plain_ms": xl["plain_ms"], "bound_ms": xl["bound_ms"], "bound_by": xl["bound_by"],
+        "library_ms": xl["library_ms"], "library_bwd_ms": xl["library_bwd_ms"],
+        "library": library,
         "qwen3": {"shape": "bf16 B=2 S=1024 H=16 Hkv=8 hd=128 causal (one training layer)",
-                  "ms": t3_k, "plain_ms": t3_p, "bound_ms": b3, "bound_by": by3,
-                  "library_ms": t3_l}}
+                  "ms": q3["cuda_cores_ms"], "plain_ms": q3["plain_ms"],
+                  "bound_ms": q3["bound_ms"], "bound_by": q3["bound_by"],
+                  "library_ms": q3["library_ms"], "library_bwd_ms": q3["library_bwd_ms"]}}
 
 
 # ---------------------------------------------------------------------------
@@ -989,10 +1157,12 @@ def e2e_vs_cpu(torch, counters):
         raise AssertionError(f"int8 KV logits differ by {err8} > {lim8}")
     L = cfg.num_layers
     if launches != {"flash_attention": L, "flash_attention_bwd": 0,
+                    "flash_attention_tc": 0, "flash_attention_bwd_tc": 0,
                     "paged_decode_attention": D * L, "quantize_blockwise": 0,
                     "dequantize_blockwise": 0, "pier_update": 0, "rmsnorm": 0,
                     "rmsnorm_bwd": 0}:
         raise AssertionError(f"card rollout launches {launches}")
+    return [launches]
 
 
 # ---------------------------------------------------------------------------
@@ -1085,6 +1255,9 @@ def serve(torch, params, cfg, counters, *, quantized: bool, phase: str = "serve"
     calls = st["prefills"] + st["decode_steps"]
     want_q = 2 * L * calls if quantized else 0
     expect = {"flash_attention": st["prefills"] * L, "flash_attention_bwd": 0,
+              "flash_attention_tc": (st["prefills"] * L
+                                     if tc_rule(cfg.dtype, cfg.resolved_head_dim) else 0),
+              "flash_attention_bwd_tc": 0,
               "paged_decode_attention": st["decode_steps"] * L,
               "quantize_blockwise": want_q, "dequantize_blockwise": 0, "pier_update": 0,
               "rmsnorm": norm_launches(cfg) * calls, "rmsnorm_bwd": 0}
@@ -1299,7 +1472,9 @@ def _train_expect(run, steps: int, num_leaves: int):
     fwd = run.mc.num_layers * forwards
     norms = norm_launches(run.mc) * forwards
     nq, ndq = _quant_launches(run.strategy, run.G, run.P)
+    tc = fwd if tc_rule(run.mc.dtype, run.mc.resolved_head_dim) else 0
     return {"flash_attention": fwd, "flash_attention_bwd": fwd,
+            "flash_attention_tc": tc, "flash_attention_bwd_tc": tc,
             "pier_update": num_leaves * syncs, "paged_decode_attention": 0,
             "quantize_blockwise": nq * num_leaves * syncs,
             "dequantize_blockwise": ndq * num_leaves * syncs,
@@ -1317,7 +1492,7 @@ def train_vs_cpu(torch, counters):
     cfg = get_config("gpt2-xl").replace(num_layers=4, dtype="float32")
     steps, loss_tol, param_tol = 12, 1e-3, 1e-3
     base = R.init_params(cfg, seed=0, device="cpu", training=True)
-    finals = {}
+    finals, seen = {}, []
     for delay in (0, 1):
         tc = TrainConfig(**TRAIN_TC, global_batch_size=4, seq_len=128, sync_delay=delay)
         t0 = time.perf_counter()
@@ -1355,12 +1530,14 @@ def train_vs_cpu(torch, counters):
                                  f"(limit {loss_tol}), param err {p_err} (limit {param_tol})")
         if launches != expect:
             raise AssertionError(f"train_vs_cpu launches {launches} != {expect}")
+        seen.append(launches)
         del runs
     diff = max(float((a - b).abs().max()) for a, b in zip(finals[0], finals[1]))
     emit({"phase": "train_vs_cpu", "delay1_vs_delay0_max_abs_param_diff": diff})
     if not diff > 1e-6:
         raise AssertionError(f"delayed sync equals eager (max diff {diff}): the "
                              f"in-flight snapshot is not held")
+    return seen
 
 
 def qwen3_vs_cpu(torch, counters):
@@ -1446,6 +1623,7 @@ def qwen3_vs_cpu(torch, counters):
         raise AssertionError(f"qwen3_vs_cpu: errors {errs} (limit {tol})")
     if got != expect:
         raise AssertionError(f"qwen3_vs_cpu launches {got} != {expect}")
+    return list(got.values())
 
 
 # (name, OuterCommConfig kwargs, groups, pods, sync_delay)
@@ -1474,6 +1652,7 @@ def train_compressed_vs_cpu(torch, counters):
     cfg = get_config("gpt2-xl").replace(num_layers=2, dtype="float32")
     steps, seq, per, loss_tol, param_tol = 8, 64, 1, 1e-3, 1e-3
     base = R.init_params(cfg, seed=0, device="cpu", training=True)
+    seen = []
     for name, comm, G, P, delay in COMPRESSED_CONFIGS:
         tc = TrainConfig(**TRAIN_TC, global_batch_size=G * per, seq_len=seq,
                          sync_delay=delay, outer_comm=OuterCommConfig(**comm))
@@ -1517,7 +1696,216 @@ def train_compressed_vs_cpu(torch, counters):
         if launches != expect:
             raise AssertionError(f"train_compressed_vs_cpu {name}: launches {launches} "
                                  f"!= {expect}")
+        seen.append(launches)
         del runs
+    return seen
+
+
+def _plain_reordered(q, k, v, *, causal=True, window=0, softcap=0.0):
+    """The plain attention with P V summed over the two halves of the keys
+    apart: the same function in another fp32 order, whose distance from
+    ``flash_attention_ref`` is the floor of ``flash_tc_vs_plain``'s
+    comparison."""
+    import torch
+
+    from repro_torch.kernels import ref as RF
+
+    B, S, H, hd = q.shape
+    s, mask = RF._scores_and_mask(q, k, causal=causal, window=window, softcap=softcap)
+    probs = torch.softmax(torch.where(mask, s, RF.NEG_INF), dim=-1)
+    vf, h = v.float(), S // 2
+    out = (torch.einsum("bhgqk,bkhd->bqhgd", probs[..., :h], vf[:, :h])
+           + torch.einsum("bhgqk,bkhd->bqhgd", probs[..., h:], vf[:, h:]))
+    return out.reshape(B, S, H, hd).to(q.dtype)
+
+
+def _leaf_errors(got, want):
+    """Per gradient leaf: max error over max |value|, and relative RMS."""
+    rel_max, rms = {}, {}
+    for name, w in want.items():
+        scale = float(w.float().abs().max())
+        err = max_err(got[name], w)
+        rel_max[name] = err / scale if scale > 0 else err
+        rms[name] = rel_rms(got[name], w)
+    return rel_max, rms
+
+
+# the models of the one-step gradient comparisons, (arch, layers)
+FLASH_STEP_MODELS = (("gpt2-xl", 4), ("qwen3-1.7b", 2))
+
+
+def _flash_step_inputs(torch, arch: str, layers: int):
+    """``arch`` at ``layers`` layers in bf16 compute and training storage,
+    seeded parameters, and one seeded batch of 2 x 1024 tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry as R
+
+    cfg = get_config(arch).replace(num_layers=layers)  # bf16 compute
+    params = R.init_params(cfg, seed=0, device="cuda", training=True)
+    toks = torch.randint(0, cfg.vocab_size, (2, 1025), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(13))
+    return cfg, params, {"tokens": toks[:, :-1].cuda(), "labels": toks[:, 1:].cuda()}
+
+
+def _step_grads(torch, counters, cfg, params, batch, attention):
+    """One loss and backward with ``attention`` in place of
+    ``kops.flash_attention`` (as ``witness_lr`` swaps it) -> (loss, {leaf:
+    gradient}, launches)."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import registry as R
+    from repro_torch.models.transformer import param_leaves
+
+    kernel_attention = kops.flash_attention
+    kops.flash_attention = attention
+    try:
+        for c in counters.values():
+            c.launches = 0
+        loss, _ = R.loss_fn(params, cfg, batch)
+        loss.backward()
+        torch.cuda.synchronize()
+    finally:
+        kops.flash_attention = kernel_attention
+    launches = {k: c.launches for k, c in counters.items()}
+    grads = {name: t.grad for name, t in param_leaves(params)}
+    for _, t in param_leaves(params):
+        t.grad = None
+    return float(loss.detach()), grads, launches
+
+
+def flash_tc_vs_plain(torch, counters):
+    """GPT-2 XL width at 4 layers and Qwen3-1.7B width at 2 layers, bf16
+    compute, training storage, on the card: one batch's (2 x 1024 tokens)
+    loss and every gradient leaf through the tensor-core flash kernels,
+    against the same step with ``kops.flash_attention`` swapped for the
+    plain attention (``flash_attention_ref``, autograd). The fp32
+    ``*_vs_cpu`` phases take the CUDA-core route, so this is the end-to-end
+    check of the tensor-core one. Loss within 1e-3 relative; each leaf's max
+    error over its max |value| within BF16_MAX_REL and its relative RMS
+    within BF16_RMS_REL; every flash launch of the kernel run a tensor-core
+    one, none in the plain run. The same step through ``_plain_reordered``
+    is reported beside it: at initialization the query and key
+    projections' gradients are small differences of near-uniform attention,
+    and a one-ulp change of a few attention outputs moves them by about 1%
+    (RMS), so that is the floor of this comparison (``--flash-precision``)."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    loss_tol = 1e-3
+    flash = ("flash_attention", "flash_attention_bwd", "flash_attention_tc",
+             "flash_attention_bwd_tc")
+    for arch, layers in FLASH_STEP_MODELS:
+        t0 = time.perf_counter()
+        cfg, params, batch = _flash_step_inputs(torch, arch, layers)
+        loss_k, g_k, l_k = _step_grads(torch, counters, cfg, params, batch, kops.flash_attention)
+        loss_p, g_p, l_p = _step_grads(torch, counters, cfg, params, batch, flash_attention_ref)
+        _, g_r, _ = _step_grads(torch, counters, cfg, params, batch, _plain_reordered)
+        rel_max, rms = _leaf_errors(g_k, g_p)
+        floor_max, floor_rms = _leaf_errors(g_r, g_p)
+        loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+        worst_max = max(rel_max, key=rel_max.get)
+        worst_rms = max(rms, key=rms.get)
+        L = cfg.num_layers
+        emit({"phase": "flash_tc_vs_plain",
+              "config": f"{cfg.name} width, {L} layers, bf16 compute, fp32 params",
+              "batch": [2, 1024], "loss_kernels": loss_k, "loss_plain": loss_p,
+              "loss_rel_err": loss_rel, "loss_tol": loss_tol, "leaves": len(g_p),
+              "max_err_over_max_abs": rel_max[worst_max], "worst_leaf_max": worst_max,
+              "rel_rms_err": rms[worst_rms], "worst_leaf_rms": worst_rms,
+              "tol": {"max_err_over_max_abs": BF16_MAX_REL, "rel_rms_err": BF16_RMS_REL},
+              "floor_plain_reordered": {"max_err_over_max_abs": max(floor_max.values()),
+                                        "rel_rms_err": max(floor_rms.values()),
+                                        "worst_leaf_rms": max(floor_rms, key=floor_rms.get)},
+              "rel_rms_err_by_leaf": {n: round(r, 6) for n, r in rms.items()},
+              "launches_kernels": {k: l_k[k] for k in flash},
+              "launches_plain": {k: l_p[k] for k in flash},
+              "seconds": time.perf_counter() - t0})
+        if not (math.isfinite(loss_k) and loss_rel <= loss_tol):
+            raise AssertionError(f"flash_tc_vs_plain {arch}: loss {loss_k} vs {loss_p}")
+        if rel_max[worst_max] > BF16_MAX_REL or rms[worst_rms] > BF16_RMS_REL:
+            raise AssertionError(f"flash_tc_vs_plain {arch}: gradient {worst_max} "
+                                 f"{rel_max[worst_max]}, {worst_rms} rms {rms[worst_rms]}")
+        if [l_k[k] for k in flash] != [L] * 4 or any(l_p[k] for k in flash):
+            raise AssertionError(f"flash_tc_vs_plain {arch}: launches {l_k} / {l_p}")
+        del params, g_k, g_p, g_r
+        free_cuda(torch)
+
+
+def flash_precision(torch, counters):
+    """``--flash-precision``: ``flash_tc_vs_plain``'s step through other
+    attentions, each against the plain attention: the plain one in another
+    fp32 order (the floor), the tensor-core kernels, their forward with the
+    plain backward and the plain forward with their backward, the CUDA-core
+    kernels, and F.scaled_dot_product_attention (a yardstick the port never
+    calls). One line per model and attention: the worst leaf's relative RMS
+    and max error over max |value|."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as FK
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.ref import flash_attention_fwd_ref, flash_attention_ref
+
+    class TcForwardPlainBackward(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v):
+            ctx.save_for_backward(q, k, v)
+            return FK._launch_fwd(q, k, v, True, 0, 0.0, want_lse=False)[0]
+
+        @staticmethod
+        def backward(ctx, do):
+            ins = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            with torch.enable_grad():
+                return torch.autograd.grad(flash_attention_ref(*ins, causal=True), ins, do)
+
+    class PlainForwardTcBackward(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v):
+            out, lse = flash_attention_fwd_ref(q, k, v, causal=True)
+            out = out.contiguous()
+            ctx.save_for_backward(q, k, v, out, lse.contiguous())
+            return out
+
+        @staticmethod
+        def backward(ctx, do):
+            return FK._launch_bwd(*ctx.saved_tensors, do.contiguous(), True, 0, 0.0)
+
+    class CudaCores(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v):
+            B, S, H, _ = q.shape
+            lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+            out = _core_fwd(torch, q, k, v, lse)
+            ctx.save_for_backward(q, k, v, out, lse)
+            return out
+
+        @staticmethod
+        def backward(ctx, do):
+            return _core_bwd(torch, *ctx.saved_tensors, do.contiguous())
+
+    def sdpa(q, k, v, causal=True, window=0, softcap=0.0):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+            enable_gqa=q.shape[2] != k.shape[2]).transpose(1, 2)
+
+    def fn(cls):
+        return lambda q, k, v, causal=True, window=0, softcap=0.0: cls.apply(q, k, v)
+
+    attentions = {"plain_reordered": _plain_reordered, "tensor_cores": kops.flash_attention,
+                  "tc_forward_plain_backward": fn(TcForwardPlainBackward),
+                  "plain_forward_tc_backward": fn(PlainForwardTcBackward),
+                  "cuda_cores": fn(CudaCores), "sdpa": sdpa}
+    for arch, layers in FLASH_STEP_MODELS:
+        cfg, params, batch = _flash_step_inputs(torch, arch, layers)
+        _, plain, _ = _step_grads(torch, counters, cfg, params, batch, flash_attention_ref)
+        for name, attention in attentions.items():
+            _, grads, _ = _step_grads(torch, counters, cfg, params, batch, attention)
+            rel_max, rms = _leaf_errors(grads, plain)
+            worst = max(rms, key=rms.get)
+            emit({"phase": "flash_precision", "config": f"{cfg.name} width, {layers} layers, "
+                  "bf16 compute", "attention": name, "worst_leaf_rms": worst,
+                  "rel_rms_err": rms[worst], "max_err_over_max_abs": max(rel_max.values())})
+            del grads
+        del params, plain
+        free_cuda(torch)
 
 
 def _timed(torch, times, kind, fn):
@@ -1983,10 +2371,11 @@ def check_ring(torch, results):
                                    if kname == "shard_scatter" else ""))}
 
 
-def _dist_expect(strategy, E: int, leaves: int, layers: int, steps: int, syncs: int):
-    """Launches of one rank's main path: its one replica's attention, the
-    outer update, and the exchange's kernels per leaf and sync as
-    ``sync/strategies.py`` makes them (``E`` the wire's endpoints)."""
+def _dist_expect(strategy, E: int, leaves: int, cfg, steps: int, syncs: int):
+    """Launches of one rank's main path: its one replica's attention (on
+    the tensor cores by ``tc_rule``), the outer update, and the
+    exchange's kernels per leaf and sync as ``sync/strategies.py`` makes
+    them (``E`` the wire's endpoints)."""
     from repro_torch.sync import Hierarchical, Int8Wire
 
     inner = strategy.inner if isinstance(strategy, Hierarchical) else strategy
@@ -1998,7 +2387,10 @@ def _dist_expect(strategy, E: int, leaves: int, layers: int, steps: int, syncs: 
             nq, ndq, ring, scatter = 2, 1 + E + 1 + E, 1, 1
         else:
             nq, ndq, ring = 1, 1 + E, 1
-    return {"flash_attention": layers * steps, "flash_attention_bwd": layers * steps,
+    fwd = cfg.num_layers * steps
+    tc = fwd if tc_rule(cfg.dtype, cfg.resolved_head_dim) else 0
+    return {"flash_attention": fwd, "flash_attention_bwd": fwd,
+            "flash_attention_tc": tc, "flash_attention_bwd_tc": tc,
             "pier_update": leaves * syncs, "quantize_blockwise": nq * leaves * syncs,
             "dequantize_blockwise": ndq * leaves * syncs, "ring_allgather": ring * syncs,
             "shard_scatter": scatter * syncs}
@@ -2039,6 +2431,7 @@ def train_dist_vs_sim(torch):
     steps, per, seq, tol = 8, 2, 256, 1e-5
     base = R.init_params(cfg, seed=0, device="cpu", training=True)
     sd = {k: v.detach().clone() for k, v in base.state_dict().items()}
+    seen = []
     for E in (2, 4):
         cases = [c for c in DIST_VS_SIM if c[2] == E]
         jobs, tcs = [], []
@@ -2069,8 +2462,7 @@ def train_dist_vs_sim(torch):
                 bitwise = bitwise and all(torch.equal(a, b) for a, b in zip(mine, sim))
             syncs, _ = _syncs(tc, steps)
             E_wire = P if comm.get("hierarchical") else ranks
-            expect = _dist_expect(resolve_strategy(tc), E_wire, len(sd), cfg.num_layers, steps,
-                                  syncs)
+            expect = _dist_expect(resolve_strategy(tc), E_wire, len(sd), cfg, steps, syncs)
             launches = [o[i]["launches"] for o in outs]
             emit({"phase": "train_dist_vs_sim", "case": name, "strategy": outs[0][i]["strategy"],
                   "config": "gpt2-medium width, 2 layers, float32", "ranks": ranks, "pods": P,
@@ -2086,8 +2478,10 @@ def train_dist_vs_sim(torch):
             if any(ln != expect for ln in launches):
                 raise AssertionError(f"train_dist_vs_sim {name}: launches {launches} != "
                                      f"{expect} per rank")
+            seen.extend(launches)
             del run
             free_cuda(torch)
+    return seen
 
 
 def train_dist(torch):
@@ -2115,7 +2509,7 @@ def train_dist(torch):
         r0 = outs[0][i]
         syncs, warm = _syncs(tc, steps)
         n_leaves = r0["leaves"]
-        expect = _dist_expect(resolve_strategy(tc), G, n_leaves, cfg.num_layers, steps, syncs)
+        expect = _dist_expect(resolve_strategy(tc), G, n_leaves, cfg, steps, syncs)
         launches = [o[i]["launches"] for o in outs]
         tm = r0["times_ms"]
         inner = tm.get("inner_step", [])
@@ -2159,8 +2553,13 @@ def train_dist(torch):
     return lines
 
 
+# the CUDA-core flash kernels' entries of the kernels line (their counters
+# count the tensor-core launches too)
+CUDA_CORE_FLASH = ("flash_attention", "flash_attention_bwd")
+
+
 def main(argv) -> int:
-    studies = {"--witness-lr", "--build-times", "--int8-kv-depth"}
+    studies = {"--witness-lr", "--build-times", "--int8-kv-depth", "--flash-precision"}
     if len(argv) > 1 or not set(argv) <= studies:
         print(f"usage: chip_smoke.py [{' | '.join(sorted(studies))}]", file=sys.stderr)
         return 2
@@ -2194,6 +2593,8 @@ def main(argv) -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
     counters = {"flash_attention": Counter(FK), "flash_attention_bwd": Counter(FK, "bwd_launches"),
+                "flash_attention_tc": Counter(FK, "tc_launches"),
+                "flash_attention_bwd_tc": Counter(FK, "tc_bwd_launches"),
                 "paged_decode_attention": Counter(DK), "quantize_blockwise": Counter(QK),
                 "dequantize_blockwise": Counter(QK, "dequantize_launches"),
                 "pier_update": Counter(PK), "rmsnorm": Counter(RK),
@@ -2206,6 +2607,9 @@ def main(argv) -> int:
         return 0
     if argv == ["--int8-kv-depth"]:
         int8_kv_depth(torch)
+        return 0
+    if argv == ["--flash-precision"]:
+        flash_precision(torch, counters)
         return 0
     results = {}
     timer = Timer(torch)
@@ -2220,7 +2624,7 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     check_ring(torch, results)
 
-    e2e_vs_cpu(torch, counters)
+    fp32_runs = e2e_vs_cpu(torch, counters)
 
     from repro_torch.configs import get_config
     from repro_torch.models import registry as R
@@ -2241,10 +2645,12 @@ def main(argv) -> int:
 
     with large_allocations_on_the_heap() as raised:
         emit({"phase": "host_malloc", "thresholds_raised": raised})
-        train_vs_cpu(torch, counters)
-        train_compressed_vs_cpu(torch, counters)
+        fp32_runs += train_vs_cpu(torch, counters)
+        fp32_runs += train_compressed_vs_cpu(torch, counters)
         free_cuda(torch)
-        qwen3_vs_cpu(torch, counters)
+        fp32_runs += qwen3_vs_cpu(torch, counters)
+    free_cuda(torch)
+    flash_tc_vs_plain(torch, counters)
     free_cuda(torch)
     run, train_line = train(torch, counters)
     train_breakdown(torch, run)
@@ -2265,27 +2671,41 @@ def main(argv) -> int:
     free_cuda(torch)
     trains = [train_line, compressed_line, qwen3_line]
     runs = serves + trains
-    train_dist_vs_sim(torch)
+    fp32_runs += train_dist_vs_sim(torch)
     free_cuda(torch)
     dists = train_dist(torch)
 
+    def count(launches, name):  # one run's launches of kernel `name`
+        n = launches.get(name, 0)
+        if name in CUDA_CORE_FLASH:  # the counter counts both routes
+            n -= launches.get(name + "_tc", 0)
+        return n
+
     def dist_launches(line, name):  # every rank's count
-        return sum(ln.get(name, 0) for ln in line["launches_per_rank"])
+        return sum(count(ln, name) for ln in line["launches_per_rank"])
 
     kernels = []
-    for name in ("flash_attention", "paged_decode_attention", "quantize_blockwise",
-                 "pier_update", "flash_attention_bwd", "dequantize_blockwise",
-                 "ring_allgather", "shard_scatter", "rmsnorm", "rmsnorm_bwd"):
+    for name in ("flash_attention_tc", "flash_attention_bwd_tc", "paged_decode_attention",
+                 "quantize_blockwise", "pier_update", "dequantize_blockwise",
+                 "ring_allgather", "shard_scatter", "rmsnorm", "rmsnorm_bwd",
+                 *CUDA_CORE_FLASH):
         entry = dict(results[name])
-        single = sum(r["launches"].get(name, 0) for r in runs)
-        entry["launches"] = single + sum(dist_launches(d, name) for d in dists)
+        single = sum(count(r["launches"], name) for r in runs)
+        main_path = single + sum(dist_launches(d, name) for d in dists)
+        fp32 = sum(count(ln, name) for ln in fp32_runs)
+        # the bf16 main paths run the tensor-core flash kernels; the
+        # CUDA-core ones run in the fp32 card-vs-CPU phases
+        entry["launches"] = fp32 if name in CUDA_CORE_FLASH else main_path
         entry["launches_by_path"] = {
-            "serve": sum(r["launches"].get(name, 0) for r in serves),
-            "serve_by_run": {f"{r['phase']}_{r['kv']}": r["launches"].get(name, 0)
+            "serve": sum(count(r["launches"], name) for r in serves),
+            "serve_by_run": {f"{r['phase']}_{r['kv']}": count(r["launches"], name)
                              for r in serves},
-            "train": sum(r["launches"].get(name, 0) for r in trains),
-            "train_by_run": {r["phase"]: r["launches"].get(name, 0) for r in trains},
-            "train_dist_by_strategy": {d["strategy"]: dist_launches(d, name) for d in dists}}
+            "train": sum(count(r["launches"], name) for r in trains),
+            "train_by_run": {r["phase"]: count(r["launches"], name) for r in trains},
+            "train_dist_by_strategy": {d["strategy"]: dist_launches(d, name) for d in dists},
+            "fp32_vs_cpu_phases": fp32}
+        if entry["launches"] == 0:
+            raise AssertionError(f"kernel {name} was not launched: {entry['launches_by_path']}")
         kernels.append(entry)
     emit({"phase": "done", "card": smi, "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})

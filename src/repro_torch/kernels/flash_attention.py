@@ -1,13 +1,20 @@
 """Flash attention forward and backward: the CUDA kernels' wrapper.
 
-Counterpart of ``repro/kernels/flash_attention.py:flash_attention``; the
-kernels are ``csrc/flash_attention.cu``. A CPU tensor takes the plain
-version ``kernels/ref.py:flash_attention_ref``, whose gradient is
-autograd's. A CUDA tensor launches the forward kernel (or raises); when
-autograd needs a gradient it goes through :class:`FlashAttentionFn`, whose
-forward also writes the log-sum-exp and whose backward launches the
-hand-written backward kernels. The reference has no Pallas backward (its
-training attention is XLA's), so the backward has no TPU kernel to mirror.
+Counterpart of ``repro/kernels/flash_attention.py:flash_attention``. A CPU
+tensor takes the plain version ``kernels/ref.py:flash_attention_ref``,
+whose gradient is autograd's. A CUDA tensor launches the forward kernel (or
+raises); when autograd needs a gradient it goes through
+:class:`FlashAttentionFn`, whose forward also writes the log-sum-exp and
+whose backward launches the hand-written backward kernels. The reference
+has no Pallas backward (its training attention is XLA's), so the backward
+has no TPU kernel to mirror.
+
+Two routes, chosen from dtype and head_dim alone before the launch (not a
+fallback: each raises on its own failure): bf16 at head_dim 64 or 128, the
+shapes of the models' main paths, runs the tensor-core kernels
+(``csrc/flash_attention_tc.cu``, ``csrc/flash_attention_bwd_tc.cu``:
+wgmma fed by TMA); every other dtype and head_dim the CUDA-core kernels
+(``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``).
 """
 
 from __future__ import annotations
@@ -20,11 +27,22 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_attention_ref
 
 # Launches in this process: ``launches`` counts the forward kernel,
-# ``bwd_launches`` the backward (one per backward pass, which runs the
-# D = rowsum(dO * O), dK/dV and dQ kernels). Each wrapper adds one where it
-# launches and nowhere else; a caller may reset them to 0.
+# ``bwd_launches`` the backward (one per backward pass, which runs the D,
+# dK/dV and dQ kernels on the CUDA cores, the dQ and dK/dV kernels on the
+# tensor cores), on either route; ``tc_launches`` and ``tc_bwd_launches``
+# count those of them that took the tensor-core route. Each wrapper adds one
+# where it launches and nowhere else; a caller may reset them to 0.
 launches = 0
 bwd_launches = 0
+tc_launches = 0
+tc_bwd_launches = 0
+
+TC_HEAD_DIMS = (64, 128)
+
+
+def tensor_core_route(q) -> bool:
+    """Whether ``q``'s dtype and head_dim take the tensor-core kernels."""
+    return q.dtype == torch.bfloat16 and q.shape[-1] in TC_HEAD_DIMS
 
 
 def check_shapes(q, k, v) -> None:
@@ -56,42 +74,65 @@ def _check_cuda(*ts) -> None:
         raise ValueError(f"flash_attention: grid too large for B*H={B * H}, S={S}")
 
 
+def _check_aligned(*ts) -> None:
+    """The tensor-core kernels' TMA maps need 16-byte aligned bases."""
+    if any(t.data_ptr() % 16 for t in ts):
+        raise ValueError("flash_attention: the tensor-core kernels need 16-byte aligned "
+                         "tensors")
+
+
 def _launch_fwd(q, k, v, causal, window, softcap, want_lse):
     """Forward kernel -> (out in q.dtype, lse fp32 (B,H,S) or None)."""
-    global launches
+    global launches, tc_launches
     _check_cuda(q, k, v)
     B, S, H, hd = q.shape
     out = torch.empty_like(q)
     lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
            if want_lse else None)
-    err = _build.lib().flash_attention_fwd_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr() if lse is not None else None,
-        _build.DTYPE_CODES[q.dtype], B, S, H, k.shape[2], hd, int(bool(causal)),
-        int(window), float(softcap), 1.0 / math.sqrt(hd),
-        _build.stream_ptr(q.device))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if lse is not None else None)
+    flags = (int(bool(causal)), int(window), float(softcap), 1.0 / math.sqrt(hd))
+    stream = _build.stream_ptr(q.device)
+    tc = tensor_core_route(q)
+    if tc:  # bf16 only; binds the calling thread to the tensors' card
+        _check_aligned(q, k, v, out)
+        err = _build.lib().flash_attention_fwd_tc_launch(
+            *ptrs, B, S, H, k.shape[2], hd, *flags, q.device.index or 0, stream)
+    else:
+        err = _build.lib().flash_attention_fwd_launch(
+            *ptrs, _build.DTYPE_CODES[q.dtype], B, S, H, k.shape[2], hd, *flags, stream)
     _build.check(err, "flash_attention")
     launches += 1
+    tc_launches += tc
     return out, lse
 
 
 def _launch_bwd(q, k, v, out, lse, dout, causal, window, softcap):
     """Backward kernels -> (dq, dk, dv) in the inputs' dtype."""
-    global bwd_launches
+    global bwd_launches, tc_bwd_launches
     _check_cuda(q, k, v, out, dout)
     B, S, H, hd = q.shape
     if lse.dtype != torch.float32 or tuple(lse.shape) != (B, H, S) or not lse.is_contiguous():
         raise ValueError("flash_attention backward needs the forward's fp32 (B,H,S) lse")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     D = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    err = _build.lib().flash_attention_bwd_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), D.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        _build.DTYPE_CODES[q.dtype], B, S, H, k.shape[2], hd, int(bool(causal)),
-        int(window), float(softcap), 1.0 / math.sqrt(hd),
-        _build.stream_ptr(q.device))
+    qkv = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    rest = (dout.data_ptr(), lse.data_ptr(), D.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr())
+    flags = (int(bool(causal)), int(window), float(softcap), 1.0 / math.sqrt(hd))
+    stream = _build.stream_ptr(q.device)
+    tc = tensor_core_route(q)
+    if tc:  # recomputes D from P and dP, so the output is not read
+        _check_aligned(q, k, v, dout, dq, dk, dv)
+        err = _build.lib().flash_attention_bwd_tc_launch(
+            *qkv, *rest, B, S, H, k.shape[2], hd, *flags, q.device.index or 0, stream)
+    else:
+        err = _build.lib().flash_attention_bwd_launch(
+            *qkv, out.data_ptr(), *rest, _build.DTYPE_CODES[q.dtype], B, S, H, k.shape[2], hd,
+            *flags, stream)
     _build.check(err, "flash_attention backward")
     bwd_launches += 1
+    tc_bwd_launches += tc
     return dq, dk, dv
 
 

@@ -301,6 +301,8 @@ def _launch_counts():
     from repro_torch.kernels import ring_allreduce as RA
 
     return {"flash_attention": (FK, "launches"), "flash_attention_bwd": (FK, "bwd_launches"),
+            "flash_attention_tc": (FK, "tc_launches"),
+            "flash_attention_bwd_tc": (FK, "tc_bwd_launches"),
             "quantize_blockwise": (QK, "launches"),
             "dequantize_blockwise": (QK, "dequantize_launches"),
             "pier_update": (PK, "launches"), "ring_allgather": (RA, "ring_launches"),
