@@ -27,7 +27,16 @@ and no result line:
    (D 40, 41 and 5000, one row, fp32): output, rstd and dx within 2e-6 of
    the largest |value| in fp32, one bf16 ulp in bf16 (dx plus 2e-6 of its
    largest |value|), dscale within 1e-5; the outputs of the autograd path
-   bitwise those of the direct launches.
+   bitwise those of the direct launches, and the backward's dx and dscale
+   the same bits when run again. Paged decode (split over the context in
+   spans of 64 or more, then merged) also at contexts on split boundaries,
+   a window across splits, 32 slots and a context of 4096 at Qwen3's heads;
+   every case must repeat to the bit. Decode is timed at the serve phase's
+   4 slots and at two bandwidth-bound shapes (16 slots: GPT-2 XL at
+   contexts 256-1024, Qwen3 at 1024-4096) beside SDPA on a contiguous copy
+   of the same K/V; the two stages of the decode kernels and of the RMSNorm
+   backward are timed apart once (``torch.profiler``), and the backward
+   beside ``torch.add`` moving the same bytes.
    Attention takes two routes: bf16 at head_dim 64 and 128 the
    tensor-core kernels (``flash_attention_tc.cu``,
    ``flash_attention_bwd_tc.cu``), every other case the CUDA-core ones;
@@ -477,7 +486,8 @@ def _core_fwd(torch, q, k, v, lse=None):
     err = _build.lib().flash_attention_fwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if lse is not None else None, _build.DTYPE_CODES[q.dtype], B, S, H,
-        k.shape[2], hd, 1, 0, 0.0, 1.0 / math.sqrt(hd), _build.stream_ptr(q.device))
+        k.shape[2], hd, 1, 0, 0.0, 1.0 / math.sqrt(hd), q.device.index,
+        _build.stream_ptr(q.device))
     _build.check(err, "flash_attention (CUDA cores)")
     return out
 
@@ -494,7 +504,7 @@ def _core_bwd(torch, q, k, v, out, lse, do):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
         lse.data_ptr(), D.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         _build.DTYPE_CODES[q.dtype], B, S, H, k.shape[2], hd, 1, 0, 0.0, 1.0 / math.sqrt(hd),
-        _build.stream_ptr(q.device))
+        q.device.index, _build.stream_ptr(q.device))
     _build.check(err, "flash_attention backward (CUDA cores)")
     return dq, dk, dv
 
@@ -677,28 +687,79 @@ def _paged_inputs(torch, g, *, B, H, Hkv, hd, bs, cls, dt, quantized, T=None):
     return q, kf.to(dt), vf.to(dt), tables, context, None, None
 
 
+def stage_ms(torch, timer, fn, stages, reps: int = REPS):
+    """Device ms of the two kernels ``fn`` launches, by ``torch.profiler``
+    (L2 flushed before each call, as ``Timer`` does): ``stages`` maps a
+    substring of each kernel's name to its stage, first kernel first. The
+    second kernel is launched to start while the first drains, so its time
+    is counted from the first kernel's end to its own. Medians over the
+    calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            timer.flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    spans = {stage: [] for stage in stages.values()}
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            for key, stage in stages.items():
+                if key in evt.name:
+                    spans[stage].append((evt.time_range.start, evt.time_range.end))
+    (first, a), (second, b) = spans.items()
+    if not (len(a) == len(b) == reps):
+        return {first: "not measured", second: "not measured"}
+    return {first: statistics.median(e - s for s, e in a) / 1e3,
+            second: statistics.median(eb - ea for (_, ea), (_, eb) in zip(a, b)) / 1e3}
+
+
+DECODE_STAGES = {"paged_decode_split": "split", "paged_decode_combine": "merge"}
+
+
 def check_decode(torch, timer, results):
+    """The paged decode kernels against ``paged_decode_attention_ref``: every
+    case within 1e-4 in fp32 and 2e-2 in bf16 (one bf16 rounding of a
+    unit-scale output, plus another summation order), zeros for empty
+    slots, and the same bits when run again. Timed at the serve phase's
+    shape (4 slots), and at two bandwidth-bound shapes (16 slots of long
+    contexts) beside SDPA on a contiguous copy of the same K/V."""
+    import torch.nn.functional as F
+
     from repro_torch.kernels import decode_attention as DK
     from repro_torch.kernels.ref import paged_decode_attention_ref
 
     g = torch.Generator(device="cuda").manual_seed(3)
+    bf16, f32 = torch.bfloat16, torch.float32
     xl_cls = [100, 250, 400, 544]
+    slots32 = [0 if i % 11 == 5 else 1 + (97 * i * i + 31 * i) % 1500 for i in range(32)]
     cases = [
         # name, B, H, Hkv, hd, bs, cls, dtype, quantized, window, softcap
-        ("xl_4slots_bf16", 4, 25, 25, 64, 16, xl_cls, torch.bfloat16, False, 0, 0.0),
-        ("xl_4slots_int8", 4, 25, 25, 64, 16, xl_cls, torch.bfloat16, True, 0, 0.0),
-        ("xl_4slots_f32", 4, 25, 25, 64, 16, xl_cls, torch.float32, False, 0, 0.0),
-        ("xl_int8_f32q", 4, 25, 25, 64, 16, xl_cls, torch.float32, True, 0, 0.0),
-        ("qwen3_4slots_bf16", 4, 16, 8, 128, 16, xl_cls, torch.bfloat16, False, 0, 0.0),
-        ("qwen3_4slots_int8", 4, 16, 8, 128, 16, xl_cls, torch.bfloat16, True, 0, 0.0),
-        ("qwen3_4slots_f32", 4, 16, 8, 128, 16, xl_cls, torch.float32, False, 0, 0.0),
-        ("gqa4_f32", 3, 8, 2, 64, 16, [37, 1, 300], torch.float32, False, 0, 0.0),
-        ("mqa_f32", 2, 8, 1, 32, 8, [60, 17], torch.float32, False, 0, 0.0),
-        ("window40_f32", 2, 4, 2, 64, 16, [200, 33], torch.float32, False, 40, 0.0),
-        ("softcap30_f32", 2, 4, 2, 64, 16, [90, 129], torch.float32, False, 0, 30.0),
-        ("empty_slots_f32", 4, 4, 4, 64, 16, [0, 70, 0, 5], torch.float32, False, 0, 0.0),
-        ("bs7_hd40_f32", 2, 6, 3, 40, 7, [50, 13], torch.float32, False, 0, 0.0),
-        ("hd256_g16_f32", 1, 16, 1, 256, 16, [333], torch.float32, False, 0, 0.0),
+        ("xl_4slots_bf16", 4, 25, 25, 64, 16, xl_cls, bf16, False, 0, 0.0),
+        ("xl_4slots_int8", 4, 25, 25, 64, 16, xl_cls, bf16, True, 0, 0.0),
+        ("xl_4slots_f32", 4, 25, 25, 64, 16, xl_cls, f32, False, 0, 0.0),
+        ("xl_int8_f32q", 4, 25, 25, 64, 16, xl_cls, f32, True, 0, 0.0),
+        ("qwen3_4slots_bf16", 4, 16, 8, 128, 16, xl_cls, bf16, False, 0, 0.0),
+        ("qwen3_4slots_int8", 4, 16, 8, 128, 16, xl_cls, bf16, True, 0, 0.0),
+        ("qwen3_4slots_f32", 4, 16, 8, 128, 16, xl_cls, f32, False, 0, 0.0),
+        ("gqa4_f32", 3, 8, 2, 64, 16, [37, 1, 300], f32, False, 0, 0.0),
+        ("mqa_f32", 2, 8, 1, 32, 8, [60, 17], f32, False, 0, 0.0),
+        ("window40_f32", 2, 4, 2, 64, 16, [200, 33], f32, False, 40, 0.0),
+        ("softcap30_f32", 2, 4, 2, 64, 16, [90, 129], f32, False, 0, 30.0),
+        ("empty_slots_f32", 4, 4, 4, 64, 16, [0, 70, 0, 5], f32, False, 0, 0.0),
+        ("bs7_hd40_f32", 2, 6, 3, 40, 7, [50, 13], f32, False, 0, 0.0),
+        ("hd256_g16_f32", 1, 16, 1, 256, 16, [333], f32, False, 0, 0.0),
+        # contexts on split boundaries (spans of 64), a window across three
+        # splits, 32 slots (some empty), Qwen3's heads at a context of 4096
+        ("xl_split_boundaries_bf16", 4, 25, 25, 64, 16, [64, 128, 192, 256], bf16, False, 0,
+         0.0),
+        ("window150_across_splits_f32", 3, 4, 2, 64, 16, [300, 190, 70], f32, False, 150, 0.0),
+        ("xl_32slots_bf16", 32, 25, 25, 64, 16, slots32, bf16, False, 0, 0.0),
+        ("qwen3_ctx4096_bf16", 2, 16, 8, 128, 16, [4096, 1000], bf16, False, 0, 0.0),
+        ("qwen3_ctx4096_int8", 2, 16, 8, 128, 16, [4096, 1000], bf16, True, 0, 0.0),
     ]
     worst = 0.0
     for name, B, H, Hkv, hd, bs, cls, dt, quant, window, softcap in cases:
@@ -706,52 +767,87 @@ def check_decode(torch, timer, results):
                              dt=dt, quantized=quant,
                              T=None if name != "empty_slots_f32" else 8)
         out = DK.paged_decode_attention(*args, window=window, softcap=softcap)
+        again = DK.paged_decode_attention(*args, window=window, softcap=softcap)
         ref = paged_decode_attention_ref(*args, window=window, softcap=softcap)
         torch.cuda.synchronize()
         err = max_err(out, ref)
         tol = 1e-4 if dt == torch.float32 else 2e-2
         zeros_ok = all(float(out[b].abs().max()) == 0.0 for b in range(B) if cls[b] == 0)
+        repeats = torch.equal(out, again)
+        T = args[3].shape[1]
         emit({"phase": "kernels", "kernel": "paged_decode_attention", "case": name,
               "B": B, "H": H, "Hkv": Hkv, "hd": hd, "bs": bs, "context_lens": cls,
               "dtype": str(dt).replace("torch.", ""), "int8_pools": quant,
-              "window": window, "softcap": softcap, "max_abs_err": err, "tol": tol,
-              "empty_slots_zero": zeros_ok})
-        if not (out.dtype == dt and err <= tol and zeros_ok):
-            raise AssertionError(f"decode {name}: max err {err} > {tol} or nonzero empty slot")
+              "window": window, "softcap": softcap, "splits": DK.num_splits(T, bs),
+              "span": DK.split_size(T, bs), "max_abs_err": err, "tol": tol,
+              "empty_slots_zero": zeros_ok, "repeats_bitwise": repeats})
+        if not (out.dtype == dt and err <= tol and zeros_ok and repeats):
+            raise AssertionError(f"decode {name}: max err {err} > {tol}, a nonzero empty "
+                                 f"slot or a second run that differs ({repeats})")
         worst = max(worst, err)
 
+    def decode_bytes(cls, H, Hkv, hd, T):  # live K/V rows, q, out (bf16); table, lengths
+        B = len(cls)
+        return 2 * sum(cls) * Hkv * hd * 2 + 2 * B * H * hd * 2 + 4 * B * T + 4 * B
+
+    def timed(cls, H, Hkv, hd, T, *, quantized=False, sdpa=False):
+        args = _paged_inputs(torch, g, B=len(cls), H=H, Hkv=Hkv, hd=hd, bs=16, cls=cls,
+                             dt=bf16, quantized=quantized, T=T)
+        b, by = bound_ms(decode_bytes(cls, H, Hkv, hd, T), 4 * sum(cls) * H * hd, "bfloat16")
+        out = {"B": len(cls), "context_lens": cls, "T": T, "splits": DK.num_splits(T, 16),
+               "ms": timer.ms(lambda: DK.paged_decode_attention(*args)),
+               "plain_ms": timer.ms(lambda: paged_decode_attention_ref(*args)),
+               "bound_ms": b, "bound_by": by}
+        out["bound_share"] = b / out["ms"]
+        if sdpa:  # the same K/V gathered into a contiguous copy (not timed)
+            q, kp, vp, tables, context = args[:5]
+            B, S = len(cls), max(cls)
+            bt = tables.long().clamp_min(0)
+            kc, vc = (p[bt].reshape(B, T * 16, Hkv, hd)[:, :S].transpose(1, 2).contiguous()
+                      for p in (kp, vp))
+            mask = (torch.arange(S, device="cuda")[None, :] < context[:, None])[:, None, None]
+            qs = q[:, :, None, :]
+            out["sdpa_contiguous_ms"] = timer.ms(lambda: F.scaled_dot_product_attention(
+                qs, kc, vc, attn_mask=mask, enable_gqa=Hkv != H))
+        return out
+
+    def stages(cls, H, Hkv, hd, T):
+        args = _paged_inputs(torch, g, B=len(cls), H=H, Hkv=Hkv, hd=hd, bs=16, cls=cls,
+                             dt=bf16, quantized=False, T=T)
+        return stage_ms(torch, timer, lambda: DK.paged_decode_attention(*args), DECODE_STAGES)
+
     # main path's shape: one decode step of one layer, 4 slots, bf16 pools
-    args = _paged_inputs(torch, g, B=4, H=25, Hkv=25, hd=64, bs=16, cls=xl_cls,
-                         dt=torch.bfloat16, quantized=False, T=34)
-    t_k = timer.ms(lambda: DK.paged_decode_attention(*args))
-    t_p = timer.ms(lambda: paged_decode_attention_ref(*args))
-    args8 = _paged_inputs(torch, g, B=4, H=25, Hkv=25, hd=64, bs=16, cls=xl_cls,
-                          dt=torch.bfloat16, quantized=True, T=34)
-    t_k8 = timer.ms(lambda: DK.paged_decode_attention(*args8))
+    xl = timed(xl_cls, 25, 25, 64, 34)
+    xl8 = timed(xl_cls, 25, 25, 64, 34, quantized=True)
     pos, H, hd = sum(xl_cls), 25, 64
-    nbytes = 2 * pos * H * hd * 2 + 2 * 4 * H * hd * 2 + 4 * 34 * 4 + 4 * 4
-    b, by = bound_ms(nbytes, 4 * pos * H * hd, "bfloat16")
-    nbytes8 = 2 * pos * H * (hd + 4) + 2 * 4 * H * hd * 2 + 4 * 34 * 4 + 4 * 4
-    b8, _ = bound_ms(nbytes8, 4 * pos * H * hd, "bfloat16")
+    b8, _ = bound_ms(2 * pos * H * (hd + 4) + 2 * 4 * H * hd * 2 + 4 * 34 * 4 + 4 * 4,
+                     4 * pos * H * hd, "bfloat16")
     # Qwen3-1.7B's decode layer: 16 query heads over 8 KV heads, hd 128
-    H3, Hkv3, hd3 = 16, 8, 128
-    args3 = _paged_inputs(torch, g, B=4, H=H3, Hkv=Hkv3, hd=hd3, bs=16, cls=xl_cls,
-                          dt=torch.bfloat16, quantized=False, T=34)
-    t3_k = timer.ms(lambda: DK.paged_decode_attention(*args3))
-    t3_p = timer.ms(lambda: paged_decode_attention_ref(*args3))
-    b3, by3 = bound_ms(2 * pos * Hkv3 * hd3 * 2 + 2 * 4 * H3 * hd3 * 2 + 4 * 34 * 4 + 4 * 4,
-                       4 * pos * H3 * hd3, "bfloat16")
+    q3 = timed(xl_cls, 16, 8, 128, 34)
+    # bandwidth-bound shapes: 16 slots of long contexts
+    xl16 = timed([256 + round(i * 768 / 15) for i in range(16)], 25, 25, 64, 64, sdpa=True)
+    q316 = timed([1024 + round(i * 3072 / 15) for i in range(16)], 16, 8, 128, 256, sdpa=True)
     results["paged_decode_attention"] = {
         "name": "paged_decode_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention.py:64",
         "shape": "bf16 4 slots, contexts 100/250/400/544, bs 16, H=Hkv=25, hd 64 (one layer)",
-        "max_abs_err": worst, "ms": t_k, "kernel_ms": t_k, "plain_ms": t_p,
-        "bound_ms": b, "bound_by": by, "library_ms": None,
-        "int8_pools_ms": t_k8, "int8_pools_bound_ms": b8,
+        "max_abs_err": worst, "ms": xl["ms"], "kernel_ms": xl["ms"], "plain_ms": xl["plain_ms"],
+        "bound_ms": xl["bound_ms"], "bound_by": xl["bound_by"], "library_ms": None,
+        "splits": xl["splits"], "stages_ms": stages(xl_cls, 25, 25, 64, 34),
+        "int8_pools_ms": xl8["ms"], "int8_pools_bound_ms": b8,
         "qwen3": {"shape": "bf16 4 slots, contexts 100/250/400/544, bs 16, H=16 Hkv=8 "
                            "hd 128 (one layer)",
-                  "ms": t3_k, "plain_ms": t3_p, "bound_ms": b3, "bound_by": by3}}
+                  **{k: q3[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+                  "stages_ms": stages(xl_cls, 16, 8, 128, 34)},
+        "bandwidth_shapes": {
+            "gpt2_xl_16slots": {"shape": "bf16 16 slots, contexts 256-1024, bs 16, H=Hkv=25, "
+                                         "hd 64", **xl16},
+            "qwen3_16slots": {"shape": "bf16 16 slots, contexts 1024-4096, bs 16, H=16 Hkv=8, "
+                                       "hd 128", **q316},
+            "sdpa_note": "F.scaled_dot_product_attention with a key-padding mask over a "
+                         "contiguous copy of the same K/V (contiguous copy, gather not timed): "
+                         "a yardstick of another function, never called by the port"}}
 
 
 def check_pier_update(torch, timer, results):
@@ -825,6 +921,9 @@ def rel_max(a, b) -> float:
     return max_err(a, b) / scale if scale > 0 else max_err(a, b)
 
 
+RMSNORM_BWD_STAGES = {"rmsnorm_bwd": "dx_and_partials", "rmsnorm_colsum": "column_sum"}
+
+
 def check_rmsnorm(torch, timer, results):
     """The RMSNorm forward and backward kernels against ``rmsnorm_ref`` and
     ``rmsnorm_bwd_ref`` at Qwen3-1.7B's shapes (block norms at d_model
@@ -866,6 +965,7 @@ def check_rmsnorm(torch, timer, results):
         out = RK.rmsnorm(x, s, eps=eps)
         out_t, rstd = RK._launch_fwd(x, s, eps, want_rstd=True)
         dx, ds = RK._launch_bwd(x, s, rstd, dy)
+        dx2, ds2 = RK._launch_bwd(x, s, rstd, dy)
         xg, sg = x.clone().requires_grad_(), s.clone().requires_grad_()
         RK.rmsnorm(xg, sg, eps=eps).backward(dy)
         ref = rmsnorm_ref(x, s, eps=eps)
@@ -876,6 +976,7 @@ def check_rmsnorm(torch, timer, results):
                 "dx_max_abs_err": max_err(dx, dx_ref), "dscale_rel_err": rel_max(ds, ds_ref)}
         same = (torch.equal(out_t, out) and torch.equal(xg.grad, dx)
                 and torch.equal(sg.grad, ds))
+        repeats = torch.equal(dx2, dx) and torch.equal(ds2, ds)
         if dt == f32:
             errs.update(out_rel_err=rel_max(out, ref), dx_rel_err=rel_max(dx, dx_ref))
             ok = errs["out_rel_err"] <= RMS_F32_REL and errs["dx_rel_err"] <= RMS_F32_REL
@@ -890,14 +991,15 @@ def check_rmsnorm(torch, timer, results):
             tol = {"out_bf16_ulps": 1, "dx_bf16_ulps": 1, "dx_atol_rel": RMS_F32_REL}
         ok = (ok and errs["rstd_rel_err"] <= RMS_F32_REL
               and errs["dscale_rel_err"] <= RMS_DSCALE_REL
-              and same and out.dtype == dx.dtype == dt and ds.dtype == f32)
+              and same and repeats and out.dtype == dx.dtype == dt and ds.dtype == f32)
         tol.update(rstd_rel=RMS_F32_REL, dscale_rel=RMS_DSCALE_REL)
         emit({"phase": "kernels", "kernel": "rmsnorm", "case": name, "rows": rows, "D": D,
               "dtype": str(dt).replace("torch.", ""), "eps": eps, **errs, "tol": tol,
-              "with_rstd_and_autograd_bitwise_equal": same})
+              "with_rstd_and_autograd_bitwise_equal": same, "bwd_repeats_bitwise": repeats})
         if not ok:
             raise AssertionError(f"rmsnorm {name}: errors {errs}, limits {tol}, "
-                                 f"outputs of both paths equal: {same}")
+                                 f"outputs of both paths equal: {same}, backward "
+                                 f"repeats: {repeats}")
 
     def fwd_bytes(rows, D, rstd):  # x in, y out (bf16); scale in; rstd out
         return 2 * rows * D * 2 + 4 * D + (4 * rows if rstd else 0)
@@ -920,8 +1022,13 @@ def check_rmsnorm(torch, timer, results):
         if train:
             _, rstd = RK._launch_fwd(x, s, eps, want_rstd=True)
             b, by = bound_ms(bwd_bytes(rows, D), 8 * rows * D, "float32")
+            same = torch.empty_like(x)
             bwd[key] = {"rows": rows, "D": D, "bound_ms": b, "bound_by": by,
-                        "ms": timer.ms(lambda: RK._launch_bwd(x, s, rstd, dy))}
+                        "ms": timer.ms(lambda: RK._launch_bwd(x, s, rstd, dy)),
+                        "stages_ms": stage_ms(torch, timer,
+                                              lambda: RK._launch_bwd(x, s, rstd, dy),
+                                              RMSNORM_BWD_STAGES),
+                        "same_bytes_add_ms": timer.ms(lambda: torch.add(x, dy, out=same))}
         if key == "train_block":  # the plain versions and the library beside it
             xf, sf = x.float().requires_grad_(), s.clone().requires_grad_()
             yl = F.rms_norm(xf, (D,), sf, eps)
@@ -949,6 +1056,11 @@ def check_rmsnorm(torch, timer, results):
                      "(2 x 1024 tokens)",
             "max_abs_err": worst, "ms": m["ms"], "kernel_ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+            **{k: m[k] for k in ("stages_ms", "same_bytes_add_ms") if k in m},
+            **({"same_bytes_add": "torch.add(x, dy) into a third tensor: the backward's "
+                                  "x, dy and dx bytes, timed the same way; a floor of the "
+                                  "card and the timer, not the same function"}
+               if "same_bytes_add_ms" in m else {}),
             "library": lib, "other_shapes": {k: v for k, v in times.items() if k != "train_block"}}
 
 

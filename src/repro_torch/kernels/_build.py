@@ -14,8 +14,10 @@ quantize kernel needs IEEE division and ``rintf``, and the pier-update
 and dequantize kernels unfused products and sums, to match their plain
 versions bit for bit.
 
-Every C entry returns a ``cudaError_t``: the launch entries
-``cudaGetLastError()`` after their launch, the symmetric-buffer entries
+Every C entry returns a ``cudaError_t``: the launch entries bind the
+calling thread to the tensors' card (``cudaSetDevice``, the card's index
+passed just before the stream) and return ``cudaGetLastError()`` after
+their launch, the symmetric-buffer entries
 (``csrc/ipc.cu``) the result of their runtime call. :func:`check` raises
 when it is not 0, because a refused launch (too many threads, too much
 shared memory) never runs and a later synchronize does not report it.
@@ -54,26 +56,26 @@ _PP = ctypes.POINTER(ctypes.c_void_p)
 # never cut to a 32-bit int.
 SIGNATURES = {
     "quantize_blockwise_launch": [
-        _P, _I, _L, _P, _P, _L, _I, _F, _F, _P],
-    "dequantize_blockwise_launch": [_P, _P, _P, _L, _I, _P],
+        _P, _I, _L, _P, _P, _L, _I, _F, _F, _I, _P],
+    "dequantize_blockwise_launch": [_P, _P, _P, _L, _I, _I, _P],
     "flash_attention_fwd_launch": [
-        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
     "flash_attention_bwd_launch": [
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-        _I, _F, _F, _P],
+        _I, _F, _F, _I, _P],
     "flash_attention_fwd_tc_launch": [
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
     "flash_attention_bwd_tc_launch": [
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
     "pier_update_launch": [
-        _P, _I, _P, _I, _P, _I, _P, _P, _L, _F, _F, _I, _P],
+        _P, _I, _P, _I, _P, _I, _P, _P, _L, _F, _F, _I, _I, _P],
     "paged_decode_attention_launch": [
-        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-        _I, _F, _F, _P],
-    "rmsnorm_fwd_launch": [_P, _P, _P, _P, _I, _L, _I, _F, _P],
-    "rmsnorm_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _P],
-    "ring_allgather_launch": [_P, _L, _P, _PP, _L, _I, _I, _U, _U, _P, _I, _P],
-    "shard_scatter_launch": [_P, _L, _P, _PP, _L, _I, _I, _U, _U, _P, _I, _P],
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+        _I, _F, _F, _I, _P],
+    "rmsnorm_fwd_launch": [_P, _P, _P, _P, _I, _L, _I, _F, _I, _P],
+    "rmsnorm_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _P],
+    "ring_allgather_launch": [_P, _L, _P, _PP, _L, _I, _I, _U, _U, _P, _I, _I, _P],
+    "shard_scatter_launch": [_P, _L, _P, _PP, _L, _I, _I, _U, _U, _P, _I, _I, _P],
     "symm_alloc": [_I, _L, _PP],
     "symm_free": [_I, _P],
     "ipc_get_handle": [_P, _P],

@@ -37,3 +37,30 @@ __device__ __forceinline__ float warp_sum(float v) {
 // Large finite stand-in for -inf, as the reference kernels use: a fully
 // masked row keeps exp(m_old - m_new) finite.
 #define NEG_INF_F (-1e30f)
+
+// Programmatic dependent launch (Hopper): a kernel launched with
+// launch_dependent may be scheduled while the kernel before it on the stream
+// is still running; it calls griddep_wait() before it reads anything that
+// kernel writes. The earlier kernel may call griddep_launch_dependents()
+// once its own blocks no longer need the SMs to themselves.
+__device__ __forceinline__ void griddep_wait() { asm volatile("griddepcontrol.wait;" ::: "memory"); }
+
+__device__ __forceinline__ void griddep_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+
+template <typename... Params, typename... Args>
+cudaError_t launch_dependent(void (*kernel)(Params...), dim3 grid, dim3 block, size_t smem,
+                             cudaStream_t stream, Args... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
+}

@@ -66,7 +66,11 @@ unsigned grid_for(long long items) {
 // q: (nq,) int8, nq a multiple of block; scales: (nq / block,) fp32;
 // out: (nq,) fp32.
 extern "C" int dequantize_blockwise_launch(const void* q, const void* scales, void* out,
-                                           long long nq, int block, void* stream) {
+                                           long long nq, int block, int device, void* stream) {
+  // bind the calling thread to the tensors' card (autograd's thread may
+  // have no current context yet)
+  const cudaError_t bound = cudaSetDevice(device);
+  if (bound != cudaSuccess) return static_cast<int>(bound);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (nq <= 0) return static_cast<int>(cudaGetLastError());
   if (block < 1 || nq % block != 0) return static_cast<int>(cudaErrorInvalidValue);

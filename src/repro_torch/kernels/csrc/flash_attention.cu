@@ -244,7 +244,11 @@ extern "C" int flash_attention_fwd_launch(const void* q, const void* k,
                                           int dtype, int B, int S, int H,
                                           int Hkv, int hd, int causal,
                                           int window, float softcap,
-                                          float scale, void* stream) {
+                                          float scale, int device, void* stream) {
+  // bind the calling thread to the tensors' card (autograd's thread may
+  // have no current context yet)
+  const cudaError_t bound = cudaSetDevice(device);
+  if (bound != cudaSuccess) return static_cast<int>(bound);
   if (B == 0 || S == 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);

@@ -107,7 +107,11 @@ extern "C" int pier_update_launch(const void* a, int a_dt, const void* m,
                                   int m_dt, const void* d, int d_dt,
                                   void* p_out, void* m_out, long long n,
                                   float mu, float lr, int formulation,
-                                  void* stream) {
+                                  int device, void* stream) {
+  // bind the calling thread to the tensors' card (autograd's thread may
+  // have no current context yet)
+  const cudaError_t bound = cudaSetDevice(device);
+  if (bound != cudaSuccess) return static_cast<int>(bound);
   if (n == 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (a_dt == DT_F32)

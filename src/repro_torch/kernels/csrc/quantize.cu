@@ -59,7 +59,11 @@ __global__ void __launch_bounds__(kQuantWarps * 32) quantize_blockwise_kernel(
 extern "C" int quantize_blockwise_launch(const void* x, int x_dtype,
                                          long long n, void* q, void* scales,
                                          long long nb, int block, float qmax,
-                                         float inv_qmax, void* stream) {
+                                         float inv_qmax, int device, void* stream) {
+  // bind the calling thread to the tensors' card (autograd's thread may
+  // have no current context yet)
+  const cudaError_t bound = cudaSetDevice(device);
+  if (bound != cudaSuccess) return static_cast<int>(bound);
   const long long grid = (nb + kQuantWarps - 1) / kQuantWarps;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (grid > 0) {

@@ -91,7 +91,11 @@ extern "C" int ring_allgather_launch(const void* src, long long n, void* out,
                                      const void* const* peers, long long slot_stride,
                                      int rank, int E, unsigned long long epoch,
                                      unsigned long long timeout_ns, void* err_flag,
-                                     int nblocks, void* stream) {
+                                     int nblocks, int device, void* stream) {
+  // bind the calling thread to the tensors' card (autograd's thread may
+  // have no current context yet)
+  const cudaError_t bound = cudaSetDevice(device);
+  if (bound != cudaSuccess) return static_cast<int>(bound);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (E < 2 || E > kMaxRanks || rank < 0 || rank >= E || nblocks < 1 ||
       nblocks > kMaxBlocks || slot_stride % 16 != 0 || slot_stride < n)

@@ -18,22 +18,38 @@
 // forward writes its log-sum-exp, so the backward does not recompute it.
 //
 // Bound: bytes. Per element the forward reads x and writes y (4 bytes in
-// bf16) for 4 operations; the backward reads x and dy and writes dx. Design:
-// each row is reduced in fp32 by a group of threads, 16-byte loads a
-// thread (8 bf16 or 4 fp32 values) when D is a multiple of that width and
-// the pointers are aligned, one value a thread otherwise. A row of at most
-// 32 vectors (the qk-norm's 128, the decode batch's narrow rows) takes a
-// power-of-two slice of a warp, reduced with shuffles, so several rows share
-// a warp; a wider row (d_model 2048) takes a whole block, reduced with
-// shuffles and then across warps through shared memory. Every thread of a
-// group ends with the same sum, added in the same order, so the result does
-// not depend on the launch.
+// bf16) for 4 operations; the backward reads x and dy and writes dx. Both
+// reduce each row in fp32, 16-byte loads a thread (8 bf16 or 4 fp32 values)
+// when D is a multiple of that width and the pointers are aligned, one value
+// a thread otherwise.
+//
+// Forward: a row of at most 32 vectors (the qk-norm's 128, the decode
+// batch's narrow rows) takes a power-of-two slice of a warp, reduced with
+// shuffles, so several rows share a warp; a wider row (d_model 2048) takes a
+// whole block, reduced with shuffles and then across warps through shared
+// memory. Every thread of a group ends with the same sum, added in the same
+// order, so the result does not depend on the launch.
+//
+// Backward, for rows of up to 256 vectors (D 2048 in bf16, 1024 in fp32):
+// a fixed grid of one block an SM, a function of (rows, D) alone, takes
+// contiguous runs of rows. Each warp, or each power-of-two slice of a warp
+// for rows of up to 32 vectors, takes whole rows in turn; its lanes own
+// fixed columns. Rows go in batches (one D-2048 row, or four qk-norm rows):
+// a lane copies its vectors of x and dy into its own slots of a two-stage
+// ring in shared memory with cp.async, so the next batch is in flight while
+// this one is reduced, with shuffles and no block barrier, and its dx
+// stored. Each row is read from device memory once. Each lane adds its
+// dscale partial in registers across all its rows; at the end the groups
+// of a warp add with shuffles and the warps in a fixed tree through shared
+// memory into the block's row of an (nblocks, D) fp32 workspace, about 1 MB
+// at D 2048. Rows wider than that keep a block a row (rmsnorm_bwd_kernel):
+// two reads of x and dy, and dscale accumulators in shared memory.
 //
 // dscale is a sum over all rows, made without atomics so that it is the
-// same in every run: each thread accumulates its own columns in shared
-// memory over the rows its block takes, the block adds its groups in a
-// fixed order and writes one row of an (nblocks, D) fp32 workspace, and a
-// second kernel adds the workspace's rows per column in order.
+// same in every run: the workspace's rows are summed per column by a second
+// kernel with a block per 32 columns, 32 warps each adding a fixed,
+// contiguous run of the rows, then the 32 runs in order; it is launched to
+// start as the first kernel drains (programmatic dependent launch).
 //
 // The output products are written with __fmul_rn / __fsub_rn in the order
 // of the plain version (kernels/ref.py:rmsnorm_ref, rmsnorm_bwd_ref); only
@@ -134,8 +150,8 @@ __global__ void __launch_bounds__(kMaxThreads) rmsnorm_fwd_kernel(
   }
 }
 
-// dx for the rows of this block, and this block's row of the dscale
-// workspace. Shared memory: ``groups * D`` floats, one dscale accumulator
+// Wide rows: dx for the rows of this block, and this block's row of the
+// dscale workspace. Shared memory: ``groups * D`` floats, one dscale accumulator
 // per group and column; column c of a group is only ever touched by the
 // thread that owns its vector.
 template <typename T, int VEC>
@@ -196,14 +212,310 @@ __global__ void __launch_bounds__(kMaxThreads) rmsnorm_bwd_kernel(
   }
 }
 
-// dscale[c] = sum over the workspace's rows of partial[b, c], in row order.
-__global__ void __launch_bounds__(256) rmsnorm_colsum_kernel(
+// The backward's block: a ring of kBwdStages batches a warp, each batch
+// kVecs vectors of x and of dy a lane (a whole row at least), 128 KB of
+// shared memory a block: 8 warps for rows of 8 vectors a lane (a D-2048
+// row), 16 for narrower rows (the qk-norm's: four rows a batch).
+constexpr int kBwdStages = 2;  // batches in flight a warp
+constexpr int kBwdMaxVpl = 8;  // rows of up to 32 * 8 vectors take this path
+template <int VPL>
+struct BwdShape {
+  static constexpr int kVecs = VPL > 4 ? VPL : 4;
+  static constexpr int kWarps = 64 / kVecs;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kRows = kVecs / VPL;  // rows a group stages in one batch
+};
+
+// The scale of vector v from shared memory, 16 bytes a read where the
+// vector is: a lane's 4-byte reads of its own 8 columns would fall 8 ways on
+// the same banks.
+template <int VEC>
+__device__ __forceinline__ void scale_vec(const float* sc, int v, float (&s)[VEC]) {
+  if constexpr (VEC % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < VEC / 4; ++j) {
+      const float4 t = reinterpret_cast<const float4*>(sc + v * VEC)[j];
+      s[4 * j] = t.x;
+      s[4 * j + 1] = t.y;
+      s[4 * j + 2] = t.z;
+      s[4 * j + 3] = t.w;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) s[k] = sc[v * VEC + k];
+  }
+}
+
+// VEC floats between registers and memory, 16 bytes at a time where VEC
+// allows (the addresses are then 16-byte aligned).
+template <int VEC>
+__device__ __forceinline__ void store_floats(float* p, const float (&f)[VEC]) {
+  if constexpr (VEC % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < VEC / 4; ++j)
+      reinterpret_cast<float4*>(p)[j] = make_float4(f[4 * j], f[4 * j + 1], f[4 * j + 2],
+                                                    f[4 * j + 3]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) p[k] = f[k];
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void add_floats(float (&f)[VEC], const float* p) {
+  if constexpr (VEC % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < VEC / 4; ++j) {
+      const float4 t = reinterpret_cast<const float4*>(p)[j];
+      f[4 * j] = __fadd_rn(f[4 * j], t.x);
+      f[4 * j + 1] = __fadd_rn(f[4 * j + 1], t.y);
+      f[4 * j + 2] = __fadd_rn(f[4 * j + 2], t.z);
+      f[4 * j + 3] = __fadd_rn(f[4 * j + 3], t.w);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) f[k] = __fadd_rn(f[k], p[k]);
+  }
+}
+
+// An asynchronous 16-byte copy from device memory into shared memory.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+
+// One vector into this lane's staging slot: asynchronously where the
+// vector is 16 bytes, a plain load and store on the scalar path.
+template <typename T, int VEC>
+__device__ __forceinline__ void stage_vec(Vec<T, VEC>* dst, const Vec<T, VEC>* src) {
+  if constexpr (sizeof(Vec<T, VEC>) == 16) {
+    cp_async16(dst, src);
+  } else {
+    *dst = *src;
+  }
+}
+
+__device__ __forceinline__ void staged_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until this thread's copies of all but the newest kBwdStages - 1
+// committed batches have landed.
+__device__ __forceinline__ void staged_wait_older() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kBwdStages - 1) : "memory");
+}
+
+__host__ __device__ constexpr int floats16(int n) { return (n + 3) & ~3; }
+
+// Rows of at most 32 * VPL vectors: lane `sub` of a row's 2^lpr_log2 lanes
+// owns vectors sub, sub + lpr, ... (VPL of them) and adds their dscale
+// partial in registers. Block b takes rows [b * rpb, (b + 1) * rpb); its
+// groups take them in batches of RB rows each. A lane copies its vectors of
+// x and dy for a batch into its own slots of the warp's ring, so batch
+// j + 1 is in flight while batch j is reduced and its dx stored. Only
+// the lane that staged a slot reads it, so no barrier is needed between
+// warps or lanes. Shared memory: the scale, then the warps' rings, which
+// the final merge reuses as kBwdWarps / 2 rows of D floats.
+template <typename T, int VEC, int VPL>
+__global__ void __launch_bounds__(BwdShape<VPL>::kThreads, 1) rmsnorm_bwd_rows_kernel(
+    const T* __restrict__ x, const float* __restrict__ scale, const T* __restrict__ dy,
+    const float* __restrict__ rstd, T* __restrict__ dx, float* __restrict__ partial,
+    long long rows, int D, int lpr_log2) {
+  constexpr int kBwdWarps = BwdShape<VPL>::kWarps, kBwdThreads = BwdShape<VPL>::kThreads;
+  constexpr int RB = BwdShape<VPL>::kRows;
+  constexpr int kSlots = 2 * BwdShape<VPL>::kVecs * 32;  // [x, dy][RB][VPL][32 lanes]
+  using V = Vec<T, VEC>;
+  extern __shared__ __align__(16) float sh[];
+  float* sc = sh;                  // [D]
+  float* buf = sh + floats16(D);  // the rings, then the merge rows
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  V* ring = reinterpret_cast<V*>(buf) + warp * kBwdStages * kSlots;
+  const int nvec = D / VEC;
+  const int lpr = 1 << lpr_log2, rpw = 32 >> lpr_log2;
+  const int sub = lane & (lpr - 1), ng = kBwdWarps * rpw;
+  const int grp = warp * rpw + (lane >> lpr_log2);
+  const long long rpb = (rows + gridDim.x - 1) / gridDim.x;
+  const long long r0 = static_cast<long long>(blockIdx.x) * rpb;
+  const long long r1 = r0 + rpb < rows ? r0 + rpb : rows;
+  const long long step = static_cast<long long>(RB) * ng;  // rows a batch covers
+  const int batches = r1 > r0 ? static_cast<int>((r1 - r0 + step - 1) / step) : 0;
+  auto row_of = [&](int j, int u) { return r0 + j * step + u * ng + grp; };
+  const float fd = static_cast<float>(D);
+
+  // batch j's rows of this group into ring stage j % kBwdStages
+  auto issue = [&](int j) {
+    V* st = ring + (j % kBwdStages) * kSlots;
+#pragma unroll
+    for (int u = 0; u < RB; ++u) {
+      const long long row = row_of(j, u);
+#pragma unroll
+      for (int i = 0; i < VPL; ++i) {
+        const int v = sub + i * lpr;
+        if (j < batches && row < r1 && v < nvec) {
+          stage_vec(st + (u * VPL + i) * 32 + lane, reinterpret_cast<const V*>(x + row * D) + v);
+          stage_vec(st + ((RB + u) * VPL + i) * 32 + lane,
+                    reinterpret_cast<const V*>(dy + row * D) + v);
+        }
+      }
+    }
+    staged_commit();
+  };
+  // the scale first, so it lands ahead of the rows; then two batches
+  const bool scale_async = D % 4 == 0 && (reinterpret_cast<uintptr_t>(scale) & 15) == 0;
+  if (scale_async) {
+    for (int i = threadIdx.x; i < D / 4; i += kBwdThreads)
+      cp_async16(reinterpret_cast<float4*>(sc) + i, reinterpret_cast<const float4*>(scale) + i);
+  }
+  staged_commit();
+#pragma unroll
+  for (int j = 0; j < kBwdStages; ++j) issue(j);
+  if (!scale_async)
+    for (int i = threadIdx.x; i < D; i += kBwdThreads) sc[i] = scale[i];
+
+  float ds[VPL][VEC];
+#pragma unroll
+  for (int i = 0; i < VPL; ++i)
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) ds[i][k] = 0.f;
+
+  // each batch's rstd, loaded a batch ahead
+  auto rstd_of = [&](int j, float (&r)[RB]) {
+#pragma unroll
+    for (int u = 0; u < RB; ++u) {
+      const long long row = row_of(j, u);
+      r[u] = j < batches && row < r1 ? rstd[row] : 0.f;
+    }
+  };
+  float r_next[RB];
+  rstd_of(0, r_next);
+
+  // The trip count is the block's, so every lane reaches every shuffle.
+  for (int j = 0; j < batches; ++j) {
+    const V* st = ring + (j % kBwdStages) * kSlots;
+    float r[RB];
+    bool live[RB];
+#pragma unroll
+    for (int u = 0; u < RB; ++u) {
+      r[u] = r_next[u];
+      live[u] = row_of(j, u) < r1;
+    }
+    rstd_of(j + 1, r_next);
+    staged_wait_older();  // the scale and batch j have landed; j + 1 may be in flight
+    if (j == 0) __syncthreads();  // every thread's share of the scale
+#pragma unroll
+    for (int u = 0; u < RB; ++u) {
+      // c = sum_j g_j s_j x_j, added in group_sum's order for a block a row
+      // (rmsnorm_bwd_kernel), so dx is the same bits at every width: each
+      // vector's columns in order, each set of 32 vectors (vector i of
+      // every lane) in an xor tree, the sets in order from 0
+      float xf[VPL][VEC], gf[VPL][VEC];  // the row, unpacked once for both passes
+      float ci[VPL];
+#pragma unroll
+      for (int i = 0; i < VPL; ++i) {
+        const int v = sub + i * lpr;
+        const bool mine = live[u] && v < nvec;
+        const V xv = mine ? st[(u * VPL + i) * 32 + lane] : V{};
+        const V gv = mine ? st[((RB + u) * VPL + i) * 32 + lane] : V{};
+        float sv[VEC];
+        scale_vec<VEC>(sc, mine ? v : 0, sv);
+        ci[i] = 0.f;
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) {
+          xf[i][k] = load_f(xv.v, k);
+          gf[i][k] = load_f(gv.v, k);
+          ci[i] += __fmul_rn(gf[i][k], sv[k]) * xf[i][k];
+        }
+      }
+      for (int o = lpr >> 1; o > 0; o >>= 1)  // the VPL trees side by side
+#pragma unroll
+        for (int i = 0; i < VPL; ++i) ci[i] += __shfl_xor_sync(0xffffffffu, ci[i], o);
+      float c = VPL == 1 ? ci[0] : 0.f + ci[0];
+#pragma unroll
+      for (int i = 1; i < VPL; ++i) c += ci[i];
+      if (!live[u]) continue;
+      const long long row = row_of(j, u);
+      const float r3 = __fmul_rn(__fmul_rn(r[u], r[u]), r[u]);
+      const float cd = __fdiv_rn(c, fd);
+#pragma unroll
+      for (int i = 0; i < VPL; ++i) {
+        const int v = sub + i * lpr;
+        if (v >= nvec) continue;
+        float sv[VEC];
+        scale_vec<VEC>(sc, v, sv);
+        V out;
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) {
+          const float gs = __fmul_rn(gf[i][k], sv[k]);
+          store_f(out.v, k, __fsub_rn(__fmul_rn(r[u], gs), __fmul_rn(__fmul_rn(xf[i][k], r3), cd)));
+          ds[i][k] = __fadd_rn(ds[i][k], __fmul_rn(__fmul_rn(gf[i][k], xf[i][k]), r[u]));
+        }
+        reinterpret_cast<V*>(dx + row * D)[v] = out;
+      }
+    }
+    issue(j + kBwdStages);  // into the stage just read (only this lane reads its slots)
+  }
+
+  griddep_launch_dependents();  // the column sum may be scheduled; it waits for this grid
+  // the warp's groups add with shuffles; then the upper half of the warps
+  // into the lower, halving again down to warp 0, through shared memory
+  for (int o = lpr; o < 32; o <<= 1)
+#pragma unroll
+    for (int i = 0; i < VPL; ++i)
+#pragma unroll
+      for (int k = 0; k < VEC; ++k)
+        ds[i][k] = __fadd_rn(ds[i][k], __shfl_xor_sync(0xffffffffu, ds[i][k], o));
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  for (int half = kBwdWarps / 2; half > 0; half >>= 1) {
+    __syncthreads();  // the rings, then the previous round, are consumed
+    if (warp >= half && warp < 2 * half && lane < lpr) {
+#pragma unroll
+      for (int i = 0; i < VPL; ++i) {
+        const int v = sub + i * lpr;
+        if (v < nvec) store_floats<VEC>(buf + (warp - half) * D + v * VEC, ds[i]);
+      }
+    }
+    __syncthreads();
+    if (warp < half && lane < lpr) {
+#pragma unroll
+      for (int i = 0; i < VPL; ++i) {
+        const int v = sub + i * lpr;
+        if (v < nvec) add_floats<VEC>(ds[i], buf + warp * D + v * VEC);
+      }
+    }
+  }
+  if (warp == 0 && lane < lpr) {
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) {
+      const int v = sub + i * lpr;
+      if (v < nvec) store_floats<VEC>(partial + static_cast<long long>(blockIdx.x) * D + v * VEC,
+                                      ds[i]);
+    }
+  }
+}
+
+constexpr int kColTile = 32, kColRuns = 32;
+
+// dscale[c] = sum over the workspace's rows of partial[b, c]: warp w of a
+// block adds run w of the rows (contiguous, in order), then warp 0 adds the
+// runs in order.
+__global__ void __launch_bounds__(kColTile * kColRuns) rmsnorm_colsum_kernel(
     const float* __restrict__ partial, float* __restrict__ dscale, int nblocks, int D) {
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= D) return;
+  __shared__ float run[kColRuns][kColTile];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int col = blockIdx.x * kColTile + lane;
+  const int per = (nblocks + kColRuns - 1) / kColRuns;
+  griddep_wait();  // the workspace is the previous kernel's
+  const int b1 = min(nblocks, (w + 1) * per);
   float t = 0.f;
-  for (int b = 0; b < nblocks; ++b) t += partial[static_cast<long long>(b) * D + col];
-  dscale[col] = t;
+  if (col < D)
+    for (int b = w * per; b < b1; ++b) t += partial[static_cast<long long>(b) * D + col];
+  run[w][lane] = t;
+  __syncthreads();
+  if (w == 0 && col < D) {
+    float s = 0.f;
+    for (int i = 0; i < kColRuns; ++i) s += run[i][lane];
+    dscale[col] = s;
+  }
 }
 
 struct Layout {
@@ -243,21 +555,64 @@ int fwd_vec(const void* x, const void* scale, void* out, void* rstd, long long r
   return static_cast<int>(cudaGetLastError());
 }
 
+int colsum(const void* partial, void* dscale, int nblocks, int D, cudaStream_t s) {
+  return static_cast<int>(launch_dependent(
+      rmsnorm_colsum_kernel, dim3((D + kColTile - 1) / kColTile), dim3(kColTile * kColRuns), 0,
+      s, static_cast<const float*>(partial), static_cast<float*>(dscale), nblocks, D));
+}
+
+// The backward's shared memory: the scale, then the larger of the staging
+// areas and the merge rows (D <= 2048 in bf16: 8 + 128 KB).
+template <typename T, int VEC, int VPL>
+size_t bwd_rows_smem(int D) {
+  const size_t stage =
+      sizeof(Vec<T, VEC>) * 2 * BwdShape<VPL>::kVecs * BwdShape<VPL>::kWarps * kBwdStages * 32;
+  const size_t merge = sizeof(float) * BwdShape<VPL>::kWarps / 2 * static_cast<size_t>(D);
+  return sizeof(float) * floats16(D) + (stage > merge ? stage : merge);
+}
+
+template <typename T, int VEC, int VPL>
+int bwd_rows(const void* x, const void* scale, const void* dy, const void* rstd, void* dx,
+             void* partial, long long rows, int D, int nblocks, int lpr_log2, cudaStream_t s) {
+  // once per instantiation: room for the widest row the register path takes
+  static const cudaError_t opted_in = cudaFuncSetAttribute(
+      rmsnorm_bwd_rows_kernel<T, VEC, VPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bwd_rows_smem<T, VEC, VPL>(32 * VPL * VEC)));
+  if (opted_in != cudaSuccess) return static_cast<int>(opted_in);
+  const size_t smem = bwd_rows_smem<T, VEC, VPL>(D);
+  rmsnorm_bwd_rows_kernel<T, VEC, VPL><<<nblocks, BwdShape<VPL>::kThreads, smem, s>>>(
+      static_cast<const T*>(x), static_cast<const float*>(scale), static_cast<const T*>(dy),
+      static_cast<const float*>(rstd), static_cast<T*>(dx), static_cast<float*>(partial), rows,
+      D, lpr_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int VEC>
 int bwd_vec(const void* x, const void* scale, const void* dy, const void* rstd, void* dx,
             void* dscale, void* partial, long long rows, int D, int nblocks, cudaStream_t s) {
-  const Layout l = layout_for(D / VEC);
-  const size_t smem = sizeof(float) * static_cast<size_t>(l.threads / l.G) * D;
-  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  rmsnorm_bwd_kernel<T, VEC><<<nblocks, l.threads, smem, s>>>(
-      static_cast<const T*>(x), static_cast<const float*>(scale), static_cast<const T*>(dy),
-      static_cast<const float*>(rstd), static_cast<T*>(dx), static_cast<float*>(partial),
-      rows, D, l.G);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  rmsnorm_colsum_kernel<<<(D + 255) / 256, 256, 0, s>>>(
-      static_cast<const float*>(partial), static_cast<float*>(dscale), nblocks, D);
-  return static_cast<int>(cudaGetLastError());
+  const int nvec = D / VEC;
+  int err;
+  if (nvec <= 32 * kBwdMaxVpl) {  // the register path: lpr lanes of VPL vectors a row
+    int lpr_log2 = 0;
+    while ((1 << lpr_log2) < nvec && lpr_log2 < 5) ++lpr_log2;
+    const int vpl = (nvec + 31) / 32;
+    const auto launch = vpl <= 1   ? bwd_rows<T, VEC, 1>
+                        : vpl <= 2 ? bwd_rows<T, VEC, 2>
+                        : vpl <= 4 ? bwd_rows<T, VEC, 4>
+                                   : bwd_rows<T, VEC, 8>;
+    err = launch(x, scale, dy, rstd, dx, partial, rows, D, nblocks, lpr_log2, s);
+  } else {  // a block a row
+    const Layout l = layout_for(nvec);
+    const size_t smem = sizeof(float) * static_cast<size_t>(l.threads / l.G) * D;
+    if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+    rmsnorm_bwd_kernel<T, VEC><<<nblocks, l.threads, smem, s>>>(
+        static_cast<const T*>(x), static_cast<const float*>(scale), static_cast<const T*>(dy),
+        static_cast<const float*>(rstd), static_cast<T*>(dx), static_cast<float*>(partial),
+        rows, D, l.G);
+    err = static_cast<int>(cudaGetLastError());
+  }
+  if (err != 0) return err;
+  return colsum(partial, dscale, nblocks, D, s);
 }
 
 template <typename T>
@@ -273,10 +628,13 @@ bool vectorizable(int D, std::initializer_list<const void*> ptrs) {
 
 }  // namespace
 
-// x, out (rows, D) in dtype; scale (D,) fp32; rstd (rows,) fp32 or null.
+// x, out (rows, D) in dtype; scale (D,) fp32; rstd (rows,) fp32 or null; all
+// on card `device`.
 extern "C" int rmsnorm_fwd_launch(const void* x, const void* scale, void* out, void* rstd,
-                                  int dtype, long long rows, int D, float eps,
+                                  int dtype, long long rows, int D, float eps, int device,
                                   void* stream) {
+  const cudaError_t bound = cudaSetDevice(device);
+  if (bound != cudaSuccess) return static_cast<int>(bound);
   if (rows == 0) return static_cast<int>(cudaGetLastError());
   if (D < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -294,11 +652,14 @@ extern "C" int rmsnorm_fwd_launch(const void* x, const void* scale, void* out, v
 }
 
 // x, dy, dx (rows, D) in dtype; scale (D,), rstd (rows,), dscale (D,) fp32;
-// partial an (nblocks, D) fp32 workspace, nblocks the backward's grid.
+// partial an (nblocks, D) fp32 workspace, nblocks the backward's grid; all
+// on card `device`.
 extern "C" int rmsnorm_bwd_launch(const void* x, const void* scale, const void* dy,
                                   const void* rstd, void* dx, void* dscale, void* partial,
-                                  int dtype, long long rows, int D, int nblocks,
+                                  int dtype, long long rows, int D, int nblocks, int device,
                                   void* stream) {
+  const cudaError_t bound = cudaSetDevice(device);
+  if (bound != cudaSuccess) return static_cast<int>(bound);
   if (D < 1 || nblocks < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == DT_F32) {

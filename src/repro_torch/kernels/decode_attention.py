@@ -1,9 +1,16 @@
 """Paged decode attention: the CUDA kernel's wrapper.
 
 Counterpart of ``repro/kernels/decode_attention.py:paged_decode_attention``;
-the kernel is ``csrc/decode_attention.cu``. A CUDA tensor launches the
-kernel (or raises), a CPU tensor takes the plain version
+the kernels are ``csrc/decode_attention.cu``. A CUDA tensor launches them
+(or raises), a CPU tensor takes the plain version
 ``kernels/ref.py:paged_decode_attention_ref``.
+
+The kernel splits each sequence's context into spans of
+:func:`split_size` positions, one thread block each, and a second kernel
+merges the spans. The span, and so the number of splits and the size of
+the workspace, comes from the table's capacity ``T * bs`` alone: the
+wrapper never reads ``context_lens`` or ``block_tables`` on the host, which
+would stall every decode step on a device-to-host copy.
 
 Layout (one attention layer), as in the reference:
 
@@ -27,9 +34,27 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import paged_decode_attention_ref
 
-# Launches of the CUDA kernel in this process (the wrapper adds one per
-# launch and nowhere else; a caller may reset it to 0).
+# Launches of the CUDA kernels in this process (the wrapper adds one per
+# launch of the split and merge pair and nowhere else; a caller may reset it
+# to 0).
 launches = 0
+
+# Spans are 64 positions, doubled while a table would need more than 16
+# splits (a long span streams its rows, a short one pays a block's start),
+# up to 1024 (the span's block ids are staged in shared memory).
+MIN_SPAN, MAX_SPAN, MAX_SPLITS = 64, 1024, 16
+
+
+def split_size(T: int, bs: int) -> int:
+    """Positions a split takes, for a (B, T) table of ``bs``-slot blocks."""
+    span = MIN_SPAN
+    while span < MAX_SPAN and -(-T * bs // span) > MAX_SPLITS:
+        span *= 2
+    return span
+
+
+def num_splits(T: int, bs: int) -> int:
+    return -(-T * bs // split_size(T, bs))
 
 
 def paged_decode_supported(num_heads: int, num_kv_heads: int,
@@ -80,7 +105,6 @@ def paged_decode_attention(
     Sequences with ``context_lens[b] == 0`` (empty decode slots) produce
     zeros.
     """
-    global launches
     _check(q, k_pool, v_pool, block_tables, context_lens, k_scales, v_scales)
     if q.device.type == "cpu":
         return paged_decode_attention_ref(
@@ -103,20 +127,32 @@ def paged_decode_attention(
         raise TypeError("int8 pool scales must be float32")
     if not all(t.is_contiguous() for t in [q, *tensors]):
         raise ValueError("paged_decode_attention kernel needs contiguous tensors")
+    return _launch(q, k_pool, v_pool, block_tables, context_lens, k_scales, v_scales,
+                   window, softcap)
+
+
+def _launch(q, k_pool, v_pool, block_tables, context_lens, k_scales, v_scales,
+            window, softcap):
+    """The split and merge kernels on checked tensors -> (B, H, hd)."""
+    global launches
     B, H, hd = q.shape
-    N, bs, Hkv, _ = k_pool.shape
-    if B > 65535:
-        raise ValueError(f"paged_decode_attention: batch {B} > 65535")
+    _, bs, Hkv, _ = k_pool.shape
+    T = block_tables.shape[1]
+    if B > 65535 or T * bs >= 2 ** 31:
+        raise ValueError(f"paged_decode_attention: batch {B} > 65535 or capacity "
+                         f"{T * bs} >= 2^31")
+    span = split_size(T, bs)
     out = torch.empty_like(q)
-    lib = _build.lib()
-    err = lib.paged_decode_attention_launch(
+    partial = torch.empty((B, Hkv, num_splits(T, bs), H // Hkv, hd + 2),
+                          dtype=torch.float32, device=q.device)
+    err = _build.lib().paged_decode_attention_launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         k_scales.data_ptr() if k_scales is not None else None,
         v_scales.data_ptr() if v_scales is not None else None,
         block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
-        _build.DTYPE_CODES[q.dtype], _build.DTYPE_CODES[k_pool.dtype],
-        B, H, Hkv, hd, N, bs, block_tables.shape[1], int(window),
-        float(softcap), 1.0 / math.sqrt(hd), _build.stream_ptr(q.device))
+        partial.data_ptr(), _build.DTYPE_CODES[q.dtype], _build.DTYPE_CODES[k_pool.dtype],
+        B, H, Hkv, hd, bs, T, span, int(window), float(softcap), 1.0 / math.sqrt(hd),
+        q.device.index or 0, _build.stream_ptr(q.device))
     _build.check(err, "paged_decode_attention")
     launches += 1
     return out

@@ -94,13 +94,14 @@ def _launch_fwd(q, k, v, causal, window, softcap, want_lse):
     flags = (int(bool(causal)), int(window), float(softcap), 1.0 / math.sqrt(hd))
     stream = _build.stream_ptr(q.device)
     tc = tensor_core_route(q)
-    if tc:  # bf16 only; binds the calling thread to the tensors' card
+    if tc:  # bf16 only
         _check_aligned(q, k, v, out)
         err = _build.lib().flash_attention_fwd_tc_launch(
             *ptrs, B, S, H, k.shape[2], hd, *flags, q.device.index or 0, stream)
     else:
         err = _build.lib().flash_attention_fwd_launch(
-            *ptrs, _build.DTYPE_CODES[q.dtype], B, S, H, k.shape[2], hd, *flags, stream)
+            *ptrs, _build.DTYPE_CODES[q.dtype], B, S, H, k.shape[2], hd, *flags,
+            q.device.index or 0, stream)
     _build.check(err, "flash_attention")
     launches += 1
     tc_launches += tc
@@ -129,7 +130,7 @@ def _launch_bwd(q, k, v, out, lse, dout, causal, window, softcap):
     else:
         err = _build.lib().flash_attention_bwd_launch(
             *qkv, out.data_ptr(), *rest, _build.DTYPE_CODES[q.dtype], B, S, H, k.shape[2], hd,
-            *flags, stream)
+            *flags, q.device.index or 0, stream)
     _build.check(err, "flash_attention backward")
     bwd_launches += 1
     tc_bwd_launches += tc

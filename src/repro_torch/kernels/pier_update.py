@@ -77,7 +77,7 @@ def pier_update(anchor: torch.Tensor, momentum: torch.Tensor, delta: torch.Tenso
         anchor.data_ptr(), codes[anchor.dtype], momentum.data_ptr(), codes[momentum.dtype],
         delta.data_ptr(), codes[delta.dtype], p.data_ptr(), m.data_ptr(),
         anchor.numel(), float(mu32), float(lr32), FORMULATIONS[formulation],
-        _build.stream_ptr(anchor.device))
+        anchor.device.index or 0, _build.stream_ptr(anchor.device))
     _build.check(err, "pier_update")
     launches += 1
     return p, m

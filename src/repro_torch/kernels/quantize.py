@@ -54,7 +54,7 @@ def quantize_blockwise(x: torch.Tensor, *, bits: int = 8, block: int = 256
     err = lib.quantize_blockwise_launch(
         x.data_ptr(), _build.DTYPE_CODES[x.dtype], n, q.data_ptr(),
         scales.data_ptr(), nb, block, qmax, float(np.float32(1.0 / qmax)),
-        _build.stream_ptr(x.device))
+        x.device.index or 0, _build.stream_ptr(x.device))
     _build.check(err, "quantize_blockwise")
     launches += 1
     return q, scales
@@ -99,7 +99,8 @@ def dequantize_blockwise(q: torch.Tensor, scales: torch.Tensor, *, block: int = 
         return out
     lib = _build.lib()
     err = lib.dequantize_blockwise_launch(q.data_ptr(), scales.data_ptr(), out.data_ptr(),
-                                          nq, block, _build.stream_ptr(q.device))
+                                          nq, block, q.device.index or 0,
+                                          _build.stream_ptr(q.device))
     _build.check(err, "dequantize_blockwise")
     dequantize_launches += 1
     return out

@@ -116,7 +116,8 @@ def ring_allgather(x: torch.Tensor, ex: Exchange, *, timeout_s: float = PEER_TIM
     ev = _events()
     err = _build.lib().ring_allgather_launch(
         x.data_ptr(), n, out.data_ptr(), s.peers, stride, ex.index, E, s.next_epoch(),
-        int(timeout_s * 1e9), s.flag, NUM_BLOCKS, _build.stream_ptr(x.device))
+        int(timeout_s * 1e9), s.flag, NUM_BLOCKS, x.device.index or 0,
+        _build.stream_ptr(x.device))
     _build.check(err, "ring_allgather")
     ring_launches += 1
     _log("ring_allgather", ev)
@@ -145,7 +146,8 @@ def shard_scatter(slots: torch.Tensor, ex: Exchange, *, timeout_s: float = PEER_
     ev = _events()
     err = _build.lib().shard_scatter_launch(
         slots.data_ptr(), m, out.data_ptr(), s.peers, stride, ex.index, E, s.next_epoch(),
-        int(timeout_s * 1e9), s.flag, NUM_BLOCKS, _build.stream_ptr(slots.device))
+        int(timeout_s * 1e9), s.flag, NUM_BLOCKS, slots.device.index or 0,
+        _build.stream_ptr(slots.device))
     _build.check(err, "shard_scatter")
     scatter_launches += 1
     _log("shard_scatter", ev)

@@ -24,11 +24,18 @@ from repro_torch.kernels.ref import rmsnorm_ref
 launches = 0
 bwd_launches = 0
 
-# The backward's grid, and so the rows of its dscale workspace: four blocks
-# an SM of the H100's 132 at most (each block loops over its rows).
-BWD_MAX_BLOCKS = 132 * 4
-# The backward keeps one fp32 dscale accumulator a column in shared memory.
+# The backward's grid, and so the rows of its dscale workspace: a block
+# for every BWD_BLOCK_ELEMS elements, at most one an SM of the H100's 132
+# (each block takes a contiguous run of rows).
+BWD_MAX_BLOCKS, BWD_BLOCK_ELEMS = 132, 16384
+# Rows of more than 256 vectors of 16 bytes take a block a row, with an fp32
+# dscale accumulator a column in shared memory.
 MAX_BWD_D = 12 * 1024
+
+
+def bwd_blocks(rows: int, D: int) -> int:
+    """The backward's grid: a function of the shape alone."""
+    return max(1, min(BWD_MAX_BLOCKS, -(-rows * D // BWD_BLOCK_ELEMS)))
 
 
 def _check_cuda(x, scale, *more) -> None:
@@ -58,7 +65,8 @@ def _launch_fwd(x, scale, eps, want_rstd):
     err = _build.lib().rmsnorm_fwd_launch(
         x.data_ptr(), scale.data_ptr(), out.data_ptr(),
         rstd.data_ptr() if rstd is not None else None,
-        _build.DTYPE_CODES[x.dtype], rows, D, float(eps), _build.stream_ptr(x.device))
+        _build.DTYPE_CODES[x.dtype], rows, D, float(eps), x.device.index or 0,
+        _build.stream_ptr(x.device))
     _build.check(err, "rmsnorm")
     launches += 1
     return out, rstd
@@ -80,12 +88,12 @@ def _launch_bwd(x, scale, rstd, dy):
     if rows == 0:
         return dx, torch.zeros_like(scale)
     dscale = torch.empty((D,), dtype=torch.float32, device=x.device)
-    nblocks = min(rows, BWD_MAX_BLOCKS)
+    nblocks = bwd_blocks(rows, D)
     partial = torch.empty((nblocks, D), dtype=torch.float32, device=x.device)
     err = _build.lib().rmsnorm_bwd_launch(
         x.data_ptr(), scale.data_ptr(), dy.data_ptr(), rstd.data_ptr(), dx.data_ptr(),
         dscale.data_ptr(), partial.data_ptr(), _build.DTYPE_CODES[x.dtype], rows, D,
-        nblocks, _build.stream_ptr(x.device))
+        nblocks, x.device.index or 0, _build.stream_ptr(x.device))
     _build.check(err, "rmsnorm backward")
     bwd_launches += 1
     return dx, dscale

@@ -87,8 +87,9 @@ def test_route_follows_dtype_and_head_dim(monkeypatch, dtype, hd, tc):
     else:
         code = _build.DTYPE_CODES[dt]
         assert list(fwd[5:11]) == [code, *shape] and list(bwd[10:16]) == [code, *shape]
-    at = -3 if tc else -2  # scale, then (the card's index and) the stream
-    assert fwd[at] == bwd[at] == pytest.approx(1.0 / math.sqrt(hd))
+    # scale, then the card's index and the stream
+    assert fwd[-3] == bwd[-3] == pytest.approx(1.0 / math.sqrt(hd))
+    assert fwd[-2] == bwd[-2] == 0
     assert (FK.launches, FK.bwd_launches, FK.tc_launches, FK.tc_bwd_launches) == (
         1, 1, int(tc), int(tc))
 
@@ -122,6 +123,24 @@ def test_every_c_entry_point_has_its_signature_row():
     assert set(entries) == set(_build.SIGNATURES)
     for name, types in entries.items():
         assert [_ctype(t) for t in types] == list(_build.SIGNATURES[name]), name
+
+
+def test_every_launch_entry_point_binds_the_thread_to_its_card():
+    """A static parse of csrc/*.cu: every ``*_launch`` entry point takes
+    ``int device`` just before its stream and calls ``cudaSetDevice(device)``
+    before anything else, so a thread with no current context (autograd's,
+    or a rank's on a card other than 0) launches on the tensors' card."""
+    launches = 0
+    for src in sorted(_build.CSRC.glob("*.cu")):
+        text = src.read_text()
+        for m in re.finditer(r'extern "C" int (\w+_launch)\(([^)]*)\)\s*\{', text):
+            launches += 1
+            params = [" ".join(p.split()) for p in m.group(2).split(",")]
+            assert params[-2:] == ["int device", "void* stream"], m.group(1)
+            body = text[m.end():].lstrip()
+            first = body.split(";")[0]
+            assert "cudaSetDevice(device)" in first, (m.group(1), first)
+    assert launches == len([n for n in _build.SIGNATURES if n.endswith("_launch")]) == 12
 
 
 def _bf16(x):
