@@ -20,11 +20,19 @@ and no result line:
    one GPT-2 XL token-table leaf) with a ragged payload that must raise;
    attention and paged decode at Qwen3-1.7B's head layout too (H 16, Hkv
    8, hd 128, bf16), quantize at its KV rows (block 128, a prefill layer's
-   and a decode step's, bit for bit, the prefill one timed), and the
-   RMSNorm forward and backward kernels
+   and a decode step's, bit for bit, the prefill one timed) and at n ending
+   mid-vector at each block size, bf16 at block 256, an unaligned view and
+   block 96 (the scalar kernel), each case run twice to the same bits and
+   on the route its rule gives (``torch.profiler`` names the kernel); the
+   quantize times beside the scalar kernel's and a same-bytes cast to int8;
+   and the RMSNorm forward and backward kernels
    (``check_rmsnorm``) at Qwen3's shapes (block norms at D 2048, qk-norm at
    D 128 and eps 1e-6, training, prefill and decode rows) and edge shapes
-   (D 40, 41 and 5000, one row, fp32): output, rstd and dx within 2e-6 of
+   (D 40, 41 and 5000, one row, fp32, ragged sets of 32 vectors at D 1600
+   and 1000, an unaligned view): the forward on the route its rule gives,
+   the register-path kernel's y and rstd bit for bit those of the
+   block-a-row kernel wherever it takes the rows (both timed, beside a
+   same-bytes ``y.copy_(x)``); output, rstd and dx within 2e-6 of
    the largest |value| in fp32, one bf16 ulp in bf16 (dx plus 2e-6 of its
    largest |value|), dscale within 1e-5; the outputs of the autograd path
    bitwise those of the direct launches, and the backward's dx and dscale
@@ -92,8 +100,9 @@ and no result line:
    against the bf16-KV rollout, reported.
 5. ``breakdown``: device time by kernel group (``torch.profiler``) beside
    the host's wall time, for one 512-token prefill and for decode steps
-   over 4 slots of the bf16 serve path; the device's idle share is one
-   minus their ratio.
+   over 4 slots of the bf16 serve path, and the same decode steps with
+   int8 KV (the quantize kernels' share, and their route); the device's
+   idle share is one minus their ratio.
 6. ``train_vs_cpu``: ``SimulatedRun`` at GPT-2 XL width, 4 layers, fp32,
    G = 2, per-group batch 2 x 128 tokens, the same seeded parameters and
    batches on the card (kernels) and on the CPU (plain versions), 12 steps
@@ -170,7 +179,7 @@ and no result line:
    data sheet). A kernel with no launch fails the run.
 10. the last line, ``{"ok": true, "device": {...}}``.
 
-Four studies run instead of the phases above when asked for, each after
+Five studies run instead of the phases above when asked for, each after
 the build, and print their own JSON lines:
 
     python3 chip_smoke.py --witness-lr     # the train run at Table I's LR,
@@ -180,6 +189,8 @@ the build, and print their own JSON lines:
                                            # bf16 / fp32 KV, bf16 vs fp32
     python3 chip_smoke.py --flash-precision  # flash_tc_vs_plain's step through
                                              # other attentions vs the plain one
+    python3 chip_smoke.py --norm-quant     # phase 2's quantize, dequantize and
+                                           # RMSNorm checks and times alone
 """
 
 from __future__ import annotations
@@ -312,67 +323,127 @@ def max_err(a, b) -> float:
 # ---------------------------------------------------------------------------
 
 
+def _quant_kernels(torch, fn):
+    """Names of the quantize kernels one call of ``fn`` launches
+    (``torch.profiler``): the route the C entry point took."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({evt.name for evt in prof.events()
+                   if evt.device_type == DeviceType.CUDA and "quantize_blockwise" in evt.name})
+
+
 def check_quantize(torch, timer, results):
+    """The quantize kernel bit for bit against its plain version, each case
+    twice (the second run must give the same bits), on the route the rule
+    gives it: a power-of-two number of 16-byte vectors a block (up to 128)
+    from an aligned x takes the vector kernel, anything else the scalar one.
+    Cases: the serve paths' KV rows, the outer sync's ragged leaf, int4, n
+    ending mid-vector at each block size, an unaligned view, block 96."""
     from repro_torch.kernels import quantize as QK
     from repro_torch.kernels.ref import quantize_blockwise_ref
 
     g = torch.Generator(device="cuda").manual_seed(1)
+    bf16, f32 = torch.bfloat16, torch.float32
     cases = [
-        # name, n, dtype, bits, block
-        ("decode_kv_rows_bf16", 4 * 25 * 64, torch.bfloat16, 8, 64),
-        ("prefill_kv_rows_bf16", 512 * 25 * 64, torch.bfloat16, 8, 64),
-        ("prefill_kv_rows_f32", 512 * 25 * 64, torch.float32, 8, 64),
-        ("qwen3_decode_kv_rows_bf16", 4 * 8 * 128, torch.bfloat16, 8, 128),
-        ("qwen3_prefill_kv_rows_bf16", 512 * 8 * 128, torch.bfloat16, 8, 128),
-        ("outer_block256_ragged", 100_003, torch.float32, 8, 256),
-        ("int4_block256", 65_536, torch.float32, 4, 256),
+        # name, n, dtype, bits, block, route
+        ("decode_kv_rows_bf16", 4 * 25 * 64, bf16, 8, 64, "vec"),
+        ("prefill_kv_rows_bf16", 512 * 25 * 64, bf16, 8, 64, "vec"),
+        ("prefill_kv_rows_f32", 512 * 25 * 64, f32, 8, 64, "vec"),
+        ("qwen3_decode_kv_rows_bf16", 4 * 8 * 128, bf16, 8, 128, "vec"),
+        ("qwen3_prefill_kv_rows_bf16", 512 * 8 * 128, bf16, 8, 128, "vec"),
+        ("outer_block256_ragged", 100_003, f32, 8, 256, "vec"),
+        ("int4_block256", 65_536, f32, 4, 256, "vec"),
+        ("block256_bf16", 256 * 400, bf16, 8, 256, "vec"),
+        ("mid_vector_block64_bf16", 64 * 100 + 3, bf16, 8, 64, "vec"),
+        ("mid_vector_block128_bf16", 128 * 50 + 13, bf16, 8, 128, "vec"),
+        ("mid_vector_block256_bf16", 256 * 30 + 5, bf16, 8, 256, "vec"),
+        ("mid_vector_block64_f32", 64 * 100 + 2, f32, 8, 64, "vec"),
+        ("mid_vector_block256_f32", 256 * 40 + 6, f32, 8, 256, "vec"),
+        ("unaligned_view_block64_bf16", 64 * 300, bf16, 8, 64, "scalar"),
+        ("block96_bf16_scalar_path", 96 * 200 + 7, bf16, 8, 96, "scalar"),
     ]
     worst = 0.0
-    for name, n, dt, bits, block in cases:
+    for name, n, dt, bits, block, want in cases:
         x = torch.randn(n, generator=g, device="cuda").to(dt)
         if name == "outer_block256_ragged":
             x[:block * 3] = 0  # whole zero blocks: scale 0, values 0
+        if name.startswith("unaligned"):  # the same values one element into a buffer
+            buf = torch.empty(n + 1, dtype=dt, device="cuda")
+            buf[1:].copy_(x)
+            x = buf[1:]
         q, s = QK.quantize_blockwise(x, bits=bits, block=block)
+        q2, s2 = QK.quantize_blockwise(x, bits=bits, block=block)
         qr, sr = quantize_blockwise_ref(x, bits=bits, block=block)
         torch.cuda.synchronize()
         same = torch.equal(q, qr) and torch.equal(s, sr)
+        repeats = torch.equal(q2, q) and torch.equal(s2, s)
+        kernels = _quant_kernels(torch, lambda: QK.quantize_blockwise(x, bits=bits, block=block))
+        route = (("vec" if "quantize_blockwise_vec_kernel" in kernels[0] else "scalar")
+                 if len(kernels) == 1 else str(kernels))
         err = max(max_err(q, qr), max_err(s, sr))
         emit({"phase": "kernels", "kernel": "quantize_blockwise", "case": name,
               "n": n, "dtype": str(dt).replace("torch.", ""), "bits": bits,
-              "block": block, "bitwise_equal": same, "max_abs_err": err})
-        if not same:
-            raise AssertionError(f"quantize {name}: kernel != plain version (err {err})")
+              "block": block, "route": route, "bitwise_equal": same,
+              "repeats_bitwise": repeats, "max_abs_err": err})
+        if not (same and repeats and route == want):
+            raise AssertionError(f"quantize {name}: kernel == plain version {same} (err "
+                                 f"{err}), repeats {repeats}, route {route} (rule: {want})")
         worst = max(worst, err)
 
+    def yardsticks(x, block):
+        """The kernel, the plain version, the scalar kernel on an unaligned
+        copy of x and a same-bytes cast to int8, each timed; the bound."""
+        n = x.numel()
+        buf = torch.empty(n + 1, dtype=x.dtype, device="cuda")
+        buf[1:].copy_(x)
+        xu, q8 = buf[1:], torch.empty(n, dtype=torch.int8, device="cuda")
+        b, by = bound_ms(n * x.element_size() + n + -(-n // block) * 4, 4 * n, "float32")
+        return {"ms": timer.ms(lambda: QK.quantize_blockwise(x, bits=8, block=block)),
+                "plain_ms": timer.ms(lambda: quantize_blockwise_ref(x, bits=8, block=block)),
+                "scalar_kernel_ms": timer.ms(
+                    lambda: QK.quantize_blockwise(xu, bits=8, block=block)),
+                "same_bytes_cast_ms": timer.ms(lambda: q8.copy_(x)),
+                "bound_ms": b, "bound_by": by}
+
     # main path's shape: one prefill layer's K rows (S=512, 25 heads, hd 64)
-    x = torch.randn(512 * 25 * 64, generator=g, device="cuda").to(torch.bfloat16)
-    t_k = timer.ms(lambda: QK.quantize_blockwise(x, bits=8, block=64))
-    t_p = timer.ms(lambda: quantize_blockwise_ref(x, bits=8, block=64))
-    n = x.numel()
-    nbytes = n * 2 + n * 1 + (n // 64) * 4
-    b, by = bound_ms(nbytes, 4 * n, "float32")
+    kv = yardsticks(torch.randn(512 * 25 * 64, generator=g, device="cuda").to(bf16), 64)
     # Qwen3-1.7B's: one prefill layer's K rows (S=512, 8 KV heads, hd 128)
-    xq = torch.randn(512 * 8 * 128, generator=g, device="cuda").to(torch.bfloat16)
-    t_kq = timer.ms(lambda: QK.quantize_blockwise(xq, bits=8, block=128))
-    t_pq = timer.ms(lambda: quantize_blockwise_ref(xq, bits=8, block=128))
-    nq = xq.numel()
-    b_q, _ = bound_ms(nq * 2 + nq + (nq // 128) * 4, 4 * nq, "float32")
+    kvq = yardsticks(torch.randn(512 * 8 * 128, generator=g, device="cuda").to(bf16), 128)
+    # one decode step's K rows, GPT-2 XL's and Qwen3-1.7B's (4 slots)
+    dec = {name: yardsticks(torch.randn(n, generator=g, device="cuda").to(bf16), block)
+           for name, n, block in (("gpt2_xl", 4 * 25 * 64, 64), ("qwen3", 4 * 8 * 128, 128))}
     # the training path's shape: one outer sync's largest leaf, fp32, block 256
     xt = torch.randn(XL_LEAF, generator=g, device="cuda") * 1e-3
-    t_kt = timer.ms(lambda: QK.quantize_blockwise(xt, bits=8, block=256))
-    b_t, _ = bound_ms(XL_LEAF * 4 + XL_LEAF + (XL_LEAF // 256) * 4, 4 * XL_LEAF, "float32")
+    tr = yardsticks(xt, 256)
     del xt
+    scalar_note = ("the scalar kernel (a warp a block, x read twice) on an unaligned copy "
+                   "of the same x")
     results["quantize_blockwise"] = {
         "name": "quantize_blockwise", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/quantize.cu",
         "replaces": "src/repro/kernels/quantize.py:35",
         "shape": "bf16 (512*25*64,) block 64 (one prefill layer's K rows)",
-        "max_abs_err": worst, "ms": t_k, "kernel_ms": t_k, "plain_ms": t_p,
-        "bound_ms": b, "bound_by": by, "library_ms": None,
+        "max_abs_err": worst, "ms": kv["ms"], "kernel_ms": kv["ms"],
+        "plain_ms": kv["plain_ms"], "bound_ms": kv["bound_ms"], "bound_by": kv["bound_by"],
+        "library_ms": None, "scalar_kernel_ms": kv["scalar_kernel_ms"],
+        "same_bytes_cast_ms": kv["same_bytes_cast_ms"], "scalar_kernel": scalar_note,
+        "same_bytes_cast": "q8.copy_(x): x cast to int8, the same bytes read and written, "
+                           "timed the same way; a floor of the card and the timer, not the "
+                           "same function",
         "qwen3_shape": "bf16 (512*8*128,) block 128 (one Qwen3-1.7B prefill layer's K rows)",
-        "qwen3_shape_ms": t_kq, "qwen3_shape_plain_ms": t_pq, "qwen3_shape_bound_ms": b_q,
+        **{f"qwen3_shape_{k}": v for k, v in kvq.items()},
+        "decode_shapes_note": "one decode step's K rows at 4 slots: bf16 (4*25*64,) block "
+                              "64 (GPT-2 XL), (4*8*128,) block 128 (Qwen3-1.7B)",
+        "decode_shapes": {k: {m: v[m] for m in ("ms", "scalar_kernel_ms", "bound_ms")}
+                          for k, v in dec.items()},
         "train_shape": "fp32 (50304*1600,) block 256 (GPT-2 XL token table)",
-        "train_shape_ms": t_kt, "train_shape_bound_ms": b_t}
+        **{f"train_shape_{k}": v for k, v in tr.items()},
+        "train_shape_share_of_bound": tr["bound_ms"] / tr["ms"]}
 
 
 XL_LEAF = 50304 * 1600  # GPT-2 XL's token table, the largest leaf
@@ -924,12 +995,43 @@ def rel_max(a, b) -> float:
 RMSNORM_BWD_STAGES = {"rmsnorm_bwd": "dx_and_partials", "rmsnorm_colsum": "column_sum"}
 
 
+def _fwd_entry(torch, x, s, eps, want_rstd=True, *, register: bool):
+    """One RMSNorm forward kernel through its C entry point, whichever the
+    wrapper's route would take: the register path (``rmsnorm_fwd_launch``,
+    on the wrapper's grid) or the block-a-row kernel
+    (``rmsnorm_fwd_rowblock_launch``, any shape), the yardstick whose bits
+    the register path must give. Both timed beside each other in one call;
+    counts no launch."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import rmsnorm as RK
+
+    D = x.shape[-1]
+    rows = x.numel() // D
+    out = torch.empty_like(x)
+    rstd = torch.empty((rows,), dtype=torch.float32, device=x.device) if want_rstd else None
+    args = (x.data_ptr(), s.data_ptr(), out.data_ptr(), rstd.data_ptr() if want_rstd else None,
+            _build.DTYPE_CODES[x.dtype], rows, D, float(eps))
+    card = (x.device.index, _build.stream_ptr(x.device))
+    if register:
+        err = _build.lib().rmsnorm_fwd_launch(*args, RK.fwd_blocks(rows, D), *card)
+    else:
+        err = _build.lib().rmsnorm_fwd_rowblock_launch(*args, *card)
+    _build.check(err, f"rmsnorm ({'register path' if register else 'block a row'})")
+    return out, rstd
+
+
 def check_rmsnorm(torch, timer, results):
     """The RMSNorm forward and backward kernels against ``rmsnorm_ref`` and
     ``rmsnorm_bwd_ref`` at Qwen3-1.7B's shapes (block norms at d_model
     2048, qk-norm at head_dim 128 and eps 1e-6; training, prefill and
     decode rows) and at edge shapes (D 40 and 41, one row, D 5000 with
-    several vectors a thread, fp32)."""
+    several vectors a thread, fp32, ragged sets of 32 vectors at D 1600 in
+    bf16 and D 1000 in fp32, an unaligned view). The forward's route must
+    be the rule's (``fwd_register_path``: aligned rows of at most 256
+    vectors of 16 bytes take the register path, those of more than 32 only
+    from 1024 rows up), and the register-path kernel's y and rstd must be bit
+    for bit those of the block-a-row kernel (``_fwd_entry``) at every
+    case its entry point takes, whichever route the wrapper picks."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import rmsnorm as RK
@@ -958,25 +1060,48 @@ def check_rmsnorm(torch, timer, results):
         ("train_block_norm_2048x2048_f32", 2048, 2048, f32, 1e-5),
         ("qk_norm_4096x128_f32", 4096, 128, f32, 1e-6),
         ("d5000_3rows_f32", 3, 5000, f32, 1e-5),
+        ("d1600_ragged_sets_1100rows_bf16", 1100, 1600, bf16, 1e-5),  # 200 vectors
+        ("d1000_ragged_sets_1100rows_f32", 1100, 1000, f32, 1e-5),  # 250 vectors
+        ("unaligned_view_64x2048_bf16", 64, 2048, bf16, 1e-5),
     ]
     worst_fwd = worst_bwd = 0.0
     for name, rows, D, dt, eps in cases:
         x, s, dy = inputs(rows, D, dt)
+        if name.startswith("unaligned"):  # the same rows one element into a buffer
+            buf = torch.empty(rows * D + 1, dtype=dt, device="cuda")
+            buf[1:].copy_(x.reshape(-1))
+            x = buf[1:].view(rows, D)
+        vec = 16 // x.element_size()
+        fits = D % vec == 0 and D // vec <= 256 and not name.startswith("unaligned")
+        want_route = ("register" if fits and (D // vec <= 32 or rows >= 1024)
+                      else "block_a_row")
+        route = "register" if RK.fwd_register_path(x) else "block_a_row"
         out = RK.rmsnorm(x, s, eps=eps)
         out_t, rstd = RK._launch_fwd(x, s, eps, want_rstd=True)
+        out_rb, rstd_rb = _fwd_entry(torch, x, s, eps, register=False)
+        # the register path wherever its entry point takes the rows
+        out_rp, rstd_rp = (_fwd_entry(torch, x, s, eps, register=True) if fits
+                           else (out_rb, rstd_rb))
         dx, ds = RK._launch_bwd(x, s, rstd, dy)
         dx2, ds2 = RK._launch_bwd(x, s, rstd, dy)
-        xg, sg = x.clone().requires_grad_(), s.clone().requires_grad_()
-        RK.rmsnorm(xg, sg, eps=eps).backward(dy)
+        # autograd on the same rows, in place (an unaligned view stays unaligned)
+        flat = (x._base if x._base is not None else x).detach().reshape(-1).clone()
+        flat.requires_grad_()
+        at = slice(x.storage_offset(), x.storage_offset() + x.numel())
+        sg = s.clone().requires_grad_()
+        RK.rmsnorm(flat[at].view(rows, D), sg, eps=eps).backward(dy)
+        xg_grad = flat.grad[at].view(rows, D)
         ref = rmsnorm_ref(x, s, eps=eps)
         rstd_ref = torch.rsqrt(x.float().square().mean(-1) + eps)
         dx_ref, ds_ref = rmsnorm_bwd_ref(x, s, dy, eps=eps)
         torch.cuda.synchronize()
         errs = {"out_max_abs_err": max_err(out, ref), "rstd_rel_err": rel_max(rstd, rstd_ref),
                 "dx_max_abs_err": max_err(dx, dx_ref), "dscale_rel_err": rel_max(ds, ds_ref)}
-        same = (torch.equal(out_t, out) and torch.equal(xg.grad, dx)
+        same = (torch.equal(out_t, out) and torch.equal(xg_grad, dx)
                 and torch.equal(sg.grad, ds))
         repeats = torch.equal(dx2, dx) and torch.equal(ds2, ds)
+        rowblock_bits = (torch.equal(out_t, out_rb) and torch.equal(rstd, rstd_rb)
+                         and torch.equal(out_rp, out_rb) and torch.equal(rstd_rp, rstd_rb))
         if dt == f32:
             errs.update(out_rel_err=rel_max(out, ref), dx_rel_err=rel_max(dx, dx_ref))
             ok = errs["out_rel_err"] <= RMS_F32_REL and errs["dx_rel_err"] <= RMS_F32_REL
@@ -991,15 +1116,20 @@ def check_rmsnorm(torch, timer, results):
             tol = {"out_bf16_ulps": 1, "dx_bf16_ulps": 1, "dx_atol_rel": RMS_F32_REL}
         ok = (ok and errs["rstd_rel_err"] <= RMS_F32_REL
               and errs["dscale_rel_err"] <= RMS_DSCALE_REL
-              and same and repeats and out.dtype == dx.dtype == dt and ds.dtype == f32)
+              and same and repeats and out.dtype == dx.dtype == dt and ds.dtype == f32
+              and route == want_route and rowblock_bits)
         tol.update(rstd_rel=RMS_F32_REL, dscale_rel=RMS_DSCALE_REL)
         emit({"phase": "kernels", "kernel": "rmsnorm", "case": name, "rows": rows, "D": D,
-              "dtype": str(dt).replace("torch.", ""), "eps": eps, **errs, "tol": tol,
-              "with_rstd_and_autograd_bitwise_equal": same, "bwd_repeats_bitwise": repeats})
+              "dtype": str(dt).replace("torch.", ""), "eps": eps, "fwd_route": route, **errs,
+              "tol": tol, "with_rstd_and_autograd_bitwise_equal": same,
+              "register_path_fits": fits, "fwd_y_and_rstd_bitwise_block_a_row": rowblock_bits,
+              "bwd_repeats_bitwise": repeats})
         if not ok:
             raise AssertionError(f"rmsnorm {name}: errors {errs}, limits {tol}, "
                                  f"outputs of both paths equal: {same}, backward "
-                                 f"repeats: {repeats}")
+                                 f"repeats: {repeats}, forward route {route} (rule: "
+                                 f"{want_route}), y and rstd those of the block-a-row "
+                                 f"kernel: {rowblock_bits}")
 
     def fwd_bytes(rows, D, rstd):  # x in, y out (bf16); scale in; rstd out
         return 2 * rows * D * 2 + 4 * D + (4 * rows if rstd else 0)
@@ -1017,8 +1147,16 @@ def check_rmsnorm(torch, timer, results):
                                      ("decode", 4, 2048, 1e-5, False)):
         x, s, dy = inputs(rows, D, bf16)
         b, by = bound_ms(fwd_bytes(rows, D, train), 4 * rows * D, "float32")
+        y = torch.empty_like(x)
         fwd[key] = {"rows": rows, "D": D, "bound_ms": b, "bound_by": by,
-                    "ms": timer.ms(lambda: RK._launch_fwd(x, s, eps, want_rstd=train))}
+                    "ms": timer.ms(lambda: RK._launch_fwd(x, s, eps, want_rstd=train)),
+                    "route": "register" if RK.fwd_register_path(x) else "block_a_row",
+                    "block_a_row_ms": timer.ms(
+                        lambda: _fwd_entry(torch, x, s, eps, train, register=False)),
+                    "register_path_ms": timer.ms(
+                        lambda: _fwd_entry(torch, x, s, eps, train, register=True)),
+                    "same_bytes_copy_ms": timer.ms(lambda: y.copy_(x))}
+        fwd[key]["ratio_to_copy"] = fwd[key]["ms"] / fwd[key]["same_bytes_copy_ms"]
         if train:
             _, rstd = RK._launch_fwd(x, s, eps, want_rstd=True)
             b, by = bound_ms(bwd_bytes(rows, D), 8 * rows * D, "float32")
@@ -1029,6 +1167,10 @@ def check_rmsnorm(torch, timer, results):
                                               lambda: RK._launch_bwd(x, s, rstd, dy),
                                               RMSNORM_BWD_STAGES),
                         "same_bytes_add_ms": timer.ms(lambda: torch.add(x, dy, out=same))}
+        if key == "train_qk":  # the plain version and the library beside it
+            fwd[key].update(plain_ms=timer.ms(lambda: rmsnorm_ref(x, s, eps=eps)),
+                            library_ms=timer.ms(
+                                lambda: F.rms_norm(x.float(), (D,), s, eps).to(x.dtype)))
         if key == "train_block":  # the plain versions and the library beside it
             xf, sf = x.float().requires_grad_(), s.clone().requires_grad_()
             yl = F.rms_norm(xf, (D,), sf, eps)
@@ -1056,11 +1198,22 @@ def check_rmsnorm(torch, timer, results):
                      "(2 x 1024 tokens)",
             "max_abs_err": worst, "ms": m["ms"], "kernel_ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"], "library_ms": m["library_ms"],
-            **{k: m[k] for k in ("stages_ms", "same_bytes_add_ms") if k in m},
+            **{k: m[k] for k in ("stages_ms", "same_bytes_add_ms", "route", "block_a_row_ms",
+                                 "register_path_ms", "same_bytes_copy_ms", "ratio_to_copy")
+               if k in m},
             **({"same_bytes_add": "torch.add(x, dy) into a third tensor: the backward's "
                                   "x, dy and dx bytes, timed the same way; a floor of the "
                                   "card and the timer, not the same function"}
                if "same_bytes_add_ms" in m else {}),
+            **({"same_bytes_copy": "y.copy_(x): the forward's x and y bytes, timed the "
+                                   "same way; a floor of the card and the timer, not the "
+                                   "same function",
+                "block_a_row": "rmsnorm_fwd_rowblock_launch: the block-a-row kernel at "
+                               "the same shape through its C entry point",
+                "register_path": "rmsnorm_fwd_launch: the register-path kernel at the same "
+                                 "shape through its C entry point, whichever kernel the "
+                                 "wrapper's route takes there"}
+               if "same_bytes_copy_ms" in m else {}),
             "library": lib, "other_shapes": {k: v for k, v in times.items() if k != "train_block"}}
 
 
@@ -1472,9 +1625,11 @@ def _kernel_group(name: str) -> str:
 
 def breakdown(torch, params, cfg):
     """Device time by kernel group (``torch.profiler``) beside the host's
-    wall time, for the bf16 serve path at the serve phase's shapes: one
-    512-token prefill, and decode steps over 4 slots at contexts
-    128/256/384/512. Wall times come from a separate unprofiled run."""
+    wall time, for the serve path at the serve phase's shapes: one
+    512-token prefill and decode steps over 4 slots at contexts
+    128/256/384/512 with bf16 KV, and the same decode steps with int8 KV
+    (each step quantizes every layer's K and V rows). Wall times come from
+    a separate unprofiled run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1483,9 +1638,6 @@ def breakdown(torch, params, cfg):
 
     lens, steps, bs = [128, 256, 384, 512], 8, 16
     need = -(-(max(lens) + steps) // bs)
-    pcfg = PagedCacheConfig(num_blocks=need * len(lens) + 1, block_size=bs)
-    bundle = build_paged_serve_steps(cfg, pcfg=pcfg, device="cuda")
-    pools = bundle.init_pools()
     g = torch.Generator(device="cuda").manual_seed(6)
     tables = (1 + torch.arange(len(lens) * need, device="cuda", dtype=torch.int32)
               ).reshape(len(lens), need)
@@ -1493,12 +1645,20 @@ def breakdown(torch, params, cfg):
                              dtype=torch.int32) for n in lens]
     tok = torch.zeros(len(lens), dtype=torch.int32, device="cuda")
     start = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    bundles = {}
+    for quantized in (False, True):
+        pcfg = PagedCacheConfig(num_blocks=need * len(lens) + 1, block_size=bs,
+                                quantized=quantized)
+        bundle = build_paged_serve_steps(cfg, pcfg=pcfg, device="cuda")
+        bundles[quantized] = (bundle, bundle.init_pools())
 
-    def prefill_all():
+    def prefill_all(quantized):
+        bundle, pools = bundles[quantized]
         for i, n in enumerate(lens):
             bundle.prefill_step(params, prompts[i], pools, tables[i, :n // bs], n - 1)
 
-    def decode_all():
+    def decode_all(quantized):
+        bundle, pools = bundles[quantized]
         pos = start.clone()
         for _ in range(steps):
             bundle.decode_step(params, pools, tok, pos, tables, pos + 1)
@@ -1512,28 +1672,36 @@ def breakdown(torch, params, cfg):
         torch.cuda.synchronize()
         return 1e3 * (time.perf_counter() - t0)
 
+    bundle, pools = bundles[False]
     out = {}
-    for kind, fn, count in (("prefill_512", lambda: bundle.prefill_step(
-            params, prompts[-1], pools, tables[-1, :512 // bs], 511), 1),
-            ("decode_step", decode_all, steps)):
-        prefill_all()  # the pools hold every prompt before any timing
+    for kind, quantized, fn, count in (
+            ("prefill_512", False, lambda: bundle.prefill_step(
+                params, prompts[-1], pools, tables[-1, :512 // bs], 511), 1),
+            ("decode_step", False, lambda: decode_all(False), steps),
+            ("decode_step_int8_kv", True, lambda: decode_all(True), steps)):
+        prefill_all(quantized)  # the pools hold every prompt before any timing
         wall = wall_ms(fn) / count
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        groups, n_kernels = {}, 0
+        groups, n_kernels, quant = {}, 0, {}
         for evt in prof.events():
             if evt.device_type == DeviceType.CUDA:
                 grp = _kernel_group(evt.name)
                 groups[grp] = groups.get(grp, 0.0) + evt.time_range.elapsed_us() / 1e3 / count
                 n_kernels += 1
+                if grp == "quantize_blockwise":
+                    route = "vec" if "quantize_blockwise_vec_kernel" in evt.name else "scalar"
+                    quant[route] = quant.get(route, 0) + 1
         busy = sum(groups.values())
         out[kind] = {"wall_ms": wall,
                      "device_ms": busy if n_kernels else "not measured",
                      "device_idle_share": 1 - busy / wall if n_kernels else "not measured",
                      "kernels_per_call": n_kernels / count,
-                     "device_ms_by_group": groups}
-    emit({"phase": "breakdown", "config": "gpt2-xl 48 layers bf16, bf16 KV",
+                     "device_ms_by_group": groups,
+                     **({"quantize_launches_by_route": quant} if quantized else {})}
+    emit({"phase": "breakdown", "config": "gpt2-xl 48 layers bf16, bf16 KV (int8 KV where "
+                                          "named)",
           "decode_slots": len(lens), "decode_contexts": lens, **out})
 
 
@@ -2671,7 +2839,8 @@ CUDA_CORE_FLASH = ("flash_attention", "flash_attention_bwd")
 
 
 def main(argv) -> int:
-    studies = {"--witness-lr", "--build-times", "--int8-kv-depth", "--flash-precision"}
+    studies = {"--witness-lr", "--build-times", "--int8-kv-depth", "--flash-precision",
+               "--norm-quant"}
     if len(argv) > 1 or not set(argv) <= studies:
         print(f"usage: chip_smoke.py [{' | '.join(sorted(studies))}]", file=sys.stderr)
         return 2
@@ -2725,6 +2894,12 @@ def main(argv) -> int:
         return 0
     results = {}
     timer = Timer(torch)
+    if argv == ["--norm-quant"]:
+        check_quantize(torch, timer, results)
+        check_dequantize(torch, timer, results)
+        check_rmsnorm(torch, timer, results)
+        emit({"norm_quant": list(results.values())})
+        return 0
     check_quantize(torch, timer, results)
     check_dequantize(torch, timer, results)
     check_flash(torch, timer, results)

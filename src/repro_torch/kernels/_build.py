@@ -72,7 +72,8 @@ SIGNATURES = {
     "paged_decode_attention_launch": [
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
         _I, _F, _F, _I, _P],
-    "rmsnorm_fwd_launch": [_P, _P, _P, _P, _I, _L, _I, _F, _I, _P],
+    "rmsnorm_fwd_launch": [_P, _P, _P, _P, _I, _L, _I, _F, _I, _I, _P],
+    "rmsnorm_fwd_rowblock_launch": [_P, _P, _P, _P, _I, _L, _I, _F, _I, _P],
     "rmsnorm_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _P],
     "ring_allgather_launch": [_P, _L, _P, _PP, _L, _I, _I, _U, _U, _P, _I, _I, _P],
     "shard_scatter_launch": [_P, _L, _P, _PP, _L, _I, _I, _U, _U, _P, _I, _I, _P],

@@ -17,6 +17,17 @@ __device__ __forceinline__ float load_f(const int8_t* p, long long i) {
   return static_cast<float>(p[i]);
 }
 
+// Value k of a vector held in registers, converted to float again at a
+// second use. For bf16 the conversion is opaque to the compiler, so the
+// vector stays packed between its two uses instead of being held as twice
+// as many floats (which spills a lane that holds a whole row).
+__device__ __forceinline__ float reload_f(const float* p, int k) { return p[k]; }
+__device__ __forceinline__ float reload_f(const __nv_bfloat16* p, int k) {
+  float f;
+  asm volatile("mov.b32 %0, {0, %1};" : "=f"(f) : "h"(__bfloat16_as_ushort(p[k])));
+  return f;
+}
+
 __device__ __forceinline__ void store_f(float* p, long long i, float v) { p[i] = v; }
 __device__ __forceinline__ void store_f(__nv_bfloat16* p, long long i, float v) {
   p[i] = __float2bfloat16_rn(v);

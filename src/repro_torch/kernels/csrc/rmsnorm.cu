@@ -23,12 +23,21 @@
 // when D is a multiple of that width and the pointers are aligned, one value
 // a thread otherwise.
 //
-// Forward: a row of at most 32 vectors (the qk-norm's 128, the decode
-// batch's narrow rows) takes a power-of-two slice of a warp, reduced with
-// shuffles, so several rows share a warp; a wider row (d_model 2048) takes a
-// whole block, reduced with shuffles and then across warps through shared
-// memory. Every thread of a group ends with the same sum, added in the same
-// order, so the result does not depend on the launch.
+// Forward, for rows of up to 256 vectors (the block, final and qk-norms of
+// every RMSNorm model of the port): a fixed grid, a function of (rows, D)
+// alone, of blocks that take contiguous runs of rows. A warp, or a
+// power-of-two slice of one for rows of up to 32 vectors, takes whole rows;
+// each lane holds its vectors of x in registers from the load to the store,
+// so x is read once, and reduces with shuffles; with four or more blocks an
+// SM, other warps' rows are in flight while one is reduced. The scale is
+// read once a block (into shared memory, or a lane's share into registers).
+// Other rows (wider, unaligned, a D that is not a whole number of vectors,
+// or fewer than 1024 rows of more than 32 vectors, where one warp's serial
+// work on a row is the latency: the wrapper's rule) take a block a row
+// (rmsnorm_fwd_kernel): a row of at most 32
+// vectors a power-of-two slice of a warp, a wider one a whole block reduced
+// through shared memory, x read twice. Both add the squares in the same
+// order, so y and rstd do not depend on the path or the launch.
 //
 // Backward, for rows of up to 256 vectors (D 2048 in bf16, 1024 in fp32):
 // a fixed grid of one block an SM, a function of (rows, D) alone, takes
@@ -307,6 +316,137 @@ __device__ __forceinline__ void staged_wait_older() {
 
 __host__ __device__ constexpr int floats16(int n) { return (n + 3) & ~3; }
 
+// The register-path forward's block: 4 warps, at least four blocks an SM.
+// A lane holds RB rows of VPL vectors: one D-2048 row in bf16, four
+// qk-norm rows.
+constexpr int kFwdWarps = 4, kFwdThreads = 32 * kFwdWarps;
+constexpr int kFwdMaxD = 2048;  // 256 vectors of 8 bf16; 1024 in fp32
+template <int VPL>
+struct FwdShape {
+  static constexpr int kRows = (VPL > 4 ? VPL : 4) / VPL;
+};
+
+// Rows of at most 32 * VPL vectors, each read from device memory once:
+// lane `sub` of a row's 2^lpr_log2 lanes holds vectors sub, sub + lpr, ...
+// (VPL of them) of x from its load to its store. Block b takes rows
+// [b * rpb, (b + 1) * rpb); its groups take them in batches of RB rows
+// (`batches` of them, from the host). The loads of a batch are issued
+// together and the row is reduced with shuffles only: the one block
+// barrier is for the scale, which the block reads once into shared memory,
+// or, where a lane's share is at most 16 values (the qk-norm's), each lane
+// into registers. The sum of squares is added in the block-a-row kernel's
+// order (rmsnorm_fwd_kernel: each vector's squares in k order, an xor tree
+// across the 32 lanes for each set of 32 vectors, the sets in order from
+// 0; a row of at most 32 vectors is that kernel's slice of lpr lanes), so
+// y and rstd are its bits.
+template <typename T, int VEC, int VPL>
+__global__ void __launch_bounds__(kFwdThreads, 4) rmsnorm_fwd_rows_kernel(
+    const T* __restrict__ x, const float* __restrict__ scale, T* __restrict__ out,
+    float* __restrict__ rstd, long long rows, int D, int lpr_log2, float eps, long long rpb,
+    int batches) {
+  constexpr int RB = FwdShape<VPL>::kRows;
+  constexpr bool kScaleInRegs = VPL * VEC <= 16;
+  using V = Vec<T, VEC>;
+  __shared__ __align__(16) float sc[kScaleInRegs ? 4 : kFwdMaxD];
+  float sr[kScaleInRegs ? VPL : 1][kScaleInRegs ? VEC : 1];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nvec = D / VEC;
+  const int lpr = 1 << lpr_log2, rpw = 32 >> lpr_log2;
+  const int sub = lane & (lpr - 1), ng = kFwdWarps * rpw;
+  const int grp = warp * rpw + (lane >> lpr_log2);
+  const long long r0 = static_cast<long long>(blockIdx.x) * rpb;
+  const long long r1 = r0 + rpb < rows ? r0 + rpb : rows;
+  const long long step = static_cast<long long>(RB) * ng;  // rows a batch covers
+  auto row_of = [&](int j, int u) { return r0 + j * step + u * ng + grp; };
+
+  // batch j's vectors of this lane; zeros past the rows and the row's end
+  auto load = [&](V (&a)[RB][VPL], int j) {
+#pragma unroll
+    for (int u = 0; u < RB; ++u) {
+      const long long row = row_of(j, u);
+#pragma unroll
+      for (int i = 0; i < VPL; ++i) {
+        const int v = sub + i * lpr;
+        a[u][i] = row < r1 && v < nvec ? reinterpret_cast<const V*>(x + row * D)[v] : V{};
+      }
+    }
+  };
+  V a[RB][VPL];
+  if (batches > 0) load(a, 0);  // the first rows are in flight while the scale is read
+  const bool scale16 = D % 4 == 0 && (reinterpret_cast<uintptr_t>(scale) & 15) == 0;
+  if constexpr (kScaleInRegs) {
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) {
+      const int v = sub + i * lpr < nvec ? sub + i * lpr : 0;
+      if (scale16) {
+#pragma unroll
+        for (int j = 0; j < VEC / 4; ++j) {
+          const float4 t = reinterpret_cast<const float4*>(scale + v * VEC)[j];
+          sr[i][4 * j] = t.x;
+          sr[i][4 * j + 1] = t.y;
+          sr[i][4 * j + 2] = t.z;
+          sr[i][4 * j + 3] = t.w;
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) sr[i][k] = scale[v * VEC + k];
+      }
+    }
+  } else {
+    if (scale16) {
+      for (int i = threadIdx.x; i < D / 4; i += kFwdThreads)
+        reinterpret_cast<float4*>(sc)[i] = reinterpret_cast<const float4*>(scale)[i];
+    } else {
+      for (int i = threadIdx.x; i < D; i += kFwdThreads) sc[i] = scale[i];
+    }
+    __syncthreads();
+  }
+  // The trip count is the block's, so every lane reaches every shuffle.
+  for (int j = 0; j < batches; ++j) {
+    if (j > 0) load(a, j);
+#pragma unroll
+    for (int u = 0; u < RB; ++u) {
+      float ci[VPL];  // vector i's squares, in k order
+#pragma unroll
+      for (int i = 0; i < VPL; ++i) {
+        ci[i] = 0.f;
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) {
+          const float f = load_f(a[u][i].v, k);
+          ci[i] += f * f;
+        }
+      }
+      for (int o = lpr >> 1; o > 0; o >>= 1)  // the VPL trees side by side
+#pragma unroll
+        for (int i = 0; i < VPL; ++i) ci[i] += __shfl_xor_sync(0xffffffffu, ci[i], o);
+      float ss = 0.f;
+#pragma unroll
+      for (int i = 0; i < VPL; ++i) ss += ci[i];
+      const long long row = row_of(j, u);
+      if (row >= r1) continue;
+      const float r = rsqrtf(__fadd_rn(__fdiv_rn(ss, static_cast<float>(D)), eps));
+      if (rstd != nullptr && sub == 0) rstd[row] = r;
+#pragma unroll
+      for (int i = 0; i < VPL; ++i) {
+        const int v = sub + i * lpr;
+        if (v >= nvec) continue;
+        float sv[VEC];
+        if constexpr (kScaleInRegs) {
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) sv[k] = sr[i][k];
+        } else {
+          scale_vec<VEC>(sc, v, sv);
+        }
+        V o;
+#pragma unroll
+        for (int k = 0; k < VEC; ++k)
+          store_f(o.v, k, __fmul_rn(__fmul_rn(reload_f(a[u][i].v, k), r), sv[k]));
+        reinterpret_cast<V*>(out + row * D)[v] = o;
+      }
+    }
+  }
+}
+
 // Rows of at most 32 * VPL vectors: lane `sub` of a row's 2^lpr_log2 lanes
 // owns vectors sub, sub + lpr, ... (VPL of them) and adds their dscale
 // partial in registers. Block b takes rows [b * rpb, (b + 1) * rpb); its
@@ -555,6 +695,35 @@ int fwd_vec(const void* x, const void* scale, void* out, void* rstd, long long r
   return static_cast<int>(cudaGetLastError());
 }
 
+// The register path: lpr lanes of VPL vectors a row, nblocks blocks (the
+// wrapper's fwd_blocks), each a contiguous run of rows in whole batches.
+template <typename T, int VEC, int VPL>
+int fwd_rows_vpl(const void* x, const void* scale, void* out, void* rstd, long long rows, int D,
+                 float eps, int nblocks, int lpr_log2, cudaStream_t s) {
+  const long long rpb = (rows + nblocks - 1) / nblocks;
+  const long long step = static_cast<long long>(FwdShape<VPL>::kRows) * kFwdWarps *
+                         (32 >> lpr_log2);
+  const int batches = static_cast<int>((rpb + step - 1) / step);
+  rmsnorm_fwd_rows_kernel<T, VEC, VPL><<<nblocks, kFwdThreads, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const float*>(scale), static_cast<T*>(out),
+      static_cast<float*>(rstd), rows, D, lpr_log2, eps, rpb, batches);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int VEC>
+int fwd_rows(const void* x, const void* scale, void* out, void* rstd, long long rows, int D,
+             float eps, int nblocks, cudaStream_t s) {
+  const int nvec = D / VEC;
+  int lpr_log2 = 0;
+  while ((1 << lpr_log2) < nvec && lpr_log2 < 5) ++lpr_log2;
+  const int vpl = (nvec + 31) / 32;
+  const auto launch = vpl <= 1   ? fwd_rows_vpl<T, VEC, 1>
+                      : vpl <= 2 ? fwd_rows_vpl<T, VEC, 2>
+                      : vpl <= 4 ? fwd_rows_vpl<T, VEC, 4>
+                                 : fwd_rows_vpl<T, VEC, 8>;
+  return launch(x, scale, out, rstd, rows, D, eps, nblocks, lpr_log2, s);
+}
+
 int colsum(const void* partial, void* dscale, int nblocks, int D, cudaStream_t s) {
   return static_cast<int>(launch_dependent(
       rmsnorm_colsum_kernel, dim3((D + kColTile - 1) / kColTile), dim3(kColTile * kColRuns), 0,
@@ -628,11 +797,34 @@ bool vectorizable(int D, std::initializer_list<const void*> ptrs) {
 
 }  // namespace
 
-// x, out (rows, D) in dtype; scale (D,) fp32; rstd (rows,) fp32 or null; all
-// on card `device`.
+// The register path: x, out (rows, D) in dtype, 16-byte aligned, D a whole
+// number of 16-byte vectors and at most kFwdMaxD values (256 vectors);
+// scale (D,) fp32; rstd (rows,) fp32 or null; nblocks the forward's grid;
+// all on card `device`. Any other shape returns cudaErrorInvalidValue (the
+// wrapper routes it to rmsnorm_fwd_rowblock_launch).
 extern "C" int rmsnorm_fwd_launch(const void* x, const void* scale, void* out, void* rstd,
-                                  int dtype, long long rows, int D, float eps, int device,
-                                  void* stream) {
+                                  int dtype, long long rows, int D, float eps, int nblocks,
+                                  int device, void* stream) {
+  const cudaError_t bound = cudaSetDevice(device);
+  if (bound != cudaSuccess) return static_cast<int>(bound);
+  if (rows == 0) return static_cast<int>(cudaGetLastError());
+  if (D < 1 || nblocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == DT_F32 && vectorizable<float>(D, {x, out}) && D <= kFwdMaxD / 2)
+    return fwd_rows<float, kVec<float>>(x, scale, out, rstd, rows, D, eps, nblocks, s);
+  if (dtype == DT_BF16 && vectorizable<__nv_bfloat16>(D, {x, out}) && D <= kFwdMaxD)
+    return fwd_rows<__nv_bfloat16, kVec<__nv_bfloat16>>(x, scale, out, rstd, rows, D, eps,
+                                                        nblocks, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// A block a row (rmsnorm_fwd_kernel) at any shape: x, out (rows, D) in
+// dtype; scale (D,) fp32; rstd (rows,) fp32 or null; all on card `device`.
+// The wrapper takes it for rows the register path does not; chip_smoke.py
+// holds the register path's bits against it.
+extern "C" int rmsnorm_fwd_rowblock_launch(const void* x, const void* scale, void* out,
+                                           void* rstd, int dtype, long long rows, int D,
+                                           float eps, int device, void* stream) {
   const cudaError_t bound = cudaSetDevice(device);
   if (bound != cudaSuccess) return static_cast<int>(bound);
   if (rows == 0) return static_cast<int>(cudaGetLastError());

@@ -30,7 +30,6 @@ def quantize_blockwise(x: torch.Tensor, *, bits: int = 8, block: int = 256
     The payload is padded to whole blocks; callers slice the dequantized
     result back to N.
     """
-    global launches
     if x.dim() != 1:
         raise ValueError(f"quantize_blockwise takes a flat (N,) tensor, got {tuple(x.shape)}")
     if bits not in (4, 8):
@@ -41,6 +40,14 @@ def quantize_blockwise(x: torch.Tensor, *, bits: int = 8, block: int = 256
         return quantize_blockwise_ref(x, bits=bits, block=block)
     if x.device.type != "cuda":
         raise ValueError(f"quantize_blockwise: unsupported device {x.device}")
+    return _launch(x, bits, block)
+
+
+def _launch(x: torch.Tensor, bits: int, block: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel on x's card and stream -> (q, scales). The C entry point
+    picks the vector kernel for an aligned x whose block is a power-of-two
+    number of 16-byte vectors, the scalar one otherwise."""
+    global launches
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"quantize_blockwise kernel takes float32 or bfloat16, got {x.dtype}")
     if not x.is_contiguous():

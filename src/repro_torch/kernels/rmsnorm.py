@@ -3,7 +3,10 @@
 Counterpart of ``repro/kernels/rmsnorm.py:rmsnorm``; the kernels are
 ``csrc/rmsnorm.cu``. A CPU tensor takes the plain version
 ``kernels/ref.py:rmsnorm_ref``, whose gradient is autograd's. A CUDA tensor
-launches the forward kernel (or raises); when autograd needs a gradient it
+launches a forward kernel (or raises): the register path for aligned rows
+of up to 256 vectors of 16 bytes (those of more than 32 vectors only when
+there are at least 1024 rows), a block a row for any other, both with the
+same bits (:func:`fwd_register_path`). When autograd needs a gradient it
 goes through :class:`RMSNormFn`, whose forward also writes each row's
 ``rsqrt(mean(x^2) + eps)`` and whose backward launches the hand-written
 backward kernels (the reference differentiates XLA's ops, so the backward
@@ -31,11 +34,37 @@ BWD_MAX_BLOCKS, BWD_BLOCK_ELEMS = 132, 16384
 # Rows of more than 256 vectors of 16 bytes take a block a row, with an fp32
 # dscale accumulator a column in shared memory.
 MAX_BWD_D = 12 * 1024
+# The forward's register path (rows of at most FWD_MAX_VECS vectors of 16
+# bytes, 16-byte aligned): a block of 4 warps for every FWD_BLOCK_ELEMS
+# elements, at most four an SM (each block takes a contiguous run of rows).
+# A row of more than 32 vectors is one warp's serial stream of work; with
+# fewer than FWD_MIN_WIDE_ROWS such rows (a 512-token prefill, a decode
+# step) the block-a-row kernel, which spreads a row over a block, finishes
+# sooner (chip_smoke.py times both kernels at those shapes).
+FWD_MAX_BLOCKS, FWD_BLOCK_ELEMS, FWD_MAX_VECS = 4 * 132, 2048, 256
+FWD_MIN_WIDE_ROWS = 1024
 
 
 def bwd_blocks(rows: int, D: int) -> int:
     """The backward's grid: a function of the shape alone."""
     return max(1, min(BWD_MAX_BLOCKS, -(-rows * D // BWD_BLOCK_ELEMS)))
+
+
+def fwd_blocks(rows: int, D: int) -> int:
+    """The register-path forward's grid: a function of the shape alone."""
+    return max(1, min(FWD_MAX_BLOCKS, -(-rows * D // FWD_BLOCK_ELEMS)))
+
+
+def fwd_register_path(x: torch.Tensor) -> bool:
+    """Whether the forward takes the register path: rows of whole 16-byte
+    vectors, at most FWD_MAX_VECS of them (and at least FWD_MIN_WIDE_ROWS
+    rows where a row has more than 32), from a 16-byte aligned x (the output
+    is a fresh allocation). Other rows take a block a row."""
+    vec = 16 // x.element_size()
+    D = x.shape[-1]
+    nvec, rows = D // vec, x.numel() // max(D, 1)
+    return (D % vec == 0 and nvec <= FWD_MAX_VECS and x.data_ptr() % 16 == 0
+            and (nvec <= 32 or rows >= FWD_MIN_WIDE_ROWS))
 
 
 def _check_cuda(x, scale, *more) -> None:
@@ -62,11 +91,14 @@ def _launch_fwd(x, scale, eps, want_rstd):
             if want_rstd else None)
     if rows == 0:
         return out, rstd
-    err = _build.lib().rmsnorm_fwd_launch(
-        x.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        rstd.data_ptr() if rstd is not None else None,
-        _build.DTYPE_CODES[x.dtype], rows, D, float(eps), x.device.index or 0,
-        _build.stream_ptr(x.device))
+    args = (x.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            rstd.data_ptr() if rstd is not None else None,
+            _build.DTYPE_CODES[x.dtype], rows, D, float(eps))
+    card = (x.device.index or 0, _build.stream_ptr(x.device))
+    if fwd_register_path(x):
+        err = _build.lib().rmsnorm_fwd_launch(*args, fwd_blocks(rows, D), *card)
+    else:
+        err = _build.lib().rmsnorm_fwd_rowblock_launch(*args, *card)
     _build.check(err, "rmsnorm")
     launches += 1
     return out, rstd

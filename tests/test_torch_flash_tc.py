@@ -140,7 +140,7 @@ def test_every_launch_entry_point_binds_the_thread_to_its_card():
             body = text[m.end():].lstrip()
             first = body.split(";")[0]
             assert "cudaSetDevice(device)" in first, (m.group(1), first)
-    assert launches == len([n for n in _build.SIGNATURES if n.endswith("_launch")]) == 12
+    assert launches == len([n for n in _build.SIGNATURES if n.endswith("_launch")]) == 13
 
 
 def _bf16(x):
