@@ -80,6 +80,10 @@ and no result line:
    (CUDA events, median of 25) beside the plain version's and gloo's
    ``all_gather_into_tensor`` on host copies; a broken peer (one rank skips
    the launch) must raise at the kernel's 2 s deadline.
+2c. ``adamw``: the inner AdamW update (``optim/adamw.py``, plain PyTorch,
+   in place through two fp32 temporaries) bit for bit its out-of-place form
+   over three steps at the GPT-2 XL token table (50304 x 1600, fp32 and
+   bf16 moments), and both timed there.
 3. ``e2e_vs_cpu``: GPT-2 XL width at 4 layers in fp32, the same seeded
    weights on the card (kernels) and on the CPU (plain versions): a
    teacher-forced paged rollout (prompt 200, 16 decode steps) must agree
@@ -169,9 +173,45 @@ and no result line:
    step, dispatch and apply times, ring and scatter times per sync, peak
    memory per rank. Two ranks share one card, so the rate is not a two-GPU
    rate.
+8e. ``train_elastic``: full GPT-2 XL through ``SimulatedRun`` (G = 2, 10
+   steps, quantized int8/256 sync) with ``drop:1@1,rejoin:1@2``: group 1's
+   parameters (a strided sample of every leaf) untouched by event 1's
+   apply, equal to the anchor with fresh AdamW state after its bootstrap;
+   the validation loss falls; launches exact; step, dispatch and apply ms,
+   peak memory.
+8f. ``elastic_vs_cpu`` (GPT-2 XL width, 2 layers, fp32, G = 3, 12 steps,
+   ``drop:1@1,rejoin:1@3,straggle:2@2+2`` with max_staleness 1: flat at
+   delay 1, quantized int8/256 at delay 0, int8-wire at delay 1; each
+   event's weights, live mask and bootstraps; card vs CPU within 1e-3,
+   launches exact) and ``switch_vs_cpu`` (G = 2, 14 steps, a scripted
+   controller: flat -> quantized(8, 256) at window 2, delay 0 -> 1 at 3,
+   -> int4 wire at 4, -> flat at 5; the residual present exactly at windows
+   2-4; card vs CPU within 1e-3, launches exact).
+8g. ``train_dist_elastic_vs_sim``: the Trainer on 2 ranks against
+   ``SimulatedRun`` on the card, GPT-2 XL width, 2 layers, fp32, 8 steps
+   with no lazy start: int8-wire and rs-ag at delay 0 and 1 with
+   ``drop:1@1,rejoin:1@2`` (bit for bit), and a scripted flat -> int8-wire
+   switch (within 1e-5, or three int8 quantization steps of its residual
+   scale where larger: the flat windows mean Δθ in the Trainer and θ in the
+   simulator); every rank's launches exact, ring and scatter included.
+8h. ``train_dist_auto``: full GPT-2 medium on 2 ranks, ``sync_delay="auto"``,
+   12 steps, once with the measured controller and once with the adaptive
+   ladder: per window t_inner, t_comm, d*, the rung and every switch (no
+   bound on the decisions: they follow the card's timings); finite loss,
+   the validation loss falls.
+8i. ``train_dist_ckpt``: GPT-2 medium width at 4 layers (the checkpoint's
+   bytes set the phase's time) on 2 ranks, int8-wire: 10 steps with
+   outer-state offload; 6 steps without it and a save (about 2.6 GB a rank
+   under ``build/ckpt_smoke``, deleted after); a fresh run whose
+   ``rejoin_bootstrap="checkpoint"`` rejoin takes the saved anchor bit for
+   bit; a fresh world restores and runs to step 10 with offload, bit for
+   bit the uninterrupted run; save and restore seconds, peak and resident
+   memory per rank with and without offload. ``--ckpt-depth`` runs it at
+   all 24 layers (8.6 GB a rank).
 9. a ``{"kernels": [...]}`` line: per kernel its launches on the main-path
-   runs (serve and serve_qwen3, train, train_compressed, train_qwen3 and,
-   summed over ranks, train_dist; for the CUDA-core attention kernels,
+   runs (serve and serve_qwen3, train, train_compressed, train_qwen3,
+   train_elastic and, summed over ranks, train_dist and train_dist_auto;
+   for the CUDA-core attention kernels,
    which those bf16 runs no longer take, their launches in the fp32
    card-vs-CPU phases), max error, kernel / plain / library times and
    the bound at the main path's shape (bytes over 3.35 TB/s and operations
@@ -179,7 +219,7 @@ and no result line:
    data sheet). A kernel with no launch fails the run.
 10. the last line, ``{"ok": true, "device": {...}}``.
 
-Five studies run instead of the phases above when asked for, each after
+Seven studies run instead of the phases above when asked for, each after
 the build, and print their own JSON lines:
 
     python3 chip_smoke.py --witness-lr     # the train run at Table I's LR,
@@ -191,6 +231,8 @@ the build, and print their own JSON lines:
                                              # other attentions vs the plain one
     python3 chip_smoke.py --norm-quant     # phase 2's quantize, dequantize and
                                            # RMSNorm checks and times alone
+    python3 chip_smoke.py --elastic        # phases 8e-8i alone
+    python3 chip_smoke.py --ckpt-depth     # phase 8i at GPT-2 medium's 24 layers
 """
 
 from __future__ import annotations
@@ -231,8 +273,8 @@ def large_allocations_on_the_heap():
     the CPU halves' time. Raising the mmap and trim thresholds keeps freed
     memory in the heap for reuse; on exit the defaults (128 KiB) come back
     and the heap is trimmed, so the phases after run as before. Host memory
-    only; nothing on the card changes. Yields whether glibc took the
-    settings."""
+    only; nothing on the card changes. The CPU halves also take every core
+    the process may run on. Yields whether glibc took the settings."""
     import ctypes
     import ctypes.util
 
@@ -245,9 +287,14 @@ def large_allocations_on_the_heap():
                 and bool(libc.mallopt(m_trim_threshold, ctypes.c_int(value))))
 
     raised = libc is not None and hasattr(libc, "mallopt") and thresholds(2 ** 31 - 1)
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(threads, len(os.sched_getaffinity(0))))  # every core we may use
     try:
         yield raised
     finally:
+        torch.set_num_threads(threads)
         if raised:
             gc.collect()
             thresholds(128 * 1024)
@@ -2605,6 +2652,77 @@ def _ring_worker(info):
                          "shard_scatter": RA.scatter_launches}}
 
 
+def _adamw_out_of_place(torch, grads, state, leaves, tc, lr):
+    """The AdamW update as fresh fp32 tensors stored at the end: the form
+    ``optim/adamw.py:adamw_update`` writes in place."""
+    import numpy as np
+
+    from repro_torch.optim.adamw import decay_mask
+
+    dev = state.count.device
+    f32 = lambda x: torch.tensor(np.float32(x), device=dev)  # noqa: E731
+    b1, b2 = f32(tc.adam_beta1), f32(tc.adam_beta2)
+    omb1, omb2 = f32(1.0 - tc.adam_beta1), f32(1.0 - tc.adam_beta2)
+    eps, wd, lr_t, one = f32(tc.adam_eps), f32(tc.weight_decay), f32(lr), f32(1.0)
+    state.count.add_(1)
+    cf = state.count.float()
+    c1, c2 = one - torch.pow(b1, cf), one - torch.pow(b2, cf)
+    for (name, p), g, m, v in zip(leaves, grads, state.mu, state.nu):
+        gf = g.float()
+        mf = b1 * m.float() + omb1 * gf
+        vf = b2 * v.float() + omb2 * (gf * gf)
+        m.copy_(mf)
+        v.copy_(vf)
+        step = (mf / c1) / (torch.sqrt(vf / c2) + eps)
+        if decay_mask(name):
+            step = step + wd * p.float()
+        p.copy_(p.float() - lr_t * step)
+
+
+def check_adamw(torch, timer):
+    """``adamw_update`` against its out-of-place form on the card: three
+    steps at the GPT-2 XL token table with fp32 and bf16 moments must give
+    the same bits; one step of each timed there."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.optim.adamw import adamw_init, adamw_update
+
+    shape = (50304, 1600)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p0 = torch.randn(shape, device="cuda", generator=gen) * 0.02
+    grads = [torch.randn(shape, device="cuda", generator=gen) * 0.01 for _ in range(3)]
+
+    def out_of_place(*args):
+        _adamw_out_of_place(torch, *args)
+
+    for state_dtype in ("float32", "bfloat16"):
+        tc = TrainConfig(opt_state_dtype=state_dtype)
+        sides = []
+        for fn in (adamw_update, out_of_place):
+            leaves = [("embed.tokens", p0.clone())]
+            state = adamw_init(leaves, tc)
+            for g in grads:
+                fn([g], state, leaves, tc, 1e-3)
+            sides.append((fn, leaves, state))
+        torch.cuda.synchronize()
+        (_, la, sa), (_, lb, sb) = sides
+        equal = (torch.equal(la[0][1], lb[0][1]) and torch.equal(sa.mu[0], sb.mu[0])
+                 and torch.equal(sa.nu[0], sb.nu[0]))
+        ms = [timer.ms(lambda: fn([grads[0]], st, lv, tc, 1e-3)) for fn, lv, st in sides]
+        state_bytes = 4 if state_dtype == "float32" else 2
+        # the gradient read; the parameter and both moments read and written
+        moved = p0.numel() * (4 + 2 * 4 + 2 * 2 * state_bytes)
+        emit({"phase": "adamw", "shape": list(shape), "state_dtype": state_dtype,
+              "steps": len(grads), "bitwise_equal": equal, "in_place_ms": ms[0],
+              "out_of_place_ms": ms[1], "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
+              "bound_by": "bytes"})
+        if not equal:
+            raise AssertionError(f"adamw ({state_dtype} moments): the in-place update is "
+                                 f"not its out-of-place form bit for bit")
+        del sides, la, lb, sa, sb
+    del p0, grads
+    torch.cuda.empty_cache()
+
+
 def check_ring(torch, results):
     """Both wire kernels against their plain versions, at E = 2 and 4 ranks
     sharing the card, and their times at the main path's shapes (E = 2)."""
@@ -2764,20 +2882,26 @@ def train_dist_vs_sim(torch):
     return seen
 
 
+def _gpt2_medium_val(torch, cfg, seq):
+    """The fixed validation batch of the GPT-2 medium Trainer phases."""
+    from repro_torch.data.synthetic import MarkovLM, make_train_batch
+
+    gen = torch.Generator().manual_seed(99991)
+    return make_train_batch(MarkovLM(cfg.vocab_size, seed=1234), gen, 16, seq)
+
+
 def train_dist(torch):
     """Full GPT-2 medium, 2 ranks sharing the card (G = 2), 10 steps, with
     int8-wire and with rs-ag; returns the runs' lines."""
     from repro_torch.config import OuterCommConfig, ParallelConfig, TrainConfig
     from repro_torch.configs import get_config
-    from repro_torch.data.synthetic import MarkovLM, make_train_batch
     from repro_torch.launch.train import spawn, train_jobs
     from repro_torch.sync import resolve_strategy
 
     cfg = get_config("gpt2-medium")
     G, per, seq, steps = 2, 2, 1024, 10
     pc = ParallelConfig(data_axis_size=G, data_outer=G)
-    gen = torch.Generator().manual_seed(99991)
-    val = make_train_batch(MarkovLM(cfg.vocab_size, seed=1234), gen, 16, seq)
+    val = _gpt2_medium_val(torch, cfg, seq)
     tcs = [TrainConfig(**TRAIN_TC, **TRAIN_LR, global_batch_size=G * per, seq_len=seq,
                        outer_comm=OuterCommConfig(compression=c)) for c in ("int8-wire", "rs-ag")]
     jobs = [((cfg, tc, pc, steps), {"val_batch": val, "timed": True}) for tc in tcs]
@@ -2833,6 +2957,571 @@ def train_dist(torch):
     return lines
 
 
+# ---------------------------------------------------------------------------
+# phases 8e-8j: sync controllers, elastic membership, checkpoints, offload
+# ---------------------------------------------------------------------------
+
+ELASTIC_SPEC = "drop:1@1,rejoin:1@3,straggle:2@2+2"
+# (name, OuterCommConfig kwargs, sync_delay)
+ELASTIC_CONFIGS = [("flat_d1", {}, 1), ("quantize_int8_b256_d0", {"compression": "quantize"}, 0),
+                   ("int8_wire_d1", {"compression": "int8-wire"}, 1)]
+
+
+def _membership_lines(ctrl, events: int):
+    return [{"event": k, "weights": list(ctrl.at(k).weights),
+             "apply_live": list(ctrl.at(k).apply_live),
+             "bootstrap_after_apply": list(ctrl.at(k).bootstrap_after_apply)}
+            for k in range(events)]
+
+
+def _card_half(torch, counters, make_run, steps: int):
+    """The card's run of a card-vs-CPU comparison: (run, history, launches,
+    its groups' final parameters on the host)."""
+    from repro_torch.models.transformer import param_leaves
+
+    run = make_run("cuda")
+    for ctr in counters.values():
+        ctr.launches = 0
+    hist = run.run(steps)
+    run.flush()
+    torch.cuda.synchronize()
+    launches = {k: ctr.launches for k, ctr in counters.items()}
+    params = [[t.detach().cpu() for _, t in param_leaves(g)] for g in run.state.group_params]
+    return run, hist, launches, params
+
+
+def _cpu_half(make_run, steps: int, card_hist, card_params):
+    """The CPU's run of the same comparison: (loss error, parameter error)."""
+    from repro_torch.models.transformer import param_leaves
+
+    run = make_run("cpu")
+    hist = run.run(steps)
+    run.flush()
+    loss_err = max(abs(a - b) for a, b in zip(card_hist["train_loss"], hist["train_loss"]))
+    p_err = max(float((a - b.detach()).abs().max())
+                for gc_, gp in zip(card_params, run.state.group_params)
+                for a, (_, b) in zip(gc_, param_leaves(gp)))
+    return hist, loss_err, p_err
+
+
+def _window_expect(run, strategies, steps: int, num_leaves: int):
+    """Launches of a run whose outer windows took ``strategies`` (one per
+    window, in order): the flash and norm launches of ``_train_expect``,
+    the outer update per leaf and window, and each window's quantize and
+    dequantize per its strategy."""
+    expect, warm, syncs = _train_expect(run, steps, num_leaves)
+    nq = ndq = 0
+    for s in strategies:
+        q, dq = _quant_launches(s, run.G, run.P)
+        nq, ndq = nq + q, ndq + dq
+    expect["quantize_blockwise"] = nq * num_leaves
+    expect["dequantize_blockwise"] = ndq * num_leaves
+    expect["pier_update"] = num_leaves * len(strategies)
+    return expect, warm, syncs
+
+
+def elastic_vs_cpu(torch, counters):
+    """Elastic membership on the card and on the CPU: GPT-2 XL width, 2
+    layers, fp32, G = 3, 12 steps (outer events after steps 5, 7, 9, 11),
+    churn ``drop:1@1,rejoin:1@3,straggle:2@2+2`` with max_staleness 1
+    (group 2 evicted after event 3 and bootstrapped there). Runs the card
+    halves now and returns, per case, its launches and the CPU half to run
+    (which checks and reports)."""
+    from repro_torch.config import MembershipConfig, OuterCommConfig, TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core.simulate import SimulatedRun
+    from repro_torch.models import registry as R
+    from repro_torch.models.transformer import param_leaves
+    from repro_torch.sync import ChurnSchedule, MembershipController
+
+    cfg = get_config("gpt2-xl").replace(num_layers=2, dtype="float32")
+    G, steps, seq, per, tol = 3, 12, 64, 1, 1e-3
+    base = R.init_params(cfg, seed=0, device="cpu", training=True)
+    n_leaves = len(param_leaves(base))
+    out = []
+    for name, comm, delay in ELASTIC_CONFIGS:
+        tc = TrainConfig(**TRAIN_TC, global_batch_size=G * per, seq_len=seq, sync_delay=delay,
+                         outer_comm=OuterCommConfig(**comm),
+                         membership=MembershipConfig(max_staleness=1))
+        t0 = time.perf_counter()
+
+        def make(dev, tc=tc):
+            return SimulatedRun(cfg, tc, num_groups=G, device=dev, params=copy.deepcopy(base),
+                                membership=MembershipController(
+                                    G, cfg=tc.membership,
+                                    schedule=ChurnSchedule.parse(ELASTIC_SPEC)))
+        card, h_card, launches, params = _card_half(torch, counters, make, steps)
+        expect, warm, syncs = _train_expect(card, steps, n_leaves)
+        res = card.state.outer.residual
+        line = {"phase": "elastic_vs_cpu", "case": name, "strategy": card.strategy.name,
+                "config": "gpt2-xl width, 2 layers, float32", "groups": G,
+                "sync_delay": delay, "churn": ELASTIC_SPEC, "max_staleness": 1,
+                "steps": steps, "warmup_steps": warm, "outer_syncs": syncs,
+                "per_group_batch": per, "seq_len": seq,
+                "events": _membership_lines(card.membership, syncs),
+                "bootstrapped_residual_rows_zero": (
+                    None if res is None else all(float(r[2].abs().max()) == 0 for r in res)),
+                "card_launches": launches, "expected_launches": expect,
+                "card_seconds": time.perf_counter() - t0}
+        del card, res
+        free_cuda(torch)
+        if launches != expect:
+            raise AssertionError(f"elastic_vs_cpu {name}: launches {launches} != {expect}")
+
+        def finish(make=make, line=line, h_card=h_card, params=params, name=name):
+            t0 = time.perf_counter()
+            h_cpu, loss_err, p_err = _cpu_half(make, steps, h_card, params)
+            emit({**line, "loss_card": h_card["train_loss"], "loss_cpu": h_cpu["train_loss"],
+                  "max_abs_loss_err": loss_err, "max_abs_param_err": p_err, "tol": tol,
+                  "cpu_seconds": time.perf_counter() - t0})
+            if not all(math.isfinite(x) for x in h_card["train_loss"]):
+                raise AssertionError(f"elastic_vs_cpu {name}: non-finite card loss")
+            if loss_err > tol or p_err > tol:
+                raise AssertionError(f"elastic_vs_cpu {name}: loss err {loss_err}, param err "
+                                     f"{p_err} (limit {tol})")
+        out.append((launches, finish))
+    return out
+
+
+def switch_vs_cpu(torch, counters):
+    """A scripted controller on the card and on the CPU: GPT-2 XL width, 2
+    layers, fp32, G = 2, 14 steps (outer windows after steps 5, 7, 9, 11,
+    13): FlatFP32 -> Quantized(8, 256) at window 2, the delay 0 -> 1 at
+    window 3, -> Int8Wire(4) at window 4, -> FlatFP32 at window 5 (the
+    residual goes). Runs the card half now; returns its launches and the
+    CPU half to run (which checks and reports)."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core.simulate import SimulatedRun
+    from repro_torch.models import registry as R
+    from repro_torch.models.transformer import param_leaves
+    from repro_torch.sync import (FlatFP32, Int8Wire, Quantized, ScriptedSyncController,
+                                  SyncDecision)
+
+    cfg = get_config("gpt2-xl").replace(num_layers=2, dtype="float32")
+    G, steps, seq, per, tol = 2, 14, 64, 1, 1e-3
+    base = R.init_params(cfg, seed=0, device="cpu", training=True)
+    n_leaves = len(param_leaves(base))
+    tc = TrainConfig(**TRAIN_TC, global_batch_size=G * per, seq_len=seq)
+    script = {2: Quantized(8, 256), 3: SyncDecision(1, None), 4: Int8Wire(bits=4),
+              5: FlatFP32()}
+    t0 = time.perf_counter()
+    trace = {}
+
+    def make(dev):
+        run = SimulatedRun(cfg, tc, num_groups=G, device=dev, params=copy.deepcopy(base),
+                           sync_controller=ScriptedSyncController(0, script))
+        consult, log = run._consult_controller, trace.setdefault(dev, [])
+
+        def recorded():
+            consult()
+            o = run.state.outer
+            log.append({"window": run.sync_controller.windows, "strategy": run.strategy.name,
+                        "sync_delay": run.tc.sync_delay, "residual": o.residual is not None,
+                        "residual2": o.residual2 is not None})
+        run._consult_controller = recorded
+        return run
+    card, h_card, launches, params = _card_half(torch, counters, make, steps)
+    # the strategy each window's dispatch ran: the one standing before its
+    # decision (window 1 runs the configured flat mean)
+    strategies, cur = [], FlatFP32()
+    for w in range(1, len(trace["cuda"]) + 1):
+        strategies.append(cur)
+        entry = script.get(w)
+        nxt = entry.strategy if isinstance(entry, SyncDecision) else entry
+        cur = nxt if nxt is not None else cur
+    expect, warm, syncs = _window_expect(card, strategies, steps, n_leaves)
+    del card
+    free_cuda(torch)
+    residuals = [(t["window"], t["residual"], t["residual2"]) for t in trace["cuda"]]
+    want_res = [(1, False, False), (2, True, False), (3, True, False), (4, True, False),
+                (5, False, False)]
+    line = {"phase": "switch_vs_cpu", "config": "gpt2-xl width, 2 layers, float32",
+            "groups": G, "steps": steps, "warmup_steps": warm, "outer_syncs": syncs,
+            "windows": trace["cuda"], "window_strategies": [s.name for s in strategies],
+            "card_launches": launches, "expected_launches": expect,
+            "card_seconds": time.perf_counter() - t0}
+    if residuals != want_res:
+        raise AssertionError(f"switch_vs_cpu: windows {trace['cuda']} (residuals want "
+                             f"{want_res})")
+    if launches != expect:
+        raise AssertionError(f"switch_vs_cpu: launches {launches} != {expect}")
+
+    def finish():
+        t1 = time.perf_counter()
+        h_cpu, loss_err, p_err = _cpu_half(make, steps, h_card, params)
+        emit({**line, "cpu_windows": trace["cpu"], "loss_card": h_card["train_loss"],
+              "loss_cpu": h_cpu["train_loss"], "max_abs_loss_err": loss_err,
+              "max_abs_param_err": p_err, "tol": tol, "cpu_seconds": time.perf_counter() - t1})
+        if trace["cuda"] != trace["cpu"]:
+            raise AssertionError(f"switch_vs_cpu: card windows {trace['cuda']} != CPU "
+                                 f"windows {trace['cpu']}")
+        if loss_err > tol or p_err > tol:
+            raise AssertionError(f"switch_vs_cpu: loss err {loss_err}, param err {p_err} "
+                                 f"(limit {tol})")
+    return [(launches, finish)]
+
+
+def _probe(leaves):
+    """A strided sample of every leaf, compared before and after an apply
+    (a full copy of a GPT-2 XL replica would not fit beside the run)."""
+    return [t.detach().reshape(-1)[::997].clone() for t in leaves]
+
+
+def train_elastic(torch, counters):
+    """Full GPT-2 XL through SimulatedRun, G = 2, 10 steps, quantized int8
+    outer sync, churn ``drop:1@1,rejoin:1@2``: group 1 sits out event 1
+    (step 7; its parameters untouched by that apply) and bootstraps onto
+    the anchor right after it."""
+    from repro_torch.config import MembershipConfig, OuterCommConfig, TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core.simulate import SimulatedRun
+    from repro_torch.models.transformer import param_leaves
+    from repro_torch.sync import ChurnSchedule, MembershipController
+
+    cfg = get_config("gpt2-xl")
+    G, per, seq, steps, spec = 2, 2, 1024, 10, "drop:1@1,rejoin:1@2"
+    tc = TrainConfig(**TRAIN_TC, **TRAIN_LR, global_batch_size=G * per, seq_len=seq,
+                     outer_comm=OuterCommConfig(compression="quantize", bits=8, block=256),
+                     membership=MembershipConfig())
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    run = SimulatedRun(cfg, tc, num_groups=G, seed=0, device="cuda",
+                       membership=MembershipController(G, cfg=tc.membership,
+                                                       schedule=ChurnSchedule.parse(spec)))
+    n_leaves = len(param_leaves(run.state.params))
+    t_init = time.perf_counter() - t0
+    val_before = run.val_loss(run.state.params)
+    times, probes = {}, []
+    apply = run._apply
+
+    def watched(target, snapshots, live=None):
+        leaves = [t for _, t in param_leaves(run.state.group_params[1])]
+        before = _probe(leaves)
+        apply(target, snapshots, live)
+        after = _probe(leaves)
+        probes.append({"live": None if live is None else list(live),
+                       "group1_unchanged": all(torch.equal(a, b)
+                                               for a, b in zip(before, after))})
+    run._apply = watched
+    for name, kind in (("_inner_step", "inner_step"), ("_dispatch", "outer_dispatch"),
+                       ("_apply", "outer_apply")):
+        setattr(run, name, _timed(torch, times, kind, getattr(run, name)))
+    boot = {}
+    bootstrap = run._bootstrap_group
+
+    def bootstrapped(g):
+        bootstrap(g)
+        leaves = [t for _, t in param_leaves(run.state.group_params[g])]
+        boot[g] = all(torch.equal(p, a) for p, a in zip(leaves, run.state.outer.anchor))
+        boot[f"{g}_fresh_adamw"] = int(run.state.opt[g].count) == 0
+    run._bootstrap_group = bootstrapped
+    for c in counters.values():
+        c.launches = 0
+    t1 = time.perf_counter()
+    hist = run.run(steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = {k: c.launches for k, c in counters.items()}
+    val_after = run.val_loss(run.state.params)
+    expect, warm, syncs = _train_expect(run, steps, n_leaves)
+    inner = times.get("inner_step", [])
+    line = {"phase": "train_elastic", "config": f"{cfg.name} {cfg.num_layers} layers, bf16 "
+                                                f"compute, fp32 params",
+            "strategy": run.strategy.name, "churn": spec, "groups": G, "per_group_batch": per,
+            "seq_len": seq, "steps": steps, "warmup_steps": warm, "outer_syncs": syncs,
+            "events": _membership_lines(run.membership, syncs), "applies": probes,
+            "bootstrap_equals_anchor": boot, "init_s": t_init, "wall_s": wall,
+            "inner_step_ms": inner,
+            "inner_step_ms_p50": statistics.median(inner[1:]) if len(inner) > 1 else None,
+            "outer_dispatch_ms": times.get("outer_dispatch", []),
+            "outer_apply_ms": times.get("outer_apply", []),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "loss": hist["train_loss"], "val_loss_before": val_before,
+            "val_loss_after": val_after, "launches": launches, "expected_launches": expect}
+    emit(line)
+    if not all(math.isfinite(x) for x in hist["train_loss"] + [val_before, val_after]):
+        raise AssertionError("train_elastic: non-finite loss")
+    if not val_after < val_before:
+        raise AssertionError(f"train_elastic: validation loss did not fall: {val_before} -> "
+                             f"{val_after}")
+    if launches != expect:
+        raise AssertionError(f"train_elastic: launches {launches} != {expect}")
+    event1 = [p for p in probes if p["live"] == [True, False]]
+    if len(event1) != 1 or not event1[0]["group1_unchanged"]:
+        raise AssertionError(f"train_elastic: event 1's apply touched group 1: {probes}")
+    if boot != {1: True, "1_fresh_adamw": True}:
+        raise AssertionError(f"train_elastic: bootstrap {boot}")
+    del run
+    return line
+
+
+def _dist_window_expect(strategies, E: int, leaves: int, cfg, steps: int):
+    """Per-rank launches of a Trainer run whose outer windows took
+    ``strategies`` (``_dist_expect`` summed window by window)."""
+    total = None
+    for s in strategies:
+        one = _dist_expect(s, E, leaves, cfg, steps, 1)
+        if total is None:
+            total = one
+        else:
+            for k in ("pier_update", "quantize_blockwise", "dequantize_blockwise",
+                      "ring_allgather", "shard_scatter"):
+                total[k] += one[k]
+    return total
+
+
+# (name, OuterCommConfig kwargs, sync_delay, churn, scripted switch)
+DIST_ELASTIC = [("int8_wire_d0_churn", {"compression": "int8-wire"}, 0, "drop:1@1,rejoin:1@2",
+                 False),
+                ("int8_wire_d1_churn", {"compression": "int8-wire"}, 1, "drop:1@1,rejoin:1@2",
+                 False),
+                ("rs_ag_d0_churn", {"compression": "rs-ag"}, 0, "drop:1@1,rejoin:1@2", False),
+                ("rs_ag_d1_churn", {"compression": "rs-ag"}, 1, "drop:1@1,rejoin:1@2", False),
+                ("flat_to_int8_wire_switch", {}, 0, "", True)]
+
+
+def train_dist_elastic_vs_sim(torch):
+    """The Trainer (2 ranks on the card) against ``SimulatedRun`` on the
+    card with churn and a scripted switch: GPT-2 XL width, 2 layers, fp32,
+    per-group batch 2 x 256, 8 steps with no lazy start (outer windows
+    after steps 1, 3, 5, 7)."""
+    from repro_torch.config import (MembershipConfig, OuterCommConfig, ParallelConfig,
+                                    TrainConfig)
+    from repro_torch.configs import get_config
+    from repro_torch.core.simulate import SimulatedRun
+    from repro_torch.launch.train import spawn, train_jobs
+    from repro_torch.models import registry as R
+    from repro_torch.models.transformer import param_leaves
+    from repro_torch.sync import (ChurnSchedule, FlatFP32, Int8Wire, MembershipController,
+                                  ScriptedSyncController, resolve_strategy)
+
+    cfg = get_config("gpt2-xl").replace(num_layers=2, dtype="float32")
+    ranks, steps, per, seq, tol = 2, 8, 2, 256, 1e-5
+    base = R.init_params(cfg, seed=0, device="cpu", training=True)
+    sd = {k: v.detach().clone() for k, v in base.state_dict().items()}
+    pc = ParallelConfig(data_axis_size=ranks, data_outer=ranks)
+    switch = {2: Int8Wire(8, 256)}
+    jobs, tcs = [], []
+    for name, comm, delay, churn, scripted in DIST_ELASTIC:
+        tc = TrainConfig(**TRAIN_TC, global_batch_size=ranks * per, seq_len=seq,
+                         sync_delay=delay, outer_comm=OuterCommConfig(**comm),
+                         membership=MembershipConfig() if churn else None)
+        tc = tc.replace(warmup_frac=0.0)
+        tcs.append(tc)
+        kw = {"params": sd, "keep_params": True, "churn": churn}
+        if scripted:
+            kw["sync_controller"] = ScriptedSyncController(0, switch)
+        jobs.append(((cfg, tc, pc, steps), kw))
+    t0 = time.perf_counter()
+    outs = spawn(train_jobs, (jobs,), nproc=ranks, device="cuda", timeout=DIST_DEADLINE_S)
+    t_dist = time.perf_counter() - t0
+    seen = []
+    for i, (name, comm, delay, churn, scripted) in enumerate(DIST_ELASTIC):
+        tc = tcs[i]
+        kw = {}
+        if churn:
+            kw["membership"] = MembershipController(ranks, cfg=tc.membership,
+                                                    schedule=ChurnSchedule.parse(churn))
+        if scripted:
+            kw["sync_controller"] = ScriptedSyncController(0, switch)
+        run = SimulatedRun(cfg, tc, num_groups=ranks, device="cuda",
+                           params=copy.deepcopy(base), **kw)
+        hist = run.run(steps)
+        run.flush()
+        torch.cuda.synchronize()
+        loss = [h["loss"] for h in outs[0][i]["history"]]
+        loss_err = max(abs(a - b) for a, b in zip(loss, hist["train_loss"]))
+        p_err, bitwise = 0.0, True
+        for g in range(ranks):
+            mine = outs[g][i]["params"]
+            sim = [t.detach().cpu() for _, t in param_leaves(run.state.group_params[g])]
+            p_err = max(p_err, max(float((a - b).abs().max()) for a, b in zip(mine, sim)))
+            bitwise = bitwise and all(torch.equal(a, b) for a, b in zip(mine, sim))
+        syncs, _ = _syncs(tc, steps)
+        strategies = ([FlatFP32()] * 2 + [Int8Wire(8, 256)] * (syncs - 2) if scripted
+                      else [resolve_strategy(tc)] * syncs)
+        expect = _dist_window_expect(strategies, ranks, len(sd), cfg, steps)
+        launches = [o[i]["launches"] for o in outs]
+        # the flat windows mean Δθ in the Trainer and θ in the simulator (the
+        # reference's two orders), so a switched run is held to three int8
+        # quantization steps of its own residual scale where that is larger
+        res_max = (max(float(r.abs().max()) for r in run.state.outer.residual)
+                   if run.state.outer.residual is not None else 0.0)
+        limit = max(tol, 6 * res_max) if scripted else tol
+        line = {"phase": "train_dist_elastic_vs_sim", "case": name,
+                "strategy": outs[0][i]["strategy"], "config": "gpt2-xl width, 2 layers, "
+                                                              "float32",
+                "ranks": ranks, "sync_delay": delay, "churn": churn, "steps": steps,
+                "outer_syncs": syncs, "per_group_batch": per, "seq_len": seq,
+                "events": (_membership_lines(run.membership, syncs) if churn else None),
+                "decisions_rank0": outs[0][i]["decisions"], "loss_dist": loss,
+                "loss_sim": hist["train_loss"], "max_abs_loss_err": loss_err,
+                "max_abs_param_err": p_err, "limit": limit, "bitwise_equal": bitwise,
+                "launches_per_rank": launches, "expected_launches_per_rank": expect,
+                "backend": outs[0][i]["backend"], "world_seconds": t_dist}
+        emit(line)
+        if not scripted and not bitwise:
+            raise AssertionError(f"train_dist_elastic_vs_sim {name}: not bit for bit "
+                                 f"(loss err {loss_err}, param err {p_err})")
+        if loss_err > limit or p_err > limit:
+            raise AssertionError(f"train_dist_elastic_vs_sim {name}: loss err {loss_err}, "
+                                 f"param err {p_err} (limit {limit})")
+        if any(ln != expect for ln in launches):
+            raise AssertionError(f"train_dist_elastic_vs_sim {name}: launches {launches} != "
+                                 f"{expect} per rank")
+        seen.extend(launches)
+        del run
+        free_cuda(torch)
+    return seen
+
+
+def train_dist_auto(torch):
+    """Full GPT-2 medium, 2 ranks sharing the card, ``sync_delay="auto"``:
+    the measured controller, then the adaptive ladder, 12 steps of the
+    40-step schedule (accumulates after steps 1, 3; outer windows after
+    steps 5, 7, 9, 11: the sixth window closes the first measurement)."""
+    from repro_torch.config import ParallelConfig, TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import spawn, train_jobs
+
+    cfg = get_config("gpt2-medium")
+    G, per, seq, steps = 2, 2, 1024, 12
+    pc = ParallelConfig(data_axis_size=G, data_outer=G)
+    tc = TrainConfig(**TRAIN_TC, **TRAIN_LR, global_batch_size=G * per, seq_len=seq,
+                     sync_delay="auto")
+    val = _gpt2_medium_val(torch, cfg, seq)
+    jobs = [((cfg, tc, pc, steps), {"val_batch": val, "adaptive_sync": adaptive})
+            for adaptive in (False, True)]
+    t0 = time.perf_counter()
+    outs = spawn(train_jobs, (jobs,), nproc=G, device="cuda", timeout=DIST_DEADLINE_S)
+    wall = time.perf_counter() - t0
+    lines = []
+    for i, adaptive in enumerate((False, True)):
+        r0 = outs[0][i]
+        line = {"phase": "train_dist_auto",
+                "controller": "adaptive ladder" if adaptive else "measured",
+                "strategy": f"auto ({'adaptive' if adaptive else 'measured'}) -> "
+                            f"{r0['strategy']}",
+                "config": "gpt2-medium 24 layers, bf16 compute, fp32 params", "ranks": G,
+                "note": "2 ranks share one card: time-sliced contexts, not a two-GPU rate",
+                "steps": steps, "windows": r0["windows"], "final": r0["controller"],
+                "decisions": r0["decisions"], "final_strategy": r0["strategy"],
+                "final_sync_delay": r0["sync_delay"],
+                "loss": [h["loss"] for h in r0["history"]],
+                "val_loss_before": r0["val_loss_before"], "val_loss_after": r0["val_loss_after"],
+                "launches_per_rank": [o[i]["launches"] for o in outs],
+                "peak_mem_gb_per_rank": [o[i]["peak_mem_bytes"] / 1e9 for o in outs],
+                "wall_s": r0["wall_s"], "world_seconds": wall}
+        emit(line)
+        lines.append(line)
+        loss = line["loss"] + [line["val_loss_before"], line["val_loss_after"]]
+        if not all(math.isfinite(x) for x in loss):
+            raise AssertionError(f"train_dist_auto {line['controller']}: non-finite loss")
+        if not line["val_loss_after"] < line["val_loss_before"]:
+            raise AssertionError(f"train_dist_auto {line['controller']}: validation loss did "
+                                 f"not fall: {line['val_loss_before']} -> "
+                                 f"{line['val_loss_after']}")
+    return lines
+
+
+def train_dist_ckpt(torch, layers: int = 4):
+    """GPT-2 medium width at ``layers`` layers, 2 ranks sharing the card, int8-wire:
+    10 steps with outer-state offload; 6 steps without it and a save; a fresh run whose
+    ``rejoin_bootstrap="checkpoint"`` rejoin takes the saved step's anchor;
+    then a fresh world restores the checkpoint and runs to step 10 with
+    offload (bit for bit the uninterrupted run, which also shows that
+    offload changes no bit)."""
+    import numpy as np
+
+    from repro_torch.config import MembershipConfig, OuterCommConfig, ParallelConfig, TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import spawn, train_jobs
+
+    # full width; by default 4 of 24 layers: the checkpoint's bytes (2.6 GB a
+    # rank, not 8.6) are what takes the time, and the whole script has a
+    # time limit (``--ckpt-depth`` runs all 24)
+    cfg = get_config("gpt2-medium").replace(num_layers=layers)
+    G, per, seq, steps, at = 2, 2, 1024, 10, 6
+    pc = ParallelConfig(data_axis_size=G, data_outer=G)
+    tc = TrainConfig(**TRAIN_TC, **TRAIN_LR, global_batch_size=G * per, seq_len=seq,
+                     outer_comm=OuterCommConfig(compression="int8-wire"))
+    off = tc.replace(offload_outer_state=True)
+    donor_tc = off.replace(membership=MembershipConfig(rejoin_bootstrap="checkpoint"))
+    ck = ROOT / "build" / "ckpt_smoke"
+    shutil.rmtree(ck, ignore_errors=True)
+    free = shutil.disk_usage(ROOT).free
+    try:
+        t0 = time.perf_counter()
+        # the donor run starts afresh: group 1 sits out event 0 (step 5) and
+        # bootstraps right after its apply from the checkpoint saved before
+        first = spawn(train_jobs, ([((cfg, off, pc, steps), {"keep_params": True}),
+                                    ((cfg, tc, pc, at), {"checkpoint_dir": str(ck),
+                                                         "save": True}),
+                                    ((cfg, donor_tc, pc, 6),
+                                     {"keep_params": True, "checkpoint_dir": str(ck),
+                                      "churn": "drop:1@0,rejoin:1@1"})],),
+                      nproc=G, device="cuda", timeout=DIST_DEADLINE_S)
+        second = spawn(train_jobs, ([((cfg, off, pc, steps - at),
+                                      {"keep_params": True, "checkpoint_dir": str(ck),
+                                       "restore": True})],),
+                       nproc=G, device="cuda", timeout=DIST_DEADLINE_S)
+        wall = time.perf_counter() - t0
+        step_dir = ck / "rank00001" / f"step_{at:08d}"
+        with np.load(str(step_dir / "outer.npz")) as data:
+            saved = {k[len("anchor/"):]: torch.from_numpy(data[k])
+                     for k in data.files if k.startswith("anchor/")}
+        disk = sum(f.stat().st_size for f in ck.rglob("*") if f.is_file())
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    full, part, donor = ([o[i] for o in first] for i in range(3))
+    rest = [o[0] for o in second]
+    same = all(all(torch.equal(a, b) for a, b in zip(f["params"], r["params"]))
+               and all(torch.equal(a, b) for a, b in zip(f["residual"], r["residual"]))
+               for f, r in zip(full, rest))
+    loss_full = [h["loss"] for h in full[0]["history"]]
+    loss_resumed = [h["loss"] for h in part[0]["history"] + rest[0]["history"]]
+    names = [n.replace(".", "/") for n in donor[1]["param_names"]]
+    donor_ok = sorted(names) == sorted(saved) and all(
+        torch.equal(a, saved[n]) for a, n in zip(donor[1]["params"], names))
+    gb = 1e9
+    line = {"phase": "train_dist_ckpt",
+            "config": f"gpt2-medium width, {layers} layers, bf16 compute, fp32 params", "strategy": full[0]["strategy"],
+            "ranks": G, "steps": steps, "saved_at": at, "checkpoint_bytes_both_ranks": disk,
+            "disk_free_bytes_before": free,
+            "save_s_per_rank": [p["save_s"] for p in part],
+            "restore_s_per_rank": [r["restore_s"] for r in rest],
+            "peak_mem_gb_per_rank_offload": [f["peak_mem_bytes"] / gb for f in full],
+            "peak_mem_gb_per_rank_no_offload": [p["peak_mem_bytes"] / gb for p in part],
+            "resident_gb_per_rank_offload": [f["resident_bytes"] / gb for f in full],
+            "resident_gb_per_rank_no_offload": [p["resident_bytes"] / gb for p in part],
+            "resumed_with_offload_equals_uninterrupted": same,
+            "loss_uninterrupted": loss_full, "loss_resumed": loss_resumed,
+            "checkpoint_donor_bootstrap_equals_saved_anchor": donor_ok,
+            "wall_s_offload_10_steps": full[0]["wall_s"],
+            "wall_s_no_offload_6_steps": part[0]["wall_s"], "world_seconds": wall}
+    emit(line)
+    if not (same and loss_full == loss_resumed):
+        raise AssertionError("train_dist_ckpt: the resumed run is not the uninterrupted one")
+    if not donor_ok:
+        raise AssertionError("train_dist_ckpt: the checkpoint donor is not the saved anchor")
+    return line
+
+
+def elastic_phases(torch, counters):
+    """``elastic_vs_cpu`` and ``switch_vs_cpu`` (each card half, then the
+    CPU halves), then ``train_dist_elastic_vs_sim``. Returns the fp32 runs'
+    launches."""
+    with large_allocations_on_the_heap():
+        cases = elastic_vs_cpu(torch, counters) + switch_vs_cpu(torch, counters)
+        free_cuda(torch)
+        for _, finish in cases:
+            finish()
+    launches = [ln for ln, _ in cases] + train_dist_elastic_vs_sim(torch)
+    free_cuda(torch)
+    return launches
+
+
 # the CUDA-core flash kernels' entries of the kernels line (their counters
 # count the tensor-core launches too)
 CUDA_CORE_FLASH = ("flash_attention", "flash_attention_bwd")
@@ -2840,7 +3529,7 @@ CUDA_CORE_FLASH = ("flash_attention", "flash_attention_bwd")
 
 def main(argv) -> int:
     studies = {"--witness-lr", "--build-times", "--int8-kv-depth", "--flash-precision",
-               "--norm-quant"}
+               "--norm-quant", "--elastic", "--ckpt-depth"}
     if len(argv) > 1 or not set(argv) <= studies:
         print(f"usage: chip_smoke.py [{' | '.join(sorted(studies))}]", file=sys.stderr)
         return 2
@@ -2871,7 +3560,9 @@ def main(argv) -> int:
     emit({"phase": "build", "seconds": _build.build_seconds,
           "library": str(_build.library_path().relative_to(ROOT)),
           "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-          "torch": torch.__version__, "cuda": torch.version.cuda})
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "host_threads": {"torch": torch.get_num_threads(),
+                           "cores_usable": len(os.sched_getaffinity(0))}})
 
     counters = {"flash_attention": Counter(FK), "flash_attention_bwd": Counter(FK, "bwd_launches"),
                 "flash_attention_tc": Counter(FK, "tc_launches"),
@@ -2892,6 +3583,16 @@ def main(argv) -> int:
     if argv == ["--flash-precision"]:
         flash_precision(torch, counters)
         return 0
+    if argv == ["--elastic"]:
+        train_elastic(torch, counters)
+        free_cuda(torch)
+        elastic_phases(torch, counters)
+        train_dist_auto(torch)
+        train_dist_ckpt(torch)
+        return 0
+    if argv == ["--ckpt-depth"]:
+        train_dist_ckpt(torch, layers=24)
+        return 0
     results = {}
     timer = Timer(torch)
     if argv == ["--norm-quant"]:
@@ -2907,6 +3608,7 @@ def main(argv) -> int:
     check_pier_update(torch, timer, results)
     check_flash_bwd(torch, timer, results)
     check_rmsnorm(torch, timer, results)
+    check_adamw(torch, timer)
     del timer
     torch.cuda.empty_cache()
     check_ring(torch, results)
@@ -2956,11 +3658,16 @@ def main(argv) -> int:
     train_breakdown(torch, run, phase="train_qwen3_breakdown")
     del run
     free_cuda(torch)
-    trains = [train_line, compressed_line, qwen3_line]
+    elastic_line = train_elastic(torch, counters)
+    free_cuda(torch)
+    trains = [train_line, compressed_line, qwen3_line, elastic_line]
     runs = serves + trains
     fp32_runs += train_dist_vs_sim(torch)
     free_cuda(torch)
     dists = train_dist(torch)
+    fp32_runs += elastic_phases(torch, counters)
+    dists += train_dist_auto(torch)
+    train_dist_ckpt(torch)
 
     def count(launches, name):  # one run's launches of kernel `name`
         n = launches.get(name, 0)

@@ -1,7 +1,8 @@
 """Configuration of the PyTorch port.
 
 Copies of the reference package's ``ModelConfig``, ``ParallelConfig``,
-``OuterCommConfig`` and ``TrainConfig`` (``src/repro/config.py``), field for
+``OuterCommConfig``, ``MembershipConfig`` and ``TrainConfig``
+(``src/repro/config.py``), field for
 field and default for default (``ParallelConfig`` differs in three
 defaults, which its docstring names), so that a configuration means the
 same model and run in both packages (``tests/test_torch_model.py``,
@@ -15,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Optional, Tuple
+from typing import Optional, Tuple, Union
 
 
 @dataclass(frozen=True)
@@ -237,15 +238,48 @@ class OuterCommConfig:
 
 
 @dataclass(frozen=True)
+class MembershipConfig:
+    """Elastic outer-membership knobs (copy of ``repro/config.py:MembershipConfig``).
+
+    Present on ``TrainConfig.membership`` only when elastic membership is
+    asked for; ``None`` keeps the fixed-membership steps.
+    ``max_staleness``: a group that missed more than this many consecutive
+    post-warmup outer events is evicted (0: on the first miss).
+    ``min_live``: an outer event with fewer live groups is refused when the
+    membership controller is built. ``rejoin_bootstrap``: a rejoining
+    group's donor, ``"anchor"`` (the freshly installed anchor) or
+    ``"checkpoint"`` (the latest complete checkpoint when a manager is
+    attached, else the anchor).
+    """
+
+    max_staleness: int = 1
+    min_live: int = 1
+    rejoin_bootstrap: str = "anchor"  # anchor | checkpoint
+
+    def __post_init__(self):
+        if self.max_staleness < 0:
+            raise ValueError(f"max_staleness must be >= 0, got {self.max_staleness}")
+        if self.min_live < 1:
+            raise ValueError(f"min_live must be >= 1, got {self.min_live}")
+        if self.rejoin_bootstrap not in ("anchor", "checkpoint"):
+            raise ValueError(f"rejoin_bootstrap must be 'anchor' or 'checkpoint', "
+                             f"got {self.rejoin_bootstrap!r}")
+
+    def replace(self, **kw) -> "MembershipConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
 class TrainConfig:
     """Optimization hyperparameters (copy of ``repro/config.py:TrainConfig``).
 
     Field for field and default for default the reference's, so that a
     configuration means the same run in both packages
     (``tests/test_torch_outer.py`` checks it). Left out: the deprecated
-    flat outer-comm spellings (``outer_compression`` ...) and
-    ``sync_delay="auto"``, which the reference's launcher resolves from a
-    step-time model the port does not have; ``sync_delay`` is an int here.
+    flat outer-comm spellings (``outer_compression`` ...).
+    ``sync_delay="auto"`` must be resolved to an int before a schedule runs
+    (``launch/train.py:resolve_auto_sync_delay``, or the Trainer's sync
+    controller).
     """
 
     optimizer: str = "pier"  # pier | diloco | adamw
@@ -271,10 +305,11 @@ class TrainConfig:
     # ---- Pier / DiLoCo outer optimizer ----
     sync_interval: int = 50  # r / H in the paper
     # the averaged Δθ dispatched at sync step t is applied at t + sync_delay
-    # (0 = eager); must be < sync_interval
-    sync_delay: int = 0
+    # (0 = eager); must be < sync_interval. "auto": resolved at start-up
+    sync_delay: Union[int, str] = 0
     outer_comm: Optional[OuterCommConfig] = None  # None -> all defaults
-    membership: Optional[Any] = None  # elastic membership: not ported
+    # elastic membership: None keeps fixed membership
+    membership: Optional[MembershipConfig] = None
     warmup_frac: float = 0.10  # p: lazy-start proportion
     outer_optimizer: str = "nesterov_torch"  # nesterov_torch | nesterov_classic | sgd
     outer_momentum: float = 0.9  # terminal mu
@@ -303,10 +338,12 @@ class TrainConfig:
 
     def __post_init__(self):
         object.__setattr__(self, "outer_comm", self.outer_comm or OuterCommConfig())
+        if isinstance(self.sync_delay, str):
+            if self.sync_delay != "auto":
+                raise ValueError(f"sync_delay must be an int or 'auto', got {self.sync_delay!r}")
+            return
         if not isinstance(self.sync_delay, int) or isinstance(self.sync_delay, bool):
-            raise ValueError(
-                f"sync_delay must be an int (the port has no 'auto'), "
-                f"got {self.sync_delay!r}")
+            raise ValueError(f"sync_delay must be an int or 'auto', got {self.sync_delay!r}")
         if self.sync_delay < 0:
             raise ValueError(f"sync_delay must be >= 0, got {self.sync_delay}")
         if self.sync_delay >= self.sync_interval:

@@ -42,9 +42,25 @@ What differs from the reference, and why:
 Every outer strategy of ``repro_torch.sync`` runs, from the config
 (``OuterCommConfig``: quantize, int8-wire, rs-ag, hierarchical with
 ``num_pods``, chunks) or injected: on CUDA leaves every blockwise quantize
-and dequantize launches its kernel. Not ported (they raise
-``NotImplementedError``): ``Sharded``, sync controllers (and with them
-``switch_strategy``), elastic membership and checkpoint managers.
+and dequantize launches its kernel. ``Sharded`` is not ported and raises
+``NotImplementedError``.
+
+As in the reference:
+
+- an optional :class:`~repro_torch.sync.SyncController` is consulted after
+  every outer dispatch (``tick_window``, then ``current_decision``): a
+  strategy decision flushes the window and re-plans
+  (:meth:`SimulatedRun.switch_strategy`), a delay decision rebuilds the
+  schedule; the in-flight window keeps its stored ``apply_step``;
+- elastic membership (a :class:`~repro_torch.sync.MembershipController`,
+  or ``TrainConfig.membership`` for full membership through the same
+  path) weighs each outer dispatch by its event's record, applies the
+  target only on the live groups (an absent group's parameters, and its
+  dispatch-time snapshot, are left alone; the shared outer state moves on)
+  and bootstraps rejoining groups right after the apply, from the anchor
+  or, with ``rejoin_bootstrap="checkpoint"``, the latest complete
+  checkpoint of ``checkpoint_manager``: fresh AdamW state, zeroed residual
+  rows. Membership with a chunked plan raises, as in the reference.
 """
 
 from __future__ import annotations
@@ -65,9 +81,18 @@ from repro_torch.models import registry as R
 from repro_torch.models.layers import torch_dtype
 from repro_torch.models.transformer import param_leaves
 from repro_torch.optim.adamw import adamw_init, adamw_update, clone_state
+from repro_torch.sync.membership import MembershipController
 from repro_torch.optim.clip import clip_by_global_norm
 from repro_torch.optim.schedules import lr_at
 from repro_torch.sync import PORTED, resolve_strategy, validate_pod_grouping
+
+
+def _check_ported(strategy) -> None:
+    if not isinstance(strategy, PORTED):
+        raise NotImplementedError(
+            f"SimulatedRun: outer strategy {type(strategy).__name__} is not one the port "
+            f"runs ({', '.join(c.__name__ for c in PORTED)}); Sharded is ROADMAP.md queue "
+            f"1, item 10")
 
 
 @dataclass
@@ -90,22 +115,25 @@ class SimulatedRun:
                  device="cuda", params=None):
         """``params``: initial parameters in training storage (for example
         ``convert.params_from_jax(..., training=True)``); by default they
-        are made from ``seed`` on ``device``."""
+        are made from ``seed`` on ``device``. ``membership``: a
+        ``MembershipController`` over ``num_groups``; ``checkpoint_manager``:
+        the donor of a ``rejoin_bootstrap="checkpoint"`` rejoin."""
         if tc.optimizer != "adamw" and num_groups < 1:
             raise ValueError(f"num_groups must be >= 1, got {num_groups}")
         validate_pod_grouping(num_groups, num_pods)
-        for name, arg in (("sync_controller", sync_controller),
-                          ("membership", membership),
-                          ("checkpoint_manager", checkpoint_manager),
-                          ("TrainConfig.membership", tc.membership)):
-            if arg is not None:
-                raise NotImplementedError(f"SimulatedRun: {name} is not ported yet")
+        if not isinstance(tc.sync_delay, int):
+            raise ValueError("sync_delay='auto' must be resolved before simulation "
+                             "(launch/train.py:resolve_auto_sync_delay)")
         self.strategy = strategy if strategy is not None else resolve_strategy(tc)
-        if not isinstance(self.strategy, PORTED):
-            raise NotImplementedError(
-                f"SimulatedRun: outer strategy {type(self.strategy).__name__} is not one "
-                f"the port runs ({', '.join(c.__name__ for c in PORTED)}); Sharded is "
-                f"ROADMAP.md queue 1, item 10")
+        _check_ported(self.strategy)
+        if membership is None and tc.membership is not None:
+            membership = MembershipController(num_groups, cfg=tc.membership)
+        if membership is not None and membership.num_groups != num_groups:
+            raise ValueError(f"membership controller tracks {membership.num_groups} groups "
+                             f"but the run has {num_groups}")
+        self.sync_controller = sync_controller
+        self.membership = membership
+        self.ckpt = checkpoint_manager
         self.mc, self.tc = mc, tc
         self.G = num_groups
         self.P = max(num_pods, 1)
@@ -126,6 +154,10 @@ class SimulatedRun:
         # the plan's spans install per span at apply; it also says whether
         # the outer state carries error-feedback residuals
         self.plan = self.strategy.plan(tensors, tc)
+        if membership is not None and self.plan.num_chunks > 1:
+            raise NotImplementedError(
+                "elastic membership does not compose with chunked dispatch yet (per-chunk "
+                "weighted applies are a recorded follow-up): drop chunking or membership")
         self.state = SimState(
             params=params, group_params=None, opt=adamw_init(leaves, tc),
             outer=outer_init(tensors, tc, num_groups=num_groups,
@@ -139,6 +171,9 @@ class SimulatedRun:
         # (apply_at_step, "outer", target, snapshots) or
         # (apply_at_step, "accumulate", pending_outer, None)
         self._inflight = None
+        # the EventMembership record of an in-flight outer dispatch (None
+        # without membership): its apply's live mask and bootstraps
+        self._inflight_member = None
 
     # ------------------------------------------------------------ steps
     # Instance attributes, as the reference's jitted steps are, so that a
@@ -168,17 +203,20 @@ class SimulatedRun:
     def _accumulate(self, mu):
         return warmup_reduce(self.state.outer, _tensors(self.state.params), mu)
 
-    def _dispatch(self, mu, lr):
+    def _dispatch(self, mu, lr, weights=None):
         st = self.state
         return self.strategy.sim_dispatch(
             [_tensors(g) for g in st.group_params], st.outer, self.tc, mu=mu, lr=lr,
-            num_pods=self.P, inplace=self._inplace_outer)
+            num_pods=self.P, weights=weights, inplace=self._inplace_outer)
 
-    def _apply(self, target, snapshots):
-        """Install the target on every group, span by span (a chunked plan's
+    def _apply(self, target, snapshots, live=None):
+        """Install the target on every group (on the ``live`` ones only,
+        when a membership mask is given), span by span (a chunked plan's
         per-chunk applies; the correction is per leaf, so any span order
         gives the same numbers)."""
-        for gp, snap in zip(self.state.group_params, snapshots):
+        for g, (gp, snap) in enumerate(zip(self.state.group_params, snapshots)):
+            if live is not None and not live[g]:
+                continue  # an absent group keeps its stale parameters
             cur = _tensors(gp)
             for lo, hi in self.plan.spans:
                 outer_apply(target[lo:hi], snap[lo:hi], cur[lo:hi])
@@ -240,8 +278,14 @@ class SimulatedRun:
                     snapshots = [
                         [t.detach().clone() for t in _tensors(g)] if ev.apply_step > step
                         else _tensors(g) for g in st.group_params]
-                    target, st.outer = self._dispatch(mu, sched.outer_lr_at(step))
+                    rec = None
+                    if self.membership is not None:
+                        rec = self.membership.at(sched.outer_index(step))
+                    target, st.outer = self._dispatch(
+                        mu, sched.outer_lr_at(step), None if rec is None else rec.weights)
                     self._inflight = (ev.apply_step, "outer", target, snapshots)
+                    self._inflight_member = rec
+                    self._consult_controller()
             if self._inflight is not None and self._inflight[0] <= step:
                 self._apply_inflight()
             hist["step"].append(step)
@@ -260,12 +304,93 @@ class SimulatedRun:
             return
         st = self.state
         _, op, target, snapshots = self._inflight
+        rec, self._inflight_member = self._inflight_member, None
         self._inflight = None
         if op == "accumulate":
             st.outer = warmup_apply(target)
             return
-        self._apply(target, snapshots)
-        st.params = st.group_params[0]
+        if rec is None:
+            self._apply(target, snapshots)
+            st.params = st.group_params[0]
+            return
+        # elastic apply: the live groups install the target, then the groups
+        # rejoining at the next event bootstrap off the new anchor
+        self._apply(target, snapshots, rec.apply_live)
+        st.params = st.group_params[rec.apply_live.index(True)]
+        for g in rec.bootstrap_after_apply:
+            self._bootstrap_group(g)
+
+    @torch.no_grad()
+    def _bootstrap_group(self, g: int):
+        """Rejoin bootstrap, right after an event's apply: group ``g``'s
+        replica takes the donor's parameters (the freshly installed anchor,
+        which is the applied target; or the latest complete checkpoint's
+        ``params`` when ``rejoin_bootstrap="checkpoint"`` and a manager is
+        attached), fresh AdamW state and zeroed residual rows."""
+        st = self.state
+        donor = None
+        if (self.membership.cfg.rejoin_bootstrap == "checkpoint"
+                and self.ckpt is not None):
+            latest = self.ckpt.latest_step()
+            if latest is not None:
+                trees, _ = self.ckpt.restore(latest, {"params": st.group_params[g]})
+                donor = list(trees["params"].values())
+        if donor is None:
+            donor = st.outer.anchor
+        leaves = param_leaves(st.group_params[g])
+        for (_, p), d in zip(leaves, donor):
+            p.copy_(d)
+        st.opt[g] = adamw_init(leaves, self.tc)
+        for res in (st.outer.residual, st.outer.residual2):
+            for r in res or ():
+                r[g].zero_()
+
+    # ------------------------------------------------------------ controllers
+    def switch_strategy(self, strategy):
+        """Adopt a new outer strategy mid-run: flush the in-flight window
+        (it installs through the old plan), re-plan, and retarget the
+        residuals: zeros of shape ``(G, *leaf)`` where the new plan needs
+        them and the state lacks them (the first sync's semantics), dropped
+        where it does not. Momentum, anchor and ``num_syncs`` carry over."""
+        if strategy == self.strategy:
+            return
+        _check_ported(strategy)
+        self.flush()
+        self.strategy = strategy
+        st = self.state
+        tensors = _tensors(st.params)
+        self.plan = strategy.plan(tensors, self.tc)
+
+        def zeros():
+            return [torch.zeros((self.G, *t.shape), dtype=torch.float32, device=t.device)
+                    for t in tensors]
+
+        outer = st.outer
+        for field, need in (("residual", self.plan.needs_residual),
+                            ("residual2", self.plan.needs_residual2)):
+            have = getattr(outer, field) is not None
+            if need and not have:
+                outer = outer._replace(**{field: zeros()})
+            elif have and not need:
+                outer = outer._replace(**{field: None})
+        st.outer = outer
+
+    def _consult_controller(self):
+        """One controller round after an outer dispatch (as the Trainer's):
+        tick the window, then adopt the decision: the strategy first (it
+        flushes the window just dispatched), then the clamped delay for the
+        following windows, which rebuilds the schedule."""
+        ctrl = self.sync_controller
+        if ctrl is None:
+            return
+        ctrl.tick_window()
+        dec = ctrl.current_decision()
+        if dec.strategy is not None and dec.strategy != self.strategy:
+            self.switch_strategy(dec.strategy)
+        d = dec.clamped_delay(self.tc.sync_interval)
+        if d != self.tc.sync_delay:
+            self.tc = self.tc.replace(sync_delay=d)
+            self.sched = PierSchedule(self.tc)
 
     def flush(self):
         """Apply an in-flight dispatch early (end-of-run drain)."""

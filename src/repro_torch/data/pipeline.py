@@ -42,17 +42,18 @@ class DataPipeline:
     """Iterator of this rank's training batches.
 
     ``make_batch(step)`` gives the global batch (a dict of CPU tensors,
-    dim 0 the batch); ``PREFETCH`` batches are made ahead on a thread, up
-    to step ``stop`` (exclusive) when it is given.
+    dim 0 the batch); ``PREFETCH`` batches are made ahead on a thread, from
+    step ``start`` up to step ``stop`` (exclusive) when it is given.
     """
 
     def __init__(self, make_batch: Callable[[int], Dict[str, torch.Tensor]], *, rank: int,
-                 world: int, device, stop: Optional[int] = None):
+                 world: int, device, stop: Optional[int] = None, start: int = 0):
         self.make_batch = make_batch
         self.rank, self.world = rank, world
         self.device = torch.device(device)
         self._q: queue.Queue = queue.Queue(maxsize=PREFETCH)
         self._end = stop
+        self._start = start
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._producer, daemon=True)
         self._thread.start()
@@ -62,7 +63,7 @@ class DataPipeline:
         return {k: v[rank_rows(v.shape[0], self.rank, self.world)] for k, v in batch.items()}
 
     def _producer(self):
-        step = 0
+        step = self._start
         while not self._stop.is_set() and (self._end is None or step < self._end):
             item = self.local(self.make_batch(step))
             while not self._stop.is_set():
@@ -97,7 +98,7 @@ def global_batch_fn(mc: ModelConfig, tc: TrainConfig):
 
 
 def synthetic_pipeline(mc: ModelConfig, tc: TrainConfig, *, rank: int, world: int, device,
-                       stop: Optional[int] = None) -> DataPipeline:
+                       stop: Optional[int] = None, start: int = 0) -> DataPipeline:
     """The MarkovLM pipeline of {"tokens", "labels"} batches for this rank."""
     return DataPipeline(global_batch_fn(mc, tc), rank=rank, world=world, device=device,
-                        stop=stop)
+                        stop=stop, start=start)

@@ -224,10 +224,14 @@ def scatter_wire(slot_pairs, ex: Exchange, *, bits: int
 
 def ring_allreduce_quantized_many(qs, ex: Exchange, *, bits: int, block: int,
                                   weights=None) -> List[torch.Tensor]:
-    """:func:`ring_allreduce_quantized` over several leaves, one launch."""
-    W.no_weights(weights)
+    """:func:`ring_allreduce_quantized` over several leaves, one launch.
+    ``weights``: the members' participation weights in canonical source
+    order (elastic membership), or ``None``."""
+    if weights is not None:  # one copy to the card for every leaf
+        weights = torch.as_tensor(weights, dtype=torch.float32, device=qs[0][1].device)
     gathered = gather_wire([(W.pack_wire(q, bits), s) for q, s in qs], ex, bits=bits)
-    return [W.dequant_sum_sources(wg, sg, bits=bits, block=block) for wg, sg in gathered]
+    return [W.dequant_sum_sources(wg, sg, bits=bits, block=block, weights=weights)
+            for wg, sg in gathered]
 
 
 def ring_allreduce_quantized(q: torch.Tensor, s: torch.Tensor, ex: Exchange, *, bits: int,
@@ -241,12 +245,15 @@ def ring_allreduce_quantized(q: torch.Tensor, s: torch.Tensor, ex: Exchange, *, 
 
 def reduce_scatter_qs_many(qs, ex: Exchange, *, bits: int, block: int,
                            weights=None) -> List[torch.Tensor]:
-    """:func:`reduce_scatter_qs` over several leaves, one launch."""
-    W.no_weights(weights)
+    """:func:`reduce_scatter_qs` over several leaves, one launch
+    (``weights`` as in :func:`ring_allreduce_quantized_many`)."""
+    if weights is not None:
+        weights = torch.as_tensor(weights, dtype=torch.float32, device=qs[0][1].device)
     E = ex.size
     slots = [W.shard_slot_wire(q, s, bits=bits, block=block, endpoints=E) for q, s in qs]
     got = scatter_wire(slots, ex, bits=bits)
-    return [W.dequant_sum_sources(wg, sg, bits=bits, block=block) for wg, sg in got]
+    return [W.dequant_sum_sources(wg, sg, bits=bits, block=block, weights=weights)
+            for wg, sg in got]
 
 
 def reduce_scatter_qs(q: torch.Tensor, s: torch.Tensor, ex: Exchange, *, bits: int,

@@ -13,8 +13,9 @@ The reference's order of operations is kept exactly, so the results agree
 bit for bit: sources are summed in canonical order (row 0 first) from a
 zero accumulator and the sum is multiplied by ``np.float32(1/E)``; rs/ag
 slots are padded with zero blocks and each slot is packed on its own.
-Elastic-membership ``weights`` are not ported (ROADMAP.md queue 1, item 9)
-and raise ``NotImplementedError``.
+Elastic-membership ``weights`` scale each source's dequantized payload
+before the sum and normalise by ``1/Σw`` (DESIGN.md §11), in the
+reference's order too.
 """
 
 from __future__ import annotations
@@ -26,12 +27,6 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
-
-
-def no_weights(weights) -> None:
-    if weights is not None:
-        raise NotImplementedError(
-            "elastic-membership weights are not ported yet (ROADMAP.md queue 1, item 9)")
 
 
 def aligned_block_count(n: int, block: int, align: int = 1) -> int:
@@ -79,14 +74,27 @@ def dequant_sum_sources(wg: torch.Tensor, sg: torch.Tensor, *, bits: int, block:
     rounded once to fp32. Eager PyTorch contracts nothing, so each partial
     is added as it is made instead of being stacked first (the reference
     stacks them to keep XLA from fusing the add into the multiply).
+
+    ``weights``: optional (E,) participation weights (elastic membership).
+    Each dequantized payload is multiplied by its weight before it is
+    added (a separate operation: ``x · 1.0`` is exact), and the sum by
+    ``1/Σw``, an fp32 division (0 when every weight is 0). At all-ones
+    weights that reciprocal is ``1/E`` rounded once, so the result is the
+    unweighted one bit for bit.
     """
-    no_weights(weights)
     E, nb = sg.shape
     nq = nb * block
-    acc = torch.zeros((nq,), dtype=torch.float32, device=sg.device)
+    dev = sg.device
+    w = None if weights is None else torch.as_tensor(weights, dtype=torch.float32,
+                                                     device=dev).reshape(E)
+    acc = torch.zeros((nq,), dtype=torch.float32, device=dev)
     for j in range(E):
-        acc.add_(kops.dequantize_blockwise(unpack_wire(wg[j], bits, nq), sg[j], block=block))
-    return acc.mul_(torch.tensor(np.float32(1.0 / E), device=acc.device))
+        p = kops.dequantize_blockwise(unpack_wire(wg[j], bits, nq), sg[j], block=block)
+        acc.add_(p if w is None else p * w[j])
+    if w is None:
+        return acc.mul_(torch.tensor(np.float32(1.0 / E), device=dev))
+    sw = w.sum()
+    return acc.mul_(torch.where(sw > 0, torch.ones_like(sw) / sw, torch.zeros_like(sw)))
 
 
 def _pack_rows(q: torch.Tensor, bits: int) -> torch.Tensor:

@@ -135,6 +135,18 @@ def make_pier_mesh(pc: ParallelConfig, *, device: torch.device) -> PierMesh:
 # ---------------------------------------------------------------------------
 
 
+def _split(flat, shapes):
+    """A flat buffer back into tensors of ``shapes`` (views, in order)."""
+    out, off = [], 0
+    for shape in shapes:
+        n = 1
+        for d in shape:
+            n *= int(d)
+        out.append(flat[off:off + n].view(shape))
+        off += n
+    return out
+
+
 class MeanWork:
     """An fp32 mean over a process group, started asynchronously.
 
@@ -164,15 +176,46 @@ class MeanWork:
         if self._work is not None:
             self._work.wait()
             self._buf.div_(self.size)
-        flat = self._buf.to(self.device)
-        out, off = [], 0
-        for shape in self.shapes:
-            n = 1
-            for d in shape:
-                n *= int(d)
-            out.append(flat[off:off + n].view(shape))
-            off += n
-        return out
+        return _split(self._buf.to(self.device), self.shapes)
+
+
+class WeightedMeanWork(MeanWork):
+    """``psum(d·w) · (1/psum(w))`` over a process group, started
+    asynchronously: the elastic-membership mean
+    (``repro/sync/base.py:weighted_psum_mean``).
+
+    ``weight`` is this member's participation weight; it rides at the end
+    of the flattened ``d·w`` buffer, so a tree takes one collective. The
+    products are separate fp32 operations, and the reciprocal of the weight
+    sum is an fp32 division (0 when the sum is 0), so at weight 1 on every
+    member the result is the plain mean's wherever ``1/size`` is exact.
+    A group of one still scales and normalises, as the reference's
+    size-one axis does.
+    """
+
+    def __init__(self, tensors, weight, group, size: int):
+        self.shapes = [t.shape for t in tensors]
+        self.size = size
+        flat = torch.cat([t.reshape(-1).float() for t in tensors]) if tensors else \
+            torch.zeros(0)
+        w = torch.full((1,), float(weight), dtype=torch.float32, device=flat.device)
+        self.device = flat.device
+        self._buf = torch.cat([flat * w, w])
+        self._work = None
+        if size > 1:
+            stage = flat.device.type == "cuda" and dist.get_backend(group) == "gloo"
+            if stage:
+                self._buf = self._buf.cpu()
+            self._work = dist.all_reduce(self._buf, group=group, async_op=True)
+
+    def wait(self):
+        if self._work is not None:
+            self._work.wait()
+            self._work = None
+        buf = self._buf.to(self.device)
+        sw = buf[-1]
+        inv = torch.where(sw > 0, torch.ones_like(sw) / sw, torch.zeros_like(sw))
+        return _split(buf[:-1] * inv, self.shapes)
 
 
 def mean_(tensors, group, size: int) -> None:

@@ -80,14 +80,25 @@ def adamw_update(grads, state: AdamWState, leaves, tc: TrainConfig, lr) -> AdamW
     c1 = one - torch.pow(b1, cf)
     c2 = one - torch.pow(b2, cf)
     for (name, p), g, m, v in zip(leaves, grads, state.mu, state.nu):
-        gf = g.float()
-        mf = b1 * m.float() + omb1 * gf
-        vf = b2 * v.float() + omb2 * (gf * gf)
-        m.copy_(mf)
-        v.copy_(vf)
-        step = (mf / c1) / (torch.sqrt(vf / c2) + eps)
-        del mf, vf
+        # each operation rounded once in fp32, written through two fp32
+        # temporaries: fp32 moments and parameters are updated in place
+        # (.float() is then the tensor itself); narrower ones are read into
+        # fp32 copies and stored back rounded (the step reads the fp32 ones)
+        gf, mf, vf, pf = (x.float() for x in (g, m, v, p))
+        t = torch.mul(omb1, gf)
+        mf.mul_(b1).add_(t)
+        torch.mul(gf, gf, out=t)
+        t.mul_(omb2)
+        vf.mul_(b2).add_(t)
+        for store, f in ((m, mf), (v, vf)):
+            if store is not f:
+                store.copy_(f)
+        torch.div(vf, c2, out=t)
+        t.sqrt_().add_(eps)
+        step = torch.div(mf, c1).div_(t)
         if decay_mask(name):
-            step = step + wd * p.float()
-        p.copy_(p.float() - lr_t * step)
+            step.add_(torch.mul(wd, pf, out=t))
+        pf.sub_(step.mul_(lr_t))
+        if p is not pf:
+            p.copy_(pf)
     return state

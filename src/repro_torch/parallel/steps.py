@@ -30,6 +30,17 @@ residual (``(1, *leaf)``). The steps run eagerly and update in place:
 - ``outer_step``: dispatch and apply at once (``sync_delay == 0``);
 - ``eval_step``: the loss, meaned over the world.
 
+Elastic membership (the reference's ``elastic_*`` steps): ``dispatch_step``
+and ``outer_step`` take the event's participation ``weights`` (the
+strategy reduces with ``ReduceCtx.weights``, this group's own entry as
+``ReduceCtx.weight``), and ``apply_step`` / ``outer_step`` a ``live`` flag:
+an absent group's rank runs the outer update (the shared outer state moves
+on) but leaves its parameters alone. ``bootstrap_group`` resets group
+``g``'s rank to a donor (fresh AdamW state, zeroed residual rows) and
+``init_residual`` gives a zero residual for a strategy switch.
+``init_wire`` maps the wire's symmetric buffer; a bundle built mid-run (a
+strategy switch) calls it on every rank at the same window.
+
 The serve steps run without autograd on one device.
 """
 
@@ -148,11 +159,17 @@ class StepBundle:
     eval_step: Callable
     close: Callable
 
-    def outer_step(self, state: TrainState, outer: OuterState, mu, olr) -> OuterState:
+    init_residual: Callable
+    init_wire: Callable
+    bootstrap_group: Callable
+
+    def outer_step(self, state: TrainState, outer: OuterState, mu, olr, *, weights=None,
+                   live: bool = True) -> OuterState:
         """Dispatch and apply at once (``sync_delay == 0``): the target
         installs on the live parameters, whose drift is zero."""
         return self.apply_step(state, outer,
-                               self.dispatch_step(state, outer, mu, olr, snapshot=False))
+                               self.dispatch_step(state, outer, mu, olr, snapshot=False,
+                                                  weights=weights), live=live)
 
 
 def _exchange(pg, ranks, rank) -> Exchange:
@@ -216,18 +233,29 @@ def build_train_steps(mc: ModelConfig, tc: TrainConfig, pc: ParallelConfig, mesh
                              f"({mc.param_dtype}, requires_grad); not so: {bad[:3]}")
         return TrainState(params=p, opt=adamw_init(leaves, tc))
 
-    def init_outer(state: TrainState) -> OuterState:
+    def init_wire(state: TrainState) -> None:
+        """Map the int8 wire's symmetric buffer (collective over the wire's
+        exchange: every member calls it at the same point)."""
         nonlocal symm
         tensors = [t for _, t in param_leaves(state.params)]
-        plan = strategy.plan(tensors, tc)
         if (dev.type == "cuda" and isinstance(core, Int8Wire) and wire_ex.size > 1
                 and symm is None):
             symm = SymmBuffer(wire_ex.group, wire_ex.size, wire_ex.index,
                               _wire_capacity(strategy, [t.shape for t in tensors], wire_ex.size),
                               dev)
             wire_ex.symm = symm
+
+    def init_outer(state: TrainState) -> OuterState:
+        tensors = [t for _, t in param_leaves(state.params)]
+        plan = strategy.plan(tensors, tc)
+        init_wire(state)
         return outer_init(tensors, tc, num_groups=1, needs_residual=plan.needs_residual,
                           needs_residual2=plan.needs_residual2)
+
+    def init_residual(state: TrainState) -> List[torch.Tensor]:
+        """A zero residual, this rank's (1, *leaf) row per leaf."""
+        return [torch.zeros((1, *t.shape), dtype=torch.float32, device=t.device)
+                for _, t in param_leaves(state.params)]
 
     # ---- the inner / warmup body -----------------------------------------
     def grads_and_loss(p, batch):
@@ -275,9 +303,16 @@ def build_train_steps(mc: ModelConfig, tc: TrainConfig, pc: ParallelConfig, mesh
     # ---- outer events -----------------------------------------------------
     side = torch.cuda.Stream(device=dev) if dev.type == "cuda" else None
 
+    def member_ctx(weights) -> ReduceCtx:
+        if weights is None:
+            return ctx
+        w = [float(x) for x in weights]  # in group order: the exchange's source order
+        return ctx.with_membership(w, w[mesh.group_index])
+
     @torch.no_grad()
     def dispatch_step(state: TrainState, outer: OuterState, mu, olr, *,
-                      snapshot: bool) -> DispatchState:
+                      snapshot: bool, weights=None) -> DispatchState:
+        rctx = member_ctx(weights)
         cur = [t for _, t in param_leaves(state.params)]
         deltas = [p.float() - a.float() for p, a in zip(cur, outer.anchor)]
         snap = [t.detach().clone() for t in cur] if snapshot else cur
@@ -287,18 +322,23 @@ def build_train_steps(mc: ModelConfig, tc: TrainConfig, pc: ParallelConfig, mesh
             if outer.residual2 is not None:
                 res = [(r1, r2[0]) for r1, r2 in zip(res, outer.residual2)]
         if side is None:
-            pending = strategy.reduce_leaves(deltas, res, tc, ctx)
+            pending = strategy.reduce_leaves(deltas, res, tc, rctx)
             return DispatchState(pending, snap, mu, olr)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            pending = strategy.reduce_leaves(deltas, res, tc, ctx)
+            pending = strategy.reduce_leaves(deltas, res, tc, rctx)
             event = side.record_event()
         for d in deltas:  # made on the main stream, read on the side stream
             d.record_stream(side)
+        for r in (outer.residual or []) + (outer.residual2 or []):
+            r.record_stream(side)  # an offloaded state frees them before the side reads
         return DispatchState(pending, snap, mu, olr, event, symm)
 
     @torch.no_grad()
-    def apply_step(state: TrainState, outer: OuterState, d: DispatchState) -> OuterState:
+    def apply_step(state: TrainState, outer: OuterState, d: DispatchState, *,
+                   live: bool = True) -> OuterState:
+        """Finish the exchange, run the outer update and, on a ``live``
+        group, install the target (an absent group's snapshot goes unused)."""
         if d.event is not None:
             torch.cuda.current_stream(dev).wait_event(d.event)
             if d.symm is not None:
@@ -313,7 +353,25 @@ def build_train_steps(mc: ModelConfig, tc: TrainConfig, pc: ParallelConfig, mesh
                     outer.residual2[i][0].copy_(r2)
         targets, outer = outer_reduce(outer, payloads, tc, mu=d.mu, lr=d.lr,
                                       inplace=tc.opt_state_dtype == "float32")
-        outer_apply(targets, d.snapshot, [t for _, t in param_leaves(state.params)])
+        if live:
+            outer_apply(targets, d.snapshot, [t for _, t in param_leaves(state.params)])
+        return outer
+
+    @torch.no_grad()
+    def bootstrap_group(state: TrainState, outer: OuterState, g: int, donor) -> OuterState:
+        """Rejoin bootstrap of group ``g``: on its ranks the parameters take
+        the ``donor`` leaves, AdamW starts afresh (count 0, zero moments) and
+        the residual rows are zeroed; other ranks are untouched."""
+        if mesh.group_index != g:
+            return outer
+        for (_, p), dn in zip(param_leaves(state.params), donor):
+            p.copy_(dn)
+        state.opt.count.zero_()
+        for m in state.opt.mu + state.opt.nu:
+            m.zero_()
+        for res in (outer.residual, outer.residual2):
+            for r in res or ():
+                r.zero_()
         return outer
 
     @torch.no_grad()
@@ -330,4 +388,5 @@ def build_train_steps(mc: ModelConfig, tc: TrainConfig, pc: ParallelConfig, mesh
                       inner_step=inner_step, warmup_step=warmup_step,
                       accumulate_step=accumulate_step, dispatch_step=dispatch_step,
                       apply_step=apply_step,
-                      eval_step=eval_step, close=close)
+                      eval_step=eval_step, close=close, init_residual=init_residual,
+                      init_wire=init_wire, bootstrap_group=bootstrap_group)

@@ -13,6 +13,13 @@ one kernel launch), finished by :meth:`PendingReduce.wait`.
 The port works one leaf at a time where the reference maps over the whole
 tree, so that the temporaries of a dispatch (the G deltas, the quantized
 payloads, the new residuals) are one leaf's size.
+
+Elastic membership (``sync/membership.py``) reaches the reductions as
+participation ``weights`` in canonical source order:
+:func:`weighted_stack_mean` in the simulator, ``ReduceCtx.weights`` /
+``ReduceCtx.weight`` in the Trainer (:func:`weighted_psum_mean`).
+:meth:`OuterSyncStrategy.make_sync_controller` is the ``sync_delay="auto"``
+hook.
 """
 
 from __future__ import annotations
@@ -26,7 +33,6 @@ import torch
 
 from repro_torch.core.outer import OuterState, outer_reduce_leaves
 from repro_torch.kernels.symm import Exchange
-from repro_torch.kernels.wire import no_weights
 
 
 class SyncPlan(NamedTuple):
@@ -59,17 +65,19 @@ class ReduceCtx:
     source order. ``fast`` and ``slow`` split it by pod for the
     hierarchical reduce (:meth:`narrowed` moves to the slow stage). The
     reference's axis names, sizes and coordinates become the exchange's
-    process group, its size and this rank's index. Elastic ``weights`` are
-    not ported (ROADMAP.md queue 1, item 9) and raise.
+    process group, its size and this rank's index.
+
+    Elastic membership: ``weights`` is the participation vector in the
+    exchange's canonical source order (a list of floats; per pod after the
+    hierarchical stage 1), ``weight`` this member's own entry. ``None``
+    (the default) keeps the fixed-membership reductions.
     """
 
     exchange: Exchange
     fast: Optional[Exchange] = None
     slow: Optional[Exchange] = None
     weights: Optional[Any] = None
-
-    def __post_init__(self):
-        no_weights(self.weights)
+    weight: Optional[float] = None
 
     @property
     def size(self) -> int:
@@ -84,6 +92,44 @@ class ReduceCtx:
         if self.slow is None:
             raise ValueError("ReduceCtx.narrowed needs the slow (across-pod) exchange")
         return dataclasses.replace(self, exchange=self.slow, fast=None, slow=None)
+
+    def with_membership(self, weights, weight) -> "ReduceCtx":
+        """A copy carrying the elastic participation weights."""
+        return dataclasses.replace(self, weights=weights, weight=weight)
+
+
+def _f32(x, device) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+def _reciprocal(sw: torch.Tensor) -> torch.Tensor:
+    """``1/Σw`` as an fp32 division, 0 where ``Σw`` is 0."""
+    return torch.where(sw > 0, torch.ones_like(sw) / sw, torch.zeros_like(sw))
+
+
+def weighted_stack_mean(stacked: torch.Tensor, weights) -> torch.Tensor:
+    """(G, ...) stack × (G,) weights -> the weighted mean over dim 0
+    (``repro/sync/base.py:weighted_stack_mean``): ``sum(x·w) · (1/Σw)``,
+    0 on an all-zero mask.
+
+    The products and the sum are separate tensor operations (``x · 1.0`` is
+    exact, nothing is fused), and the sum is the one ``stacked.mean(0)``
+    takes, so at all-ones weights this is the plain mean's bits wherever the
+    mean's division by G equals the multiply by ``1/G`` (G a power of two;
+    on the card ``torch.mean`` multiplies too).
+    """
+    w = _f32(weights, stacked.device)
+    wb = w.reshape((w.shape[0],) + (1,) * (stacked.dim() - 1))
+    return (stacked * wb).sum(dim=0) * _reciprocal(w.sum())
+
+
+def weighted_psum_mean(d: torch.Tensor, weight, ctx: "ReduceCtx", exchange=None):
+    """``psum(d·w) · (1/psum(w))`` over ``exchange`` (default the context's):
+    the distributed counterpart of :func:`weighted_stack_mean`, blocking."""
+    from repro_torch.launch.mesh import WeightedMeanWork
+
+    ex = exchange if exchange is not None else ctx.exchange
+    return WeightedMeanWork([d], weight, ex.group, ex.size).wait()[0]
 
 
 class PendingReduce:
@@ -198,9 +244,11 @@ class OuterSyncStrategy:
         leaf is taken before the update may overwrite that leaf's anchor.
         ``inplace`` updates the fp32 momentum and anchor in place
         (``core.outer.outer_reduce_leaves``) and writes each new residual
-        over the old one.
+        over the old one. ``weights``: the (G,) elastic participation
+        vector (``None``: the fixed mean).
         """
-        no_weights(weights)
+        if weights is not None:
+            weights = _f32(weights, outer.anchor[0].device)
         targets, moms, anchors, res = [], [], [], ([], [])
         G = len(group_leaves)
         for i, (m, a) in enumerate(zip(outer.momentum, outer.anchor)):
@@ -211,7 +259,8 @@ class OuterSyncStrategy:
             r = outer.residual[i] if outer.residual is not None else None
             if self.needs_residual2:
                 r = (r, outer.residual2[i] if outer.residual2 is not None else None)
-            payload, new_r = self.sim_reduce_leaf(delta, r, tc, num_pods=num_pods)
+            payload, new_r = self.sim_reduce_leaf(delta, r, tc, num_pods=num_pods,
+                                                  weights=weights)
             del delta
             new_rs = new_r if self.needs_residual2 else (
                 new_r, outer.residual2[i] if outer.residual2 is not None else None)
@@ -231,14 +280,16 @@ class OuterSyncStrategy:
                                    residual=res[0] or None, residual2=res[1] or None)
 
     def sim_reduce_leaf(self, delta, residual, tc, *, num_pods: int = 1,
-                        pod_grouped: bool = False):
+                        pod_grouped: bool = False, weights=None):
         """One leaf's (G, ...) fp32 Δθ stack -> (averaged payload, new residual).
 
         ``residual`` is the leaf's (G, ...) residual, ``None``, or the
         ``(r1, r2)`` pair when :attr:`needs_residual2`. ``pod_grouped``
         (set by :class:`~repro_torch.sync.strategies.Hierarchical` after its
         pod mean) marks the entries as pod-duplicated: the exchange's
-        endpoints are then the ``num_pods`` pods.
+        endpoints are then the ``num_pods`` pods. ``weights``: the (G,)
+        membership vector, or ``None``; under ``pod_grouped`` each entry
+        carries its pod's weight sum.
         """
         raise NotImplementedError
 
@@ -247,15 +298,17 @@ class OuterSyncStrategy:
         """:meth:`sim_reduce_leaf` over lists of leaves, the reference's tree
         signature: ``residual`` is a list, ``None``, or (with
         :attr:`needs_residual2`) a pair of lists, and so is the new one."""
-        no_weights(weights)
         n = len(delta)
+        if weights is not None and n:
+            weights = _f32(weights, delta[0].device)
         if self.needs_residual2:
             r1, r2 = residual if isinstance(residual, tuple) else (residual, None)
             rs = list(zip(r1 if r1 is not None else [None] * n,
                           r2 if r2 is not None else [None] * n))
         else:
             rs = residual if residual is not None else [None] * n
-        out = [self.sim_reduce_leaf(d, r, tc, num_pods=num_pods, pod_grouped=pod_grouped)
+        out = [self.sim_reduce_leaf(d, r, tc, num_pods=num_pods, pod_grouped=pod_grouped,
+                                    weights=weights)
                for d, r in zip(delta, rs)]
         payload = [p for p, _ in out]
         if self.needs_residual2:
@@ -263,3 +316,44 @@ class OuterSyncStrategy:
         if residual is None and not self.needs_residual:
             return payload, None
         return payload, [r for _, r in out]
+
+    # ------------------------------------------------------------- controllers
+    def make_delay_controller(self, tc, mc, pc, *, chip: str = "", measured: bool = True,
+                              n_params=None):
+        """The scalar-delay half of ``sync_delay="auto"``: measured d* with
+        the analytic step-time model as fallback (or the model alone with
+        ``measured=False``). ``n_params``: the model's parameter count (the
+        Trainer passes its own; counted from ``mc`` when absent)."""
+        from repro_torch.sync.delay import MeasuredDelayController, ModelDelayController
+
+        model = ModelDelayController(tc, mc, pc, chip=chip, n_params=n_params)
+        if not measured:
+            return model
+        return MeasuredDelayController(tc, fallback=model,
+                                       warmup_scale=self.wire_bytes_per_param(tc) / 4.0)
+
+    def make_sync_controller(self, tc, mc, pc, *, chip: str = "", measured: bool = True,
+                             adaptive: bool = False, remeasure_every: int = 0,
+                             n_params=None):
+        """The ``sync_delay="auto"`` hook: a
+        :class:`~repro_torch.sync.controller.SyncController`. By default a
+        :class:`~repro_torch.sync.controller.DelayDecisionAdapter` over
+        :meth:`make_delay_controller` (the strategy stays); ``adaptive``
+        gives an :class:`~repro_torch.sync.controller.AdaptiveSyncController`
+        over :func:`~repro_torch.sync.controller.default_ladder`."""
+        from repro_torch.sync.controller import (AdaptiveSyncController, DelayDecisionAdapter,
+                                                 default_ladder)
+        from repro_torch.sync.delay import MeasuredDelayController
+
+        delay_ctrl = self.make_delay_controller(tc, mc, pc, chip=chip, measured=measured,
+                                                n_params=n_params)
+        if not adaptive:
+            if remeasure_every and hasattr(delay_ctrl, "remeasure_every"):
+                delay_ctrl.remeasure_every = int(remeasure_every)
+            return DelayDecisionAdapter(delay_ctrl)
+        fallback = (delay_ctrl.fallback if isinstance(delay_ctrl, MeasuredDelayController)
+                    else delay_ctrl)
+        return AdaptiveSyncController(
+            tc, ladder=default_ladder(self, num_pods=getattr(pc, "num_pods", 1)),
+            fallback=fallback, remeasure_every=remeasure_every,
+            warmup_scale=self.wire_bytes_per_param(tc) / 4.0)

@@ -23,9 +23,12 @@ Quantized and the hierarchical stage 1, and the int8 wire through the ring
 all-gather and shard-scatter kernels (``kernels/ring_allreduce.py``). The
 distributed reductions are the simulator's, so at two groups a dispatch
 gives the simulator's bits. On CUDA leaves every blockwise quantize and
-dequantize launches its kernel. Still raising ``NotImplementedError``:
-``Sharded`` (ROADMAP.md queue 1, item 10), elastic ``weights`` (item 9),
-and ``Chunked`` in the Trainer.
+dequantize launches its kernel. Elastic-membership ``weights`` run through
+every reduction as in the reference (``sync/base.py:weighted_stack_mean``,
+``ReduceCtx.weights``): every group still compresses its payload and keeps
+its own residual, and a weight-0 source adds nothing to the mean. Still
+raising ``NotImplementedError``: ``Sharded`` (ROADMAP.md queue 1, item
+10) and ``Chunked`` in the Trainer.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -41,18 +45,28 @@ from repro_torch.core.outer import OuterState, compress_leaf, outer_reduce_leave
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ring_allreduce as RA
 from repro_torch.kernels import wire
-from repro_torch.launch.mesh import MeanWork
+from repro_torch.launch.mesh import MeanWork, WeightedMeanWork
 from repro_torch.sync.base import (OuterSyncStrategy, PendingReduce, ReduceCtx, SyncPlan,
-                                   balanced_spans, done, leaf_sizes, no_weights)
+                                   _f32, _reciprocal, balanced_spans, done, leaf_sizes,
+                                   weighted_stack_mean)
 
 
 def _mean_pending(payloads, residuals, ctx: ReduceCtx) -> PendingReduce:
     """The fp32 mean of ``payloads`` over the exchange (the reference's
-    ``pmean``), started now and finished in ``wait``."""
+    ``pmean``, or with ``ctx.weight`` its ``weighted_psum_mean``), started
+    now and finished in ``wait``."""
+    if ctx.weight is not None:
+        work = WeightedMeanWork(payloads, ctx.weight, ctx.exchange.group, ctx.size)
+        return PendingReduce(lambda: (work.wait(), residuals))
     if ctx.size <= 1:
         return done(payloads, residuals)
     work = MeanWork(payloads, ctx.exchange.group, ctx.size)
     return PendingReduce(lambda: (work.wait(), residuals))
+
+
+def _stack_mean(x: torch.Tensor, weights) -> torch.Tensor:
+    """The mean over dim 0: plain, or weighted by the membership vector."""
+    return x.mean(dim=0) if weights is None else weighted_stack_mean(x, weights)
 
 
 def _quantize_local(d, r, *, bits: int, block: int):
@@ -86,13 +100,15 @@ class FlatFP32(OuterSyncStrategy):
         agree in exact arithmetic, not in floating point). The work goes one
         leaf at a time, so the fp32 mean, Δθ and target temporaries are one
         leaf's size. ``inplace`` updates the fp32 outer state in place
-        (``core.outer.outer_reduce_leaves``).
+        (``core.outer.outer_reduce_leaves``). ``weights`` means the replicas
+        by the membership vector (``weighted_stack_mean``).
         """
-        no_weights(weights)
+        if weights is not None:
+            weights = _f32(weights, outer.anchor[0].device)
         targets, moms, anchors = [], [], []
         for i, (m, a) in enumerate(zip(outer.momentum, outer.anchor)):
             stacked = torch.stack([g[i].float() for g in group_leaves])
-            delta = stacked.mean(dim=0) - a.float()
+            delta = _stack_mean(stacked, weights) - a.float()
             del stacked
             t, mm, an = outer_reduce_leaves([m], [a], [delta], tc, mu=mu, lr=lr,
                                             inplace=inplace)
@@ -102,8 +118,9 @@ class FlatFP32(OuterSyncStrategy):
         return targets, outer._replace(momentum=moms, anchor=anchors,
                                        num_syncs=outer.num_syncs + 1)
 
-    def sim_reduce_leaf(self, delta, residual, tc, *, num_pods=1, pod_grouped=False):
-        return delta.mean(dim=0), residual
+    def sim_reduce_leaf(self, delta, residual, tc, *, num_pods=1, pod_grouped=False,
+                        weights=None):
+        return _stack_mean(delta, weights), residual
 
     def reduce_leaves(self, deltas, residuals, tc, ctx: ReduceCtx) -> PendingReduce:
         """The fp32 mean of Δθ over the exchange (the reference's ``pmean``).
@@ -128,14 +145,15 @@ class Quantized(OuterSyncStrategy):
     def name(self) -> str:
         return f"quantized(int{self.bits},block={self.block})"
 
-    def sim_reduce_leaf(self, delta, residual, tc, *, num_pods=1, pod_grouped=False):
+    def sim_reduce_leaf(self, delta, residual, tc, *, num_pods=1, pod_grouped=False,
+                        weights=None):
         payloads, new_r = [], []
         for g in range(delta.shape[0]):
             p, r = compress_leaf(delta[g], None if residual is None else residual[g],
                                  bits=self.bits, block=self.block)
             payloads.append(p)
             new_r.append(r)
-        return torch.stack(payloads).mean(dim=0), torch.stack(new_r)
+        return _stack_mean(torch.stack(payloads), weights), torch.stack(new_r)
 
     def reduce_leaves(self, deltas, residuals, tc, ctx: ReduceCtx) -> PendingReduce:
         """Compress this group's Δθ with error feedback, then the fp32 mean
@@ -198,13 +216,18 @@ class Int8Wire(OuterSyncStrategy):
     def wire_bytes_per_param(self, tc) -> float:
         return self.bits / 8.0 + 4.0 / self.block
 
-    def sim_reduce_leaf(self, delta, residual, tc, *, num_pods=1, pod_grouped=False):
+    def sim_reduce_leaf(self, delta, residual, tc, *, num_pods=1, pod_grouped=False,
+                        weights=None):
         """The ring's model: under ``pod_grouped`` its endpoints are the
         pods, one representative each (every group still quantizes, so its
-        residual is its own)."""
+        residual is its own), and so are their weights."""
         if self.reduce_scatter:
-            return self._sim_reduce_rs_ag(delta, residual, pod_grouped=pod_grouped)
+            return self._sim_reduce_rs_ag(delta, residual, pod_grouped=pod_grouped,
+                                          weights=weights)
         bits, block = self.bits, self.block
+        src_w = weights
+        if weights is not None and pod_grouped:
+            src_w = _f32(weights, delta.device).reshape(max(num_pods, 1), -1)[:, 0]
         c = delta.float()
         if residual is not None:
             c = c + residual.float()
@@ -215,7 +238,7 @@ class Int8Wire(OuterSyncStrategy):
             G, P = q.shape[0], max(num_pods, 1)
             q = q.reshape(P, G // P, -1)[:, 0]
             s = s.reshape(P, G // P, -1)[:, 0]
-        avg = wire.ring_allreduce_qs_ref(q, s, block=block, bits=bits)
+        avg = wire.ring_allreduce_qs_ref(q, s, block=block, bits=bits, weights=src_w)
         return avg[:n].reshape(c.shape[1:]), new_r
 
     def reduce_leaves(self, deltas, residuals, tc, ctx: ReduceCtx) -> PendingReduce:
@@ -233,7 +256,7 @@ class Int8Wire(OuterSyncStrategy):
         if ctx.size <= 1:
             return done([x[2] for x in local], new_r)
         avgs = RA.ring_allreduce_quantized_many([(q, s) for q, s, _, _ in local], ctx.exchange,
-                                                bits=bits, block=block)
+                                                bits=bits, block=block, weights=ctx.weights)
         return done([a[:d.numel()].reshape(d.shape) for a, d in zip(avgs, deltas)], new_r)
 
     def _reduce_leaves_rs_ag(self, deltas, residuals, ctx: ReduceCtx) -> PendingReduce:
@@ -252,7 +275,7 @@ class Int8Wire(OuterSyncStrategy):
                         [(x[3], r2 if r2 is not None else torch.zeros_like(x[3]))
                          for x, (_, r2) in zip(local, rs)])
         reduced = RA.reduce_scatter_qs_many([(q, s) for q, s, _, _ in local], ctx.exchange,
-                                            bits=bits, block=block)
+                                            bits=bits, block=block, weights=ctx.weights)
         q2s, shards = [], []
         for (q, s, _, _), (_, r2), red, d in zip(local, rs, reduced, deltas):
             n = d.numel()
@@ -276,7 +299,7 @@ class Int8Wire(OuterSyncStrategy):
             new_rs.append((new_r1, new_r2[:n].reshape(d.shape)))
         return done(payloads, new_rs)
 
-    def _sim_reduce_rs_ag(self, delta, residual, *, pod_grouped=False):
+    def _sim_reduce_rs_ag(self, delta, residual, *, pod_grouped=False, weights=None):
         """The rs/ag round trip (``kernels/wire.py:rs_ag_qs_ref``): the G
         groups are the endpoints. Each group's second residual is stored
         full-size, zero outside its own slot."""
@@ -305,7 +328,7 @@ class Int8Wire(OuterSyncStrategy):
             r2_pad = F.pad(r2.float().reshape(G, -1), (0, E * slot - n))
             r2_shards = r2_pad.reshape(E, E, slot)[diag, diag]
         payload, new_r2_shards = wire.rs_ag_qs_ref(q, s, block=block, bits=bits,
-                                                   residual2=r2_shards)
+                                                   residual2=r2_shards, weights=weights)
         new_r2 = torch.zeros((E, E, slot), dtype=torch.float32, device=c.device)
         new_r2[diag, diag] = new_r2_shards
         new_r2 = new_r2.reshape(E, E * slot)[:, :n].reshape(c.shape)
@@ -341,25 +364,50 @@ class Hierarchical(OuterSyncStrategy):
     def wire_bytes_per_param(self, tc) -> float:
         return self.inner.wire_bytes_per_param(tc)
 
-    def sim_reduce_leaf(self, delta, residual, tc, *, num_pods=1, pod_grouped=False):
+    def sim_reduce_leaf(self, delta, residual, tc, *, num_pods=1, pod_grouped=False,
+                        weights=None):
         """Every group of a pod gets the pod's mean (so the residuals stay
-        pod-identical), then the inner strategy reduces over the pods."""
+        pod-identical), then the inner strategy reduces over the pods. With
+        ``weights`` the pod mean is weighted, and the inner reduction weighs
+        each pod by its live weight sum (on every entry of the pod)."""
         P = max(num_pods, 1)
         G = delta.shape[0]
         validate_pod_grouping(G, P)
-        pod_mean = delta.reshape(P, G // P, *delta.shape[1:]).mean(dim=1, keepdim=True)
+        dp = delta.reshape(P, G // P, *delta.shape[1:])
+        entry_w = None
+        if weights is None:
+            pod_mean = dp.mean(dim=1, keepdim=True)
+        else:
+            w = _f32(weights, delta.device)
+            wp = w.reshape((P, G // P) + (1,) * (delta.dim() - 1))
+            sw = wp.sum(dim=1, keepdim=True)
+            pod_mean = (dp * wp).sum(dim=1, keepdim=True) * _reciprocal(sw)
+            pw = w.reshape(P, -1)
+            entry_w = pw.sum(dim=1, keepdim=True).expand(pw.shape).reshape(-1)
         delta = pod_mean.expand(P, G // P, *delta.shape[1:]).reshape(delta.shape)
         return self.inner.sim_reduce_leaf(delta, residual, tc, num_pods=num_pods,
-                                          pod_grouped=True)
+                                          pod_grouped=True, weights=entry_w)
 
     def reduce_leaves(self, deltas, residuals, tc, ctx: ReduceCtx) -> PendingReduce:
         """Stage 1: the fp32 mean over this pod's groups (the fast
         exchange), finished before stage 2 starts; stage 2: the inner
-        strategy over the pods (the slow exchange)."""
+        strategy over the pods (the slow exchange). With membership weights
+        stage 1 is the weighted mean (a pod of one group scales and
+        normalises too, as the reference's size-one axis does), and stage 2
+        weighs each pod by its live weight sum (a dead pod exchanges a zero
+        payload at weight 0)."""
         fast = ctx.fast
-        if fast is not None and fast.size > 1:
-            deltas = MeanWork(list(deltas), fast.group, fast.size).wait()
         inner_ctx = ctx.narrowed() if ctx.slow is not None else ctx
+        if ctx.weight is not None:
+            if fast is None:
+                raise ValueError("a weighted hierarchical reduce needs the fast exchange")
+            deltas = WeightedMeanWork(list(deltas), ctx.weight, fast.group, fast.size).wait()
+            # per-pod weight sums in pod order (the group order is pod-major)
+            pod_vec = np.asarray(ctx.weights, np.float32).reshape(inner_ctx.size, -1).sum(1)
+            inner_ctx = inner_ctx.with_membership(pod_vec.tolist(),
+                                                  float(pod_vec[inner_ctx.index]))
+        elif fast is not None and fast.size > 1:
+            deltas = MeanWork(list(deltas), fast.group, fast.size).wait()
         return self.inner.reduce_leaves(deltas, residuals, tc, inner_ctx)
 
 
@@ -413,9 +461,10 @@ class Chunked(OuterSyncStrategy):
         return self.inner.sim_dispatch(group_leaves, outer, tc, mu=mu, lr=lr,
                                        num_pods=num_pods, weights=weights, inplace=inplace)
 
-    def sim_reduce_leaf(self, delta, residual, tc, *, num_pods=1, pod_grouped=False):
+    def sim_reduce_leaf(self, delta, residual, tc, *, num_pods=1, pod_grouped=False,
+                        weights=None):
         return self.inner.sim_reduce_leaf(delta, residual, tc, num_pods=num_pods,
-                                          pod_grouped=pod_grouped)
+                                          pod_grouped=pod_grouped, weights=weights)
 
 
 # the strategies the simulator runs (``Sharded`` is not ported)

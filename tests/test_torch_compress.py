@@ -186,8 +186,9 @@ def test_wire_reductions_bitwise(E, bits):
                                   residual2=None if res is None else jnp.asarray(res))
         _eq(p, pj)
         _eq(nr, nrj)
-    with pytest.raises(NotImplementedError):
-        W.dequant_sum_sources(wg, st, bits=bits, block=block, weights=np.ones(E))
+    # all-ones weights: the weighted sum is the unweighted one bit for bit
+    _eq(W.dequant_sum_sources(wg, st, bits=bits, block=block, weights=np.ones(E)),
+        W.dequant_sum_sources(wg, st, bits=bits, block=block))
 
 
 # ===========================================================================
@@ -328,9 +329,15 @@ def test_sim_dispatch_matches_reference(sid, comm, G, P):
         groups = [[x + (rng.standard_normal(x.shape) * 1e-3).astype(np.float32) for x in g]
                   for g in groups]
     assert state.num_syncs == 2
-    with pytest.raises(NotImplementedError):
-        strat.sim_dispatch([[torch.from_numpy(x) for x in g] for g in groups], state, tc,
-                           mu=0.9, lr=0.7, num_pods=P, weights=np.ones(G))
+    # all-ones weights: the target, momentum and residuals bit for bit those
+    # of the fixed mean (G is 2 or 4 here, where 1/G is exact)
+    leaves = [[torch.from_numpy(x) for x in g] for g in groups]
+    fixed = strat.sim_dispatch(leaves, state, tc, mu=0.9, lr=0.7, num_pods=P)
+    ones = strat.sim_dispatch(leaves, state, tc, mu=0.9, lr=0.7, num_pods=P,
+                              weights=np.ones(G))
+    for a, b in zip(fixed[0] + fixed[1].momentum + fixed[1].residual,
+                    ones[0] + ones[1].momentum + ones[1].residual):
+        assert torch.equal(a, b)
 
 
 def test_combinators_refuse_rs_ag_as_the_reference_does():

@@ -84,8 +84,11 @@ def test_train_config_validation():
         pt_config.TrainConfig(sync_interval=4, sync_delay=4)
     with pytest.raises(ValueError):
         pt_config.TrainConfig(sync_delay=-1)
-    with pytest.raises(ValueError):  # the port has no "auto" delay
-        pt_config.TrainConfig(sync_delay="auto")
+    # "auto" is accepted as in the reference (resolved before a schedule
+    # runs); any other string is refused
+    assert pt_config.TrainConfig(sync_delay="auto").sync_delay == "auto"
+    with pytest.raises(ValueError):
+        pt_config.TrainConfig(sync_delay="soon")
     with pytest.raises(ValueError):
         pt_config.OuterCommConfig(compression="zip")
     assert pt_config.TrainConfig().replace(sync_delay=3).sync_delay == 3

@@ -152,6 +152,55 @@ def test_adamw_matches_reference(state_dtype):
             assert np.all(np.abs(t.float().numpy() - x) <= tol * np.abs(x) + 1e-30)
 
 
+def _adamw_out_of_place(grads, state, leaves, tc, lr):
+    """The update as fresh fp32 tensors, stored at the end: the form
+    ``adamw_update`` writes in place."""
+    dev = state.count.device
+    f32 = lambda x: torch.tensor(np.float32(x), device=dev)  # noqa: E731
+    b1, b2 = f32(tc.adam_beta1), f32(tc.adam_beta2)
+    omb1, omb2 = f32(1.0 - tc.adam_beta1), f32(1.0 - tc.adam_beta2)
+    eps, wd, lr_t, one = f32(tc.adam_eps), f32(tc.weight_decay), f32(lr), f32(1.0)
+    state.count.add_(1)
+    cf = state.count.float()
+    c1, c2 = one - torch.pow(b1, cf), one - torch.pow(b2, cf)
+    for (name, p), g, m, v in zip(leaves, grads, state.mu, state.nu):
+        gf = g.float()
+        mf = b1 * m.float() + omb1 * gf
+        vf = b2 * v.float() + omb2 * (gf * gf)
+        m.copy_(mf)
+        v.copy_(vf)
+        step = (mf / c1) / (torch.sqrt(vf / c2) + eps)
+        if PA.decay_mask(name):
+            step = step + wd * p.float()
+        p.copy_(p.float() - lr_t * step)
+
+
+@pytest.mark.parametrize("state_dtype", ["float32", "bfloat16"])
+def test_adamw_update_bit_for_bit_the_out_of_place_form(state_dtype):
+    """The in-place update rounds every operation as the out-of-place form
+    does: three steps give the same bits (no tolerance), fp32 and bf16
+    moments alike."""
+    _, tree = _jax_tree(4)
+    tc = pt_config.TrainConfig(opt_state_dtype=state_dtype)
+    sides = []
+    for _ in range(2):
+        leaves = param_leaves(params_from_jax(tree, PMC, device="cpu", training=True))
+        sides.append((leaves, PA.adamw_init(leaves, tc)))
+    rng = np.random.default_rng(8)
+    with torch.no_grad():
+        for step in range(3):
+            grads = [(rng.standard_normal(x.shape) * 0.01).astype(np.float32)
+                     for x in _leaves_np(tree)]
+            for (leaves, state), fn in zip(sides, (PA.adamw_update, _adamw_out_of_place)):
+                fn([torch.from_numpy(g) for g in grads], state, leaves, tc, lr_at(tc, step))
+    (la, sa), (lb, sb) = sides
+    for (name, a), (_, b) in zip(la, lb):
+        assert torch.equal(a, b), name
+    for xs, ys in ((sa.mu, sb.mu), (sa.nu, sb.nu)):
+        for x, y in zip(xs, ys):
+            assert x.dtype == y.dtype == getattr(torch, state_dtype) and torch.equal(x, y)
+
+
 def test_decay_mask_matches_reference():
     _, tree = _jax_tree()
     flags = []
@@ -312,16 +361,28 @@ def test_groups_diverge_then_resync():
     assert run.state.params is run.state.group_params[0]
 
 
-@pytest.mark.parametrize("kw", [{"sync_controller": object()}, {"membership": object()},
-                                {"checkpoint_manager": object()},
+@pytest.mark.parametrize("kw", [{"sync_controller": "scripted"}, {"membership": "controller"},
+                                {"checkpoint_manager": "manager"},
                                 {"strategy": OuterSyncStrategy()},
                                 {"strategy": object()}])
-def test_unported_constructor_arguments_raise(kw):
-    """Pods are ported now (``num_pods=2`` runs, below); a strategy that is
-    none of the ported classes still raises."""
+def test_unported_constructor_arguments_raise(kw, tmp_path):
+    """Controllers, membership and checkpoint managers are ported now (they
+    construct and are kept); a strategy that is none of the ported classes
+    still raises. Pods are ported (``num_pods=2`` runs, below)."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.sync import MembershipController, ScriptedSyncController
+
+    made = {"scripted": ScriptedSyncController(0), "controller": MembershipController(2),
+            "manager": CheckpointManager(str(tmp_path))}
+    kw = {k: made.get(v, v) if isinstance(v, str) else v for k, v in kw.items()}
     tc = pt_config.TrainConfig(**TC_KW)
-    with pytest.raises(NotImplementedError):
-        SimulatedRun(PMC, tc, num_groups=2, device="cpu", **kw)
+    if "strategy" in kw:
+        with pytest.raises(NotImplementedError):
+            SimulatedRun(PMC, tc, num_groups=2, device="cpu", **kw)
+    else:
+        run = SimulatedRun(PMC, tc, num_groups=2, device="cpu", **kw)
+        (name, value), = kw.items()
+        assert getattr(run, {"checkpoint_manager": "ckpt"}.get(name, name)) is value
     run = SimulatedRun(PMC, tc, num_groups=2, num_pods=2, device="cpu")
     assert run.P == 2 and run.state.outer.residual is None
     with pytest.raises(ValueError):
@@ -329,12 +390,19 @@ def test_unported_constructor_arguments_raise(kw):
 
 
 def test_unported_train_configs_raise():
+    """Sharded still raises; ``TrainConfig.membership`` is ported (full
+    membership through the elastic path) and ``sync_delay="auto"`` must be
+    resolved first, as in the reference."""
     with pytest.raises(NotImplementedError):
         SimulatedRun(PMC, pt_config.TrainConfig(**TC_KW, outer_comm=pt_config.OuterCommConfig(
             sharded=True)), num_groups=2, device="cpu")
-    with pytest.raises(NotImplementedError):
-        SimulatedRun(PMC, pt_config.TrainConfig(**TC_KW, membership=object()),
-                     num_groups=2, device="cpu")
+    run = SimulatedRun(PMC, pt_config.TrainConfig(**TC_KW,
+                                                  membership=pt_config.MembershipConfig()),
+                       num_groups=2, device="cpu")
+    assert run.membership.num_groups == 2 and not run.membership.elastic
+    with pytest.raises(ValueError, match="auto"):
+        SimulatedRun(PMC, pt_config.TrainConfig(**TC_KW, sync_delay="auto"), num_groups=2,
+                     device="cpu")
     serve = PR.init_params(PMC, seed=0, device="cpu")  # not training storage
     with pytest.raises(ValueError):
         SimulatedRun(PMC, pt_config.TrainConfig(**TC_KW), num_groups=2, device="cpu",

@@ -207,21 +207,39 @@ def test_ranks_are_row_major_over_the_reference_axes():
                                    ["--churn-script", "drop:1@3"],
                                    ["--checkpoint-dir", "ckpt"], ["--mesh", "2,1,2"]])
 def test_unported_flags_raise(flags):
+    """``--sync-delay auto``, ``--offload``, ``--churn-script`` and
+    ``--checkpoint-dir`` are ported now and map onto the configuration;
+    chunked and sharded outer syncs and a model axis still raise."""
     args = LT.build_parser().parse_args(["--reduced", "--arch", "gpt2-medium", *flags])
-    with pytest.raises(NotImplementedError):
-        LT.configs_from_args(args)
+    if flags[0] in ("--comm-chunks", "--sharded-outer", "--mesh"):
+        with pytest.raises(NotImplementedError):
+            LT.configs_from_args(args)
+        return
+    _, tc, _ = LT.configs_from_args(args)
+    assert tc.sync_delay == ("auto" if flags[0] == "--sync-delay" else 0)
+    assert tc.offload_outer_state == (flags[0] == "--offload")
+    assert (tc.membership is not None) == (flags[0] == "--churn-script")
+    if flags[0] == "--churn-script":
+        assert tc.membership == pt_config.MembershipConfig()
+    if flags[0] == "--checkpoint-dir":
+        assert args.checkpoint_dir == "ckpt"
 
 
 def test_unported_trainer_paths_raise():
+    """Chunked still raises in the Trainer; membership and weights are
+    ported: a controller over the wrong group count is refused, and a
+    ``ReduceCtx`` carries the weights."""
     tc = _tc({"compression": "quantize", "chunks": 2})
     with pytest.raises(NotImplementedError, match="Chunked"):
         LT.build_train_steps(PMC, tc, _pc(2, 2), mesh=None)
     with pytest.raises(NotImplementedError, match="Chunked"):
         Chunked(inner=FlatFP32()).reduce_leaves([], None, tc, None)
-    with pytest.raises(NotImplementedError, match="membership"):
-        LT.Trainer(PMC, _tc(), _pc(2, 2), None, membership=object())
-    with pytest.raises(NotImplementedError, match="weights"):
-        ReduceCtx(exchange=Exchange(None, [0], 0), weights=[1.0])
+    from repro_torch.sync import MembershipController
+
+    with pytest.raises(ValueError, match="tracks 3 groups"):
+        LT.Trainer(PMC, _tc(), _pc(2, 2), None, membership=MembershipController(3))
+    ctx = ReduceCtx(exchange=Exchange(None, [0], 0)).with_membership([1.0], 1.0)
+    assert ctx.weights == [1.0] and ctx.weight == 1.0
 
 
 def test_flags_map_onto_the_layout():
