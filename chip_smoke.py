@@ -19,7 +19,10 @@ and no result line:
    256, 64, 32, int4, a ragged length, a block of 33 and an unaligned view,
    one GPT-2 XL token-table leaf) with a ragged payload that must raise;
    attention and paged decode at Qwen3-1.7B's head layout too (H 16, Hkv
-   8, hd 128, bf16), quantize at its KV rows (block 128, a prefill layer's
+   8, hd 128, bf16) and at Qwen3-14B's GQA 5:1 (H 40, Hkv 8, hd 128: the
+   forward and backward at S 512 and a ragged 333, each run twice to the
+   same bits on the tensor cores; decode at 4 slots over contexts
+   128-512), timed beside Granite-8B's 4:1 and MiniCPM-2B's MHA, quantize at its KV rows (block 128, a prefill layer's
    and a decode step's, bit for bit, the prefill one timed) and at n ending
    mid-vector at each block size, bf16 at block 256, an unaligned view and
    block 96 (the scalar kernel), each case run twice to the same bits and
@@ -102,6 +105,11 @@ and no result line:
    steps) with int8 KV blocks: at 4 layers in fp32 against the fp32-KV
    rollout, every logit within 2% of max |logit|; at full depth in bf16
    against the bf16-KV rollout, reported.
+4c. ``serve_families``: the same traffic with bf16 KV through full
+   MiniCPM-2B (40 layers, MHA, a tied table of 122 753 rows), Granite-8B
+   (36, GQA 4:1, untied) and Qwen3-14B (40, GQA 5:1, qk-norm, untied),
+   each made on the card in serving storage and freed before the next:
+   launches exact at each depth (``--families`` adds the int8-KV runs).
 5. ``breakdown``: device time by kernel group (``torch.profiler``) beside
    the host's wall time, for one 512-token prefill and for decode steps
    over 4 slots of the bf16 serve path, and the same decode steps with
@@ -128,7 +136,7 @@ and no result line:
    logits, one batch's loss and gradients, and 8 steps of ``SimulatedRun``
    (G = 2, per-group batch 2 x 128, flat sync), all within 1e-3; rmsnorm =
    rmsnorm_bwd = 9 per forward and backward, every launch count exact.
-   The fp32 phases 3, 6, 6b, 6c and 8c take the CUDA-core attention
+   The fp32 phases 3, 6, 6b, 6c, 6e and 8c take the CUDA-core attention
    kernels: no tensor-core launch.
 6d. ``flash_tc_vs_plain``: GPT-2 XL width at 4 layers and Qwen3-1.7B width
    at 2 layers, bf16 compute, training storage: one batch's (2 x 1024)
@@ -139,6 +147,11 @@ and no result line:
    and backward launches, all on the tensor cores. Reported beside it, not
    checked: the same distance for the plain attention with its keys
    summed in another fp32 order, the comparison's floor.
+6e. ``families_vs_cpu``: the three families at full width, 2 layers,
+   fp32, the same seeded weights on the card and on the CPU: 4 prompts of
+   64 tokens, their prefills and 8 decode steps over the 4 slots; every
+   logit within 1e-3, int8 KV within 2% of max |logit| of fp32 KV,
+   launches exact.
 7. ``train``: full GPT-2 XL (bf16 compute, fp32 parameters and state),
    G = 2, sync_delay 0, per-group batch 2 x 1024 tokens, 10 steps of the
    same schedule shape (inner LR 5e-5, warmed up over the lazy start).
@@ -153,6 +166,10 @@ and no result line:
 8a. ``train_qwen3`` and ``train_qwen3_breakdown``: the ``train`` run and
    its breakdown with full Qwen3-1.7B (1.72 B parameters, 310 leaves),
    where rmsnorm = rmsnorm_bwd = 113 x forwards as well.
+8a'. ``train_minicpm``: MiniCPM-2B at full width and 4 layers in the
+   ``train`` run, under the WSD schedule over 20 steps run to its end
+   (warmup, stable, decay): the LR of every step is ``lr_at``'s, the
+   validation loss falls, launches exact.
 8b. ``train_compressed``: the ``train`` run again after it is freed, with
    the quantized outer sync (int8, block 256, error feedback; the residual
    adds 2 x 6.25 GB): the same checks, and quantize = dequantize = 2 x 484
@@ -163,9 +180,11 @@ and no result line:
    card) against ``SimulatedRun`` on the card, GPT-2 medium width, 2 layers,
    fp32, per-group batch 2 x 256, 8 steps without lazy start (four outer
    syncs): flat, int8-wire and rs-ag at 2 ranks, delay 0 and 1, and
-   Hierarchical over int8-wire at 4 ranks in 2 pods. Losses and parameters
-   within 1e-5 (the wire strategies bit for bit); every rank's launches
-   exactly what its strategy's code path makes (ring and scatter included).
+   Hierarchical over int8-wire at 4 ranks in 2 pods, and Qwen3-1.7B width
+   with int8-wire at 2 ranks (bit for bit, its rmsnorm launches counted).
+   Losses and parameters within 1e-5 (the wire strategies bit for bit);
+   every rank's launches exactly what its strategy's code path makes (ring,
+   scatter and RMSNorm included).
 8d. ``train_dist``: full GPT-2 medium (24 layers, 355 M parameters) on 2
    ranks sharing the card (G = 2, per-group batch 2 x 1024), 10 steps of the
    ``train`` schedule, once with int8-wire and once with rs-ag: finite loss,
@@ -195,10 +214,13 @@ and no result line:
    scale where larger: the flat windows mean Δθ in the Trainer and θ in the
    simulator); every rank's launches exact, ring and scatter included.
 8h. ``train_dist_auto``: full GPT-2 medium on 2 ranks, ``sync_delay="auto"``,
-   12 steps, once with the measured controller and once with the adaptive
+   14 steps, once with the measured controller and once with the adaptive
    ladder: per window t_inner, t_comm, d*, the rung and every switch (no
-   bound on the decisions: they follow the card's timings); finite loss,
-   the validation loss falls.
+   bound on the decisions: they follow the card's timings; a measured
+   warmup window times a world exchange of the parameters); the ladder
+   must dispatch a window on a new rung, and every rank's quantize and
+   dequantize launches must be those of the strategies its windows took;
+   finite loss, the validation loss falls.
 8i. ``train_dist_ckpt``: GPT-2 medium width at 4 layers (the checkpoint's
    bytes set the phase's time) on 2 ranks, int8-wire: 10 steps with
    outer-state offload; 6 steps without it and a save (about 2.6 GB a rank
@@ -207,9 +229,18 @@ and no result line:
    bit; a fresh world restores and runs to step 10 with offload, bit for
    bit the uninterrupted run; save and restore seconds, peak and resident
    memory per rank with and without offload. ``--ckpt-depth`` runs it at
-   all 24 layers (8.6 GB a rank).
+   all 24 layers (14.3 GB of checkpoint). The checkpoint is one
+   ``step_*`` directory of both ranks in the reference Trainer's layout.
+8j. ``handoff``: a ``ServeEngine`` at that width serves the ``serve``
+   traffic with a ``CheckpointPoller`` on group 0 of an empty directory,
+   into which the 8i checkpoint is moved after decode step 4: exactly one
+   swap, at that step boundary; the served leaves the saved parameters cast
+   to serving storage, bit for bit; the requests admitted after the swap a
+   fresh engine's greedy tokens, logits within 1e-3 of max |logit|; the
+   pool drained; launches exact.
 9. a ``{"kernels": [...]}`` line: per kernel its launches on the main-path
-   runs (serve and serve_qwen3, train, train_compressed, train_qwen3,
+   runs (serve, serve_qwen3, serve_families and handoff, train,
+   train_compressed, train_qwen3, train_minicpm,
    train_elastic and, summed over ranks, train_dist and train_dist_auto;
    for the CUDA-core attention kernels,
    which those bf16 runs no longer take, their launches in the fp32
@@ -219,7 +250,7 @@ and no result line:
    data sheet). A kernel with no launch fails the run.
 10. the last line, ``{"ok": true, "device": {...}}``.
 
-Seven studies run instead of the phases above when asked for, each after
+Eight studies run instead of the phases above when asked for, each after
 the build, and print their own JSON lines:
 
     python3 chip_smoke.py --witness-lr     # the train run at Table I's LR,
@@ -233,6 +264,7 @@ the build, and print their own JSON lines:
                                            # RMSNorm checks and times alone
     python3 chip_smoke.py --elastic        # phases 8e-8i alone
     python3 chip_smoke.py --ckpt-depth     # phase 8i at GPT-2 medium's 24 layers
+    python3 chip_smoke.py --families       # phase 4c with bf16 and int8 KV
 """
 
 from __future__ import annotations
@@ -629,8 +661,9 @@ def _core_bwd(torch, q, k, v, out, lse, do):
 
 # Attention cases: name, B, S, H, Hkv, hd, dtype, causal, window, softcap.
 # bf16 at head_dim 64 and 128 takes the tensor-core route; those cases run
-# GQA 2:1 and 4:1, MQA, window 64, softcap 30, non-causal and ragged S (1,
-# 77, 200, 257, 300, 700) on it. The rest take the CUDA-core route.
+# GQA 2:1, 4:1 and 5:1, MQA, window 64, softcap 30, non-causal and ragged S
+# (1, 77, 200, 257, 300, 333, 700) on it. The rest take the CUDA-core route.
+FIVE_TO_ONE = ("qwen3_14b_gqa5_s512_bf16", "qwen3_14b_gqa5_s333_bf16")
 def _flash_cases(torch):
     bf, f32 = torch.bfloat16, torch.float32
     return {
@@ -649,6 +682,12 @@ def _flash_cases(torch):
             ("tc_noncausal_window64_softcap30_hd64_s700", 1, 700, 4, 2, 64, bf, False, 64, 30.0),
             ("tc_s1_hd64", 3, 1, 4, 4, 64, bf, True, 0, 0.0),
             ("tc_s1_hd128", 2, 1, 4, 2, 128, bf, True, 0, 0.0),
+        ],
+        # Qwen3-14B's GQA 5:1 at hd 128 (a query group of 5, not a power of
+        # two), at a prefill's S and a ragged one
+        "gqa5": [
+            ("qwen3_14b_gqa5_s512_bf16", 1, 512, 40, 8, 128, bf, True, 0, 0.0),
+            ("qwen3_14b_gqa5_s333_bf16", 1, 333, 40, 8, 128, bf, True, 0, 0.0),
         ],
         "core": [
             ("hd40_window_softcap_bf16", 1, 45, 4, 2, 40, bf, True, 16, 10.0),
@@ -685,6 +724,7 @@ def check_flash(torch, timer, results):
         ("qwen3_s200_bf16", 1, 200, 16, 8, 128, bf, True, 0, 0.0),
         ("qwen3_train_b2_s1024_bf16", 2, 1024, 16, 8, 128, bf, True, 0, 0.0),
         *groups["tc"],
+        *groups["gqa5"],
         ("xl_s512_f32", 1, 512, 25, 25, 64, f32, True, 0, 0.0),
         ("hd256_f32", 1, 77, 2, 1, 256, f32, True, 0, 0.0),
         ("hd40_f32", 1, 45, 4, 2, 40, f32, True, 16, 10.0),
@@ -704,6 +744,8 @@ def check_flash(torch, timer, results):
         err, rms = max_err(out, ref), rel_rms(out, ref)
         lse_err = max_err(lse, lse_ref)
         same_out = torch.equal(out_t, out)
+        if name in FIVE_TO_ONE:  # the new head layout: a second run gives the same bits
+            same_out = same_out and torch.equal(FK.flash_attention(q, k, v, **opts), out)
         tol = 1e-4 if dt == torch.float32 else 2e-2
         emit({"phase": "kernels", "kernel": "flash_attention", "case": name, "route": route,
               "B": B, "S": S, "H": H, "Hkv": Hkv, "hd": hd,
@@ -746,6 +788,11 @@ def check_flash(torch, timer, results):
     # (GPT-2 XL, Qwen3-1.7B), and one training layer's forward with its lse
     xl, q3 = timed(1, 512, 25, 25, 64, False), timed(1, 512, 16, 8, 128, False)
     xl_t, q3_t = timed(2, 1024, 25, 25, 64, True), timed(2, 1024, 16, 8, 128, True)
+    # the prefill layers of Granite-8B (GQA 4:1) and Qwen3-14B (5:1)
+    fam = {"granite_8b_gqa4": {"shape": "bf16 B=1 S=512 H=32 Hkv=8 hd=128 causal",
+                               **timed(1, 512, 32, 8, 128, False)},
+           "qwen3_14b_gqa5": {"shape": "bf16 B=1 S=512 H=40 Hkv=8 hd=128 causal",
+                              **timed(1, 512, 40, 8, 128, False)}}
     library = "F.scaled_dot_product_attention forward"
     results["flash_attention_tc"] = {
         "name": "flash_attention_tc", "route": "cuda",
@@ -760,7 +807,8 @@ def check_flash(torch, timer, results):
         "train_shape": {"shape": "bf16 B=2 S=1024 H=Hkv=25 hd=64 causal, with lse "
                                  "(one training layer)", **xl_t},
         "qwen3_train_shape": {"shape": "bf16 B=2 S=1024 H=16 Hkv=8 hd=128 causal, with "
-                                       "lse (one training layer)", **q3_t}}
+                                       "lse (one training layer)", **q3_t},
+        "families": fam}
     results["flash_attention"] = {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -838,6 +886,9 @@ def stage_ms(torch, timer, fn, stages, reps: int = REPS):
 DECODE_STAGES = {"paged_decode_split": "split", "paged_decode_combine": "merge"}
 
 
+FAMILY_CLS = [128, 256, 384, 512]  # the serve phase's prompt lengths
+
+
 def check_decode(torch, timer, results):
     """The paged decode kernels against ``paged_decode_attention_ref``: every
     case within 1e-4 in fp32 and 2e-2 in bf16 (one bf16 rounding of a
@@ -878,6 +929,9 @@ def check_decode(torch, timer, results):
         ("xl_32slots_bf16", 32, 25, 25, 64, 16, slots32, bf16, False, 0, 0.0),
         ("qwen3_ctx4096_bf16", 2, 16, 8, 128, 16, [4096, 1000], bf16, False, 0, 0.0),
         ("qwen3_ctx4096_int8", 2, 16, 8, 128, 16, [4096, 1000], bf16, True, 0, 0.0),
+        # Qwen3-14B's GQA 5:1 at hd 128, 4 slots over the serve phase's contexts
+        ("qwen3_14b_gqa5_4slots_bf16", 4, 40, 8, 128, 16, FAMILY_CLS, bf16, False, 0, 0.0),
+        ("qwen3_14b_gqa5_4slots_int8", 4, 40, 8, 128, 16, FAMILY_CLS, bf16, True, 0, 0.0),
     ]
     worst = 0.0
     for name, B, H, Hkv, hd, bs, cls, dt, quant, window, softcap in cases:
@@ -942,6 +996,13 @@ def check_decode(torch, timer, results):
                      4 * pos * H * hd, "bfloat16")
     # Qwen3-1.7B's decode layer: 16 query heads over 8 KV heads, hd 128
     q3 = timed(xl_cls, 16, 8, 128, 34)
+    # MiniCPM-2B's, Granite-8B's and Qwen3-14B's decode layers at the serve contexts
+    fam = {name: {"shape": f"bf16 4 slots, contexts 128/256/384/512, bs 16, H={H} Hkv={Hkv} "
+                           f"hd {hd} (one layer)",
+                  **timed(FAMILY_CLS, H, Hkv, hd, 34)}
+           for name, H, Hkv, hd in (("minicpm_2b_mha", 36, 36, 64),
+                                    ("granite_8b_gqa4", 32, 8, 128),
+                                    ("qwen3_14b_gqa5", 40, 8, 128))}
     # bandwidth-bound shapes: 16 slots of long contexts
     xl16 = timed([256 + round(i * 768 / 15) for i in range(16)], 25, 25, 64, 64, sdpa=True)
     q316 = timed([1024 + round(i * 3072 / 15) for i in range(16)], 16, 8, 128, 256, sdpa=True)
@@ -958,6 +1019,7 @@ def check_decode(torch, timer, results):
                            "hd 128 (one layer)",
                   **{k: q3[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
                   "stages_ms": stages(xl_cls, 16, 8, 128, 34)},
+        "families": fam,
         "bandwidth_shapes": {
             "gpt2_xl_16slots": {"shape": "bf16 16 slots, contexts 256-1024, bs 16, H=Hkv=25, "
                                          "hd 64", **xl16},
@@ -1285,6 +1347,7 @@ def check_flash_bwd(torch, timer, results):
         ("qwen3_s256_bf16", 2, 256, 16, 8, 128, bf, True, 0, 0.0),
         ("qwen3_train_b2_s1024_bf16", 2, 1024, 16, 8, 128, bf, True, 0, 0.0),
         *groups["tc"],
+        *groups["gqa5"],
         ("hd40_window_softcap_f32", 1, 45, 4, 2, 40, f32, True, 16, 10.0),
         ("xl_s300_f32", 1, 300, 25, 25, 64, f32, True, 0, 0.0),
         ("hd256_gqa_f32", 1, 77, 4, 2, 256, f32, True, 0, 0.0),
@@ -1367,6 +1430,10 @@ def check_flash_bwd(torch, timer, results):
 
     # main path's shapes: one training layer's attention, B 2, S 1024
     xl, q3 = timed(2, 1024, 25, 25, 64), timed(2, 1024, 16, 8, 128)
+    fam = {"granite_8b_gqa4": {"shape": "bf16 B=1 S=512 H=32 Hkv=8 hd=128 causal",
+                               **timed(1, 512, 32, 8, 128)},
+           "qwen3_14b_gqa5": {"shape": "bf16 B=1 S=512 H=40 Hkv=8 hd=128 causal",
+                              **timed(1, 512, 40, 8, 128)}}
     library = ("F.scaled_dot_product_attention forward + backward (library_ms); its "
                "backward alone (library_bwd_ms)")
     note = ("no Pallas backward exists; the gradient of the TPU kernel's function, which "
@@ -1383,7 +1450,8 @@ def check_flash_bwd(torch, timer, results):
         "library_ms": xl["library_ms"], "library_bwd_ms": xl["library_bwd_ms"],
         "library": library,
         "qwen3": {"shape": "bf16 B=2 S=1024 H=16 Hkv=8 hd=128 causal (one training layer)",
-                  **q3}}
+                  **q3},
+        "families": fam}
     results["flash_attention_bwd"] = {
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
@@ -1408,28 +1476,33 @@ def check_flash_bwd(torch, timer, results):
 # ---------------------------------------------------------------------------
 
 
-def rollout(torch, params, cfg, toks, S, D, pcfg, device):
-    """Teacher-forced paged prefill + D decode steps -> (D + 1, V) logits."""
+def rollouts(torch, params, cfg, toks, S, D, pcfg, device):
+    """Teacher-forced paged rollouts of the P rows of ``toks`` (P, S + D)
+    in one pool: each row's prefill, then D decode steps over all P slots
+    at once -> (P, D + 1, V) logits."""
     from repro_torch.parallel.steps import build_paged_serve_steps
 
+    P = toks.shape[0]
     bundle = build_paged_serve_steps(cfg, pcfg=pcfg, device=device)
     pools = bundle.init_pools()
     bs = pcfg.block_size
     pad = (-S) % bs
-    n_blocks = pcfg.blocks_for(S + pad + D)
-    table = torch.arange(1, 1 + n_blocks, dtype=torch.int32, device=device)
-    prompt = torch.zeros((1, S + pad), dtype=torch.int32, device=device)
-    prompt[0, :S] = toks[:S].to(device)
-    lg, pools = bundle.prefill_step(params, prompt, pools, table[: (S + pad) // bs], S - 1)
-    out = [lg[0].float().cpu()]
+    n = pcfg.blocks_for(S + pad + D)
+    tables = (1 + torch.arange(P * n, dtype=torch.int32, device=device)).view(P, n)
+    out = [[] for _ in range(P)]
+    for p in range(P):
+        prompt = torch.zeros((1, S + pad), dtype=torch.int32, device=device)
+        prompt[0, :S] = toks[p, :S].to(device)
+        lg, pools = bundle.prefill_step(params, prompt, pools, tables[p, : (S + pad) // bs],
+                                        S - 1)
+        out[p].append(lg[0].float().cpu())
     for t in range(D):
-        pos = S + t
-        lg, pools = bundle.decode_step(
-            params, pools, toks[pos:pos + 1].to(device),
-            torch.tensor([pos], dtype=torch.int32, device=device), table[None],
-            torch.tensor([pos + 1], dtype=torch.int32, device=device))
-        out.append(lg[0].float().cpu())
-    return torch.stack(out)
+        pos = torch.full((P,), S + t, dtype=torch.int32, device=device)
+        lg, pools = bundle.decode_step(params, pools, toks[:, S + t].to(device), pos, tables,
+                                       pos + 1)
+        for p in range(P):
+            out[p].append(lg[p].float().cpu())
+    return torch.stack([torch.stack(o) for o in out])
 
 
 def e2e_vs_cpu(torch, counters):
@@ -1447,12 +1520,12 @@ def e2e_vs_cpu(torch, counters):
     pcfg = PagedCacheConfig(num_blocks=32, block_size=16, dtype="float32")
     for c in counters.values():
         c.launches = 0
-    card = rollout(torch, params_gpu, cfg, toks, S, D, pcfg, "cuda")
+    card = rollouts(torch, params_gpu, cfg, toks[None], S, D, pcfg, "cuda")[0]
     launches = {k: c.launches for k, c in counters.items()}
-    cpu = rollout(torch, params_cpu, cfg, toks, S, D, pcfg, "cpu")
+    cpu = rollouts(torch, params_cpu, cfg, toks[None], S, D, pcfg, "cpu")[0]
     err = float((card - cpu).abs().max())
-    q8 = rollout(torch, params_gpu, cfg, toks, S, D,
-                 dataclasses.replace(pcfg, quantized=True), "cuda")
+    q8 = rollouts(torch, params_gpu, cfg, toks[None], S, D,
+                  dataclasses.replace(pcfg, quantized=True), "cuda")[0]
     err8 = float((q8 - card).abs().max())
     lim8 = 0.02 * float(card.abs().max())
     emit({"phase": "e2e_vs_cpu", "config": "gpt2-xl width, 4 layers, float32",
@@ -1592,9 +1665,9 @@ def _kv_rollouts(torch, params, cfg):
     toks = torch.randint(0, cfg.vocab_size, (S + D,), dtype=torch.int32,
                          generator=torch.Generator().manual_seed(12))
     pcfg = PagedCacheConfig(num_blocks=16, block_size=16)
-    return (rollout(torch, params, cfg, toks, S, D, pcfg, "cuda"),
-            rollout(torch, params, cfg, toks, S, D,
-                    dataclasses.replace(pcfg, quantized=True), "cuda"))
+    return (rollouts(torch, params, cfg, toks[None], S, D, pcfg, "cuda")[0],
+            rollouts(torch, params, cfg, toks[None], S, D,
+                     dataclasses.replace(pcfg, quantized=True), "cuda")[0])
 
 
 def _rel(a, b) -> float:  # max |a - b| over max |b|
@@ -1652,6 +1725,100 @@ def int8_kv_depth(torch):
           "bf16_vs_f32": _rel(out["bf16"], out["f32"])})
     if not all(bool(torch.isfinite(t).all()) for t in out.values()):
         raise AssertionError("int8_kv_depth: non-finite logits")
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: MiniCPM-2B, Granite-8B and Qwen3-14B at full width
+# ---------------------------------------------------------------------------
+
+FAMILIES = ("minicpm-2b", "granite-8b", "qwen3-14b")
+
+
+def serve_families(torch, counters, *, kvs=(False, True)):
+    """``serve``'s traffic through each family's full model (weights made
+    on the card in serving storage, freed before the next family), with
+    bf16 KV and then int8 KV (``kvs``: the whole script runs bf16 KV only,
+    for its time limit; ``--families`` runs both); ``serve`` checks every
+    launch count, the RMSNorm and decode ones at the family's depth."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry as R
+
+    lines = []
+    for arch in FAMILIES:
+        cfg = get_config(arch)
+        t0 = time.perf_counter()
+        params = R.init_params(cfg, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        for q in kvs:
+            line = serve(torch, params, cfg, counters, quantized=q, phase="serve_families")
+            line["init_s"] = t_init
+            line["run"] = f"serve_families_{arch}_{line['kv']}"
+            lines.append(line)
+        del params
+        free_cuda(torch)
+    return lines
+
+
+def families_vs_cpu(torch, counters):
+    """Each family at full width, 2 layers, fp32, the same seeded weights
+    on the card (kernels) and on the CPU (plain versions): 4 prompts of 64
+    tokens, their prefills, then 8 decode steps over the 4 slots. Every
+    logit within 1e-3 card vs CPU; the card's int8-KV logits within 2% of
+    max |logit| of its fp32-KV ones; every launch count exact."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry as R
+    from repro_torch.models.transformer import param_leaves, with_leaves
+    from repro_torch.serve.kv_cache import PagedCacheConfig
+
+    P, S, D = 4, 64, 8
+    fp32_runs = []
+    for arch in FAMILIES:
+        cfg = get_config(arch).replace(num_layers=2, dtype="float32")
+        t0 = time.perf_counter()
+        params_gpu = R.init_params(cfg, seed=0, device="cuda")
+        params_cpu = with_leaves(params_gpu, {n: t.cpu() for n, t in param_leaves(params_gpu)})
+        toks = torch.randint(0, cfg.vocab_size, (P, S + D), dtype=torch.int32,
+                             generator=torch.Generator().manual_seed(21))
+        pcfg = PagedCacheConfig(num_blocks=P * 5 + 1, block_size=16, dtype="float32")
+        for c in counters.values():
+            c.launches = 0
+        card = rollouts(torch, params_gpu, cfg, toks, S, D, pcfg, "cuda")
+        launches = {k: c.launches for k, c in counters.items()}
+        q8 = rollouts(torch, params_gpu, cfg, toks, S, D,
+                      dataclasses.replace(pcfg, quantized=True), "cuda")
+        t_card = time.perf_counter() - t0
+        cpu = rollouts(torch, params_cpu, cfg, toks, S, D, pcfg, "cpu")
+        err = float((card - cpu).abs().max())
+        err8, lim8 = float((q8 - card).abs().max()), 0.02 * float(card.abs().max())
+        L = cfg.num_layers
+        expect = {"flash_attention": P * L, "flash_attention_bwd": 0, "flash_attention_tc": 0,
+                  "flash_attention_bwd_tc": 0, "paged_decode_attention": D * L,
+                  "quantize_blockwise": 0, "dequantize_blockwise": 0, "pier_update": 0,
+                  "rmsnorm": (P + D) * norm_launches(cfg), "rmsnorm_bwd": 0}
+        emit({"phase": "families_vs_cpu", "arch": arch,
+              "config": f"{arch} width, {L} layers, float32", "heads": cfg.num_heads,
+              "kv_heads": cfg.num_kv_heads, "head_dim": cfg.resolved_head_dim,
+              "tied": cfg.tie_embeddings, "vocab": cfg.vocab_size, "prompts": P, "prompt": S,
+              "decode_steps": D, "max_abs_logit_err_card_vs_cpu": err, "tol": 1e-3,
+              "max_abs_logit": float(card.abs().max()), "int8_vs_fp32_max_abs_err": err8,
+              "int8_tol": lim8, "greedy_agree_card_vs_cpu": float(
+                  (card.argmax(-1) == cpu.argmax(-1)).float().mean()),
+              "card_launches": launches, "expected_launches": expect,
+              "card_seconds": t_card, "seconds": time.perf_counter() - t0})
+        if not (bool(torch.isfinite(card).all()) and card.shape == (P, D + 1, cfg.vocab_size)):
+            raise AssertionError(f"families_vs_cpu {arch}: non-finite logits or wrong shape")
+        if err > 1e-3:
+            raise AssertionError(f"families_vs_cpu {arch}: card vs cpu logits differ by {err}")
+        if err8 > lim8:
+            raise AssertionError(f"families_vs_cpu {arch}: int8 KV logits differ by {err8} > "
+                                 f"{lim8}")
+        if launches != expect:
+            raise AssertionError(f"families_vs_cpu {arch}: launches {launches} != {expect}")
+        fp32_runs.append(launches)
+        del params_gpu, params_cpu
+        free_cuda(torch)
+    return fp32_runs
 
 
 # ---------------------------------------------------------------------------
@@ -1762,6 +1929,11 @@ TRAIN_TC = dict(total_steps=40, sync_interval=2, warmup_frac=0.1)
 # outer sync (``--witness-lr`` shows it without the attention kernels too);
 # a run this short takes a gentler LR, warmed up over the 4 lazy-start steps.
 TRAIN_LR = dict(inner_lr=5e-5, inner_min_lr=5e-6, lr_warmup_frac=0.1)
+# MiniCPM's WSD inner schedule over a 20-step run taken to its end: LR
+# warmup over steps 0-2, stable to step 14, the linear decay over 15-19
+MINICPM_SCHEDULE = dict(total_steps=20, sync_interval=2, warmup_frac=0.1, inner_lr=5e-5,
+                        inner_min_lr=5e-6, lr_schedule="wsd", lr_warmup_frac=0.15,
+                        wsd_decay_frac=0.25)
 
 
 def _quant_launches(strategy, G: int, P: int):
@@ -2247,20 +2419,25 @@ def _timed(torch, times, kind, fn):
 
 
 def train(torch, counters, *, phase: str = "train", outer_comm=None,
-          arch: str = "gpt2-xl"):
-    """Full ``arch`` (GPT-2 XL by default) through SimulatedRun on the
-    card; returns the run and its line. ``outer_comm`` (an
-    ``OuterCommConfig``) picks the outer strategy; the default is the flat
-    fp32 mean."""
+          arch: str = "gpt2-xl", layers: int = 0, steps: int = 10, schedule=None):
+    """Full ``arch`` (GPT-2 XL by default; ``layers`` cuts its depth)
+    through SimulatedRun on the card; returns the run and its line.
+    ``outer_comm`` (an ``OuterCommConfig``) picks the outer strategy; the
+    default is the flat fp32 mean. ``schedule``: TrainConfig fields in
+    place of ``TRAIN_TC`` and ``TRAIN_LR``. The LR each step took must be
+    the schedule's ``lr_at``."""
     from repro_torch.config import OuterCommConfig, TrainConfig
     from repro_torch.configs import get_config
     from repro_torch.core.simulate import SimulatedRun
     from repro_torch.models.transformer import param_leaves
+    from repro_torch.optim.schedules import lr_at
 
     cfg = get_config(arch)  # bf16 compute, fp32 parameters
-    G, per, seq, steps = 2, 2, 1024, 10
-    tc = TrainConfig(**TRAIN_TC, **TRAIN_LR, global_batch_size=G * per, seq_len=seq,
-                     sync_delay=0, outer_comm=outer_comm or OuterCommConfig())
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
+    G, per, seq = 2, 2, 1024
+    tc = TrainConfig(**(schedule or {**TRAIN_TC, **TRAIN_LR}), global_batch_size=G * per,
+                     seq_len=seq, sync_delay=0, outer_comm=outer_comm or OuterCommConfig())
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     run = SimulatedRun(cfg, tc, num_groups=G, seed=0, device="cuda")
@@ -2303,11 +2480,15 @@ def train(torch, counters, *, phase: str = "train", outer_comm=None,
         "tokens_per_s_run": (warm * tokens_warm + (steps - warm) * tokens_inner) / wall,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "inner_lr": tc.inner_lr, "loss": hist["train_loss"],
+        "inner_lr": tc.inner_lr, "lr_schedule": tc.lr_schedule, "lr": hist["lr"],
+        "loss": hist["train_loss"],
         "val_loss_before": val_before, "val_loss_after": val_after,
         "launches": launches, "expected_launches": expect,
     }
     emit(line)
+    want_lr = [float(lr_at(tc, s)) for s in range(steps)]
+    if hist["lr"] != want_lr:
+        raise AssertionError(f"{phase}: the run's LR {hist['lr']} != lr_at's {want_lr}")
     loss = hist["train_loss"] + [val_before, val_after]
     if not all(math.isfinite(x) for x in loss):
         raise AssertionError(f"{phase}: non-finite loss {loss}")
@@ -2771,10 +2952,10 @@ def check_ring(torch, results):
 
 def _dist_expect(strategy, E: int, leaves: int, cfg, steps: int, syncs: int):
     """Launches of one rank's main path: its one replica's attention (on
-    the tensor cores by ``tc_rule``), the outer update, and the
+    the tensor cores by ``tc_rule``) and norms, the outer update, and the
     exchange's kernels per leaf and sync as ``sync/strategies.py`` makes
     them (``E`` the wire's endpoints)."""
-    from repro_torch.sync import Hierarchical, Int8Wire
+    from repro_torch.sync import Hierarchical, Int8Wire, Quantized
 
     inner = strategy.inner if isinstance(strategy, Hierarchical) else strategy
     nq = ndq = ring = scatter = 0
@@ -2785,13 +2966,16 @@ def _dist_expect(strategy, E: int, leaves: int, cfg, steps: int, syncs: int):
             nq, ndq, ring, scatter = 2, 1 + E + 1 + E, 1, 1
         else:
             nq, ndq, ring = 1, 1 + E, 1
+    elif isinstance(inner, Quantized):  # compress_leaf: one of each a leaf
+        nq, ndq = 1, 1
     fwd = cfg.num_layers * steps
     tc = fwd if tc_rule(cfg.dtype, cfg.resolved_head_dim) else 0
     return {"flash_attention": fwd, "flash_attention_bwd": fwd,
             "flash_attention_tc": tc, "flash_attention_bwd_tc": tc,
             "pier_update": leaves * syncs, "quantize_blockwise": nq * leaves * syncs,
             "dequantize_blockwise": ndq * leaves * syncs, "ring_allgather": ring * syncs,
-            "shard_scatter": scatter * syncs}
+            "shard_scatter": scatter * syncs, "rmsnorm": norm_launches(cfg) * steps,
+            "rmsnorm_bwd": norm_launches(cfg) * steps}
 
 
 def _syncs(tc, steps):
@@ -2810,13 +2994,18 @@ DIST_VS_SIM = [("flat_d0", {}, 2, 1, 0), ("flat_d1", {}, 2, 1, 1),
                ("rs_ag_d0", {"compression": "rs-ag"}, 2, 1, 0),
                ("rs_ag_d1", {"compression": "rs-ag"}, 2, 1, 1),
                ("hier_int8_wire_g4_p2", {"compression": "int8-wire", "hierarchical": True},
-                4, 2, 1)]
+                4, 2, 1),
+               # an RMSNorm family through the Trainer (its rmsnorm counters)
+               ("qwen3_int8_wire_d0", {"compression": "int8-wire"}, 2, 1, 0)]
+DIST_VS_SIM_ARCH = {"qwen3_int8_wire_d0": "qwen3-1.7b"}  # the rest: gpt2-medium
+DIST_VS_SIM_BITWISE = ("qwen3_int8_wire_d0",)
 
 
 def train_dist_vs_sim(torch):
     """The Trainer (ranks on the card) against ``SimulatedRun`` on the card:
-    GPT-2 medium width, 2 layers, fp32, per-group batch 2 x 256, 8 steps of
-    the 40-step schedule with no lazy start (four outer syncs)."""
+    GPT-2 medium width (Qwen3-1.7B width for the RMSNorm case), 2 layers,
+    fp32, per-group batch 2 x 256, 8 steps of the 40-step schedule with no
+    lazy start (four outer syncs)."""
     from repro_torch.config import OuterCommConfig, ParallelConfig, TrainConfig
     from repro_torch.configs import get_config
     from repro_torch.core.simulate import SimulatedRun
@@ -2825,10 +3014,12 @@ def train_dist_vs_sim(torch):
     from repro_torch.models.transformer import param_leaves
     from repro_torch.sync import resolve_strategy
 
-    cfg = get_config("gpt2-medium").replace(num_layers=2, dtype="float32")
     steps, per, seq, tol = 8, 2, 256, 1e-5
-    base = R.init_params(cfg, seed=0, device="cpu", training=True)
-    sd = {k: v.detach().clone() for k, v in base.state_dict().items()}
+    cfgs, bases, sds = {}, {}, {}
+    for arch in ("gpt2-medium", "qwen3-1.7b"):
+        cfgs[arch] = get_config(arch).replace(num_layers=2, dtype="float32")
+        bases[arch] = R.init_params(cfgs[arch], seed=0, device="cpu", training=True)
+        sds[arch] = {k: v.detach().clone() for k, v in bases[arch].state_dict().items()}
     seen = []
     for E in (2, 4):
         cases = [c for c in DIST_VS_SIM if c[2] == E]
@@ -2839,14 +3030,17 @@ def train_dist_vs_sim(torch):
             tc = tc.replace(warmup_frac=0.0)
             pc = ParallelConfig(data_axis_size=ranks // P, data_outer=ranks // P, num_pods=P)
             tcs.append(tc)
-            jobs.append(((cfg, tc, pc, steps), {"params": sd, "keep_params": True}))
+            arch = DIST_VS_SIM_ARCH.get(name, "gpt2-medium")
+            jobs.append(((cfgs[arch], tc, pc, steps), {"params": sds[arch], "keep_params": True}))
         t0 = time.perf_counter()
         outs = spawn(train_jobs, (jobs,), nproc=E, device="cuda", timeout=DIST_DEADLINE_S)
         t_dist = time.perf_counter() - t0
         for i, (name, comm, ranks, P, delay) in enumerate(cases):
             tc = tcs[i]
+            arch = DIST_VS_SIM_ARCH.get(name, "gpt2-medium")
+            cfg = cfgs[arch]
             run = SimulatedRun(cfg, tc, num_groups=ranks, num_pods=P, device="cuda",
-                               params=copy.deepcopy(base))
+                               params=copy.deepcopy(bases[arch]))
             hist = run.run(steps)
             run.flush()
             torch.cuda.synchronize()
@@ -2858,21 +3052,26 @@ def train_dist_vs_sim(torch):
                 sim = [t.detach().cpu() for _, t in param_leaves(run.state.group_params[g])]
                 p_err = max(p_err, max(float((a - b).abs().max()) for a, b in zip(mine, sim)))
                 bitwise = bitwise and all(torch.equal(a, b) for a, b in zip(mine, sim))
+            bitwise = bitwise and loss == hist["train_loss"]
             syncs, _ = _syncs(tc, steps)
             E_wire = P if comm.get("hierarchical") else ranks
-            expect = _dist_expect(resolve_strategy(tc), E_wire, len(sd), cfg, steps, syncs)
+            expect = _dist_expect(resolve_strategy(tc), E_wire, len(sds[arch]), cfg, steps,
+                                  syncs)
             launches = [o[i]["launches"] for o in outs]
             emit({"phase": "train_dist_vs_sim", "case": name, "strategy": outs[0][i]["strategy"],
-                  "config": "gpt2-medium width, 2 layers, float32", "ranks": ranks, "pods": P,
+                  "config": f"{arch} width, 2 layers, float32", "ranks": ranks, "pods": P,
                   "sync_delay": delay, "steps": steps, "outer_syncs": syncs,
                   "per_group_batch": per, "seq_len": seq, "loss_dist": loss,
                   "loss_sim": hist["train_loss"], "max_abs_loss_err": loss_err,
                   "max_abs_param_err": p_err, "tol": tol, "bitwise_equal": bitwise,
+                  "bitwise_required": name in DIST_VS_SIM_BITWISE,
                   "launches_rank0": launches[0], "expected_launches_per_rank": expect,
                   "backend": outs[0][i]["backend"], "world_seconds": t_dist})
             if loss_err > tol or p_err > tol:
                 raise AssertionError(f"train_dist_vs_sim {name}: loss err {loss_err}, param "
                                      f"err {p_err} (limit {tol})")
+            if name in DIST_VS_SIM_BITWISE and not bitwise:
+                raise AssertionError(f"train_dist_vs_sim {name}: not bit for bit the simulator")
             if any(ln != expect for ln in launches):
                 raise AssertionError(f"train_dist_vs_sim {name}: launches {launches} != "
                                      f"{expect} per rank")
@@ -3378,15 +3577,19 @@ def train_dist_elastic_vs_sim(torch):
 
 def train_dist_auto(torch):
     """Full GPT-2 medium, 2 ranks sharing the card, ``sync_delay="auto"``:
-    the measured controller, then the adaptive ladder, 12 steps of the
+    the measured controller, then the adaptive ladder, 14 steps of the
     40-step schedule (accumulates after steps 1, 3; outer windows after
-    steps 5, 7, 9, 11: the sixth window closes the first measurement)."""
+    steps 5, 7, 9, 11, 13: the sixth window closes the first measurement,
+    and a ladder that switches there dispatches the window after step 13
+    on its new rung, whose quantize and dequantize launches must be
+    exactly that strategy's for one window)."""
     from repro_torch.config import ParallelConfig, TrainConfig
     from repro_torch.configs import get_config
     from repro_torch.launch.train import spawn, train_jobs
+    from repro_torch.sync import default_ladder, resolve_strategy
 
     cfg = get_config("gpt2-medium")
-    G, per, seq, steps = 2, 2, 1024, 12
+    G, per, seq, steps = 2, 2, 1024, 14
     pc = ParallelConfig(data_axis_size=G, data_outer=G)
     tc = TrainConfig(**TRAIN_TC, **TRAIN_LR, global_batch_size=G * per, seq_len=seq,
                      sync_delay="auto")
@@ -3413,11 +3616,32 @@ def train_dist_auto(torch):
                 "launches_per_rank": [o[i]["launches"] for o in outs],
                 "peak_mem_gb_per_rank": [o[i]["peak_mem_bytes"] / 1e9 for o in outs],
                 "wall_s": r0["wall_s"], "world_seconds": wall}
+        # the strategy each outer window dispatched on: the configured one,
+        # then whatever the decision after the window before left in place
+        used = [resolve_strategy(tc).name] + [w["strategy"] for w in r0["windows"][:-1]]
+        ladder = {x.name: x for x in default_ladder(resolve_strategy(tc))}
+        expect = _dist_window_expect([ladder[n] for n in used], G, r0["leaves"], cfg, steps)
+        line["windows_by_strategy"] = {n: used.count(n) for n in dict.fromkeys(used)}
+        line["quantize_launches_per_rank"] = [o[i]["launches"]["quantize_blockwise"]
+                                              for o in outs]
+        line["dequantize_launches_per_rank"] = [o[i]["launches"]["dequantize_blockwise"]
+                                                for o in outs]
+        line["expected_quantize_dequantize"] = [expect["quantize_blockwise"],
+                                                expect["dequantize_blockwise"]]
         emit(line)
         lines.append(line)
         loss = line["loss"] + [line["val_loss_before"], line["val_loss_after"]]
         if not all(math.isfinite(x) for x in loss):
             raise AssertionError(f"train_dist_auto {line['controller']}: non-finite loss")
+        if adaptive and len(line["windows_by_strategy"]) < 2:
+            raise AssertionError(f"train_dist_auto adaptive: no window ran on a new rung "
+                                 f"(decisions {r0['decisions']})")
+        got = list(zip(line["quantize_launches_per_rank"],
+                       line["dequantize_launches_per_rank"]))
+        if any(list(g) != line["expected_quantize_dequantize"] for g in got):
+            raise AssertionError(f"train_dist_auto {line['controller']}: quantize / dequantize "
+                                 f"launches {got} != {line['expected_quantize_dequantize']} "
+                                 f"per rank (windows {line['windows_by_strategy']})")
         if not line["val_loss_after"] < line["val_loss_before"]:
             raise AssertionError(f"train_dist_auto {line['controller']}: validation loss did "
                                  f"not fall: {line['val_loss_before']} -> "
@@ -3425,13 +3649,15 @@ def train_dist_auto(torch):
     return lines
 
 
-def train_dist_ckpt(torch, layers: int = 4):
+def train_dist_ckpt(torch, layers: int = 4, counters=None):
     """GPT-2 medium width at ``layers`` layers, 2 ranks sharing the card, int8-wire:
-    10 steps with outer-state offload; 6 steps without it and a save; a fresh run whose
+    10 steps with outer-state offload; 6 steps without it and a save (one
+    checkpoint of both ranks, in the reference's layout); a fresh run whose
     ``rejoin_bootstrap="checkpoint"`` rejoin takes the saved step's anchor;
     then a fresh world restores the checkpoint and runs to step 10 with
     offload (bit for bit the uninterrupted run, which also shows that
-    offload changes no bit)."""
+    offload changes no bit). With ``counters``, then the ``handoff`` phase
+    on the saved checkpoint."""
     import numpy as np
 
     from repro_torch.config import MembershipConfig, OuterCommConfig, ParallelConfig, TrainConfig
@@ -3457,7 +3683,7 @@ def train_dist_ckpt(torch, layers: int = 4):
         # bootstraps right after its apply from the checkpoint saved before
         first = spawn(train_jobs, ([((cfg, off, pc, steps), {"keep_params": True}),
                                     ((cfg, tc, pc, at), {"checkpoint_dir": str(ck),
-                                                         "save": True}),
+                                                         "save": True, "keep_params": True}),
                                     ((cfg, donor_tc, pc, 6),
                                      {"keep_params": True, "checkpoint_dir": str(ck),
                                       "churn": "drop:1@0,rejoin:1@1"})],),
@@ -3467,13 +3693,16 @@ def train_dist_ckpt(torch, layers: int = 4):
                                        "restore": True})],),
                        nproc=G, device="cuda", timeout=DIST_DEADLINE_S)
         wall = time.perf_counter() - t0
-        step_dir = ck / "rank00001" / f"step_{at:08d}"
+        step_dir = ck / f"step_{at:08d}"
         with np.load(str(step_dir / "outer.npz")) as data:
             saved = {k[len("anchor/"):]: torch.from_numpy(data[k])
                      for k in data.files if k.startswith("anchor/")}
         disk = sum(f.stat().st_size for f in ck.rglob("*") if f.is_file())
+        handoff_line = (handoff(torch, counters, cfg, ck, at, first[0][1])
+                        if counters is not None else None)
     finally:
         shutil.rmtree(ck, ignore_errors=True)
+        shutil.rmtree(ck.parent / "handoff_watch", ignore_errors=True)
     full, part, donor = ([o[i] for o in first] for i in range(3))
     rest = [o[0] for o in second]
     same = all(all(torch.equal(a, b) for a, b in zip(f["params"], r["params"]))
@@ -3505,6 +3734,121 @@ def train_dist_ckpt(torch, layers: int = 4):
         raise AssertionError("train_dist_ckpt: the resumed run is not the uninterrupted one")
     if not donor_ok:
         raise AssertionError("train_dist_ckpt: the checkpoint donor is not the saved anchor")
+    return line, handoff_line
+
+
+def handoff(torch, counters, cfg, ck, step: int, saved):
+    """The train -> serve handoff: a ``ServeEngine`` (``cfg`` in serving
+    storage, other seeded weights) serves ``serve``'s traffic with a
+    ``CheckpointPoller`` on group 0 of a directory that is empty until
+    decode step ``K``, when ``train_dist_ckpt``'s checkpoint (rank 0's
+    parameters ``saved``) appears in it. Exactly one swap, at that step
+    boundary; the served leaves are the saved parameters cast to serving
+    storage, bit for bit; the requests admitted after the swap give a
+    fresh engine's greedy tokens on those parameters, with every logit
+    within 1e-3 of max |logit|; the pool drains to empty; launches exact."""
+    import numpy as np
+
+    from repro_torch.models import registry as R
+    from repro_torch.models.transformer import param_leaves, with_leaves
+    from repro_torch.parallel.steps import build_paged_serve_steps
+    from repro_torch.serve import CheckpointPoller, EngineConfig, PagedCacheConfig, ServeEngine
+
+    K = 4
+    watched = ck.parent / "handoff_watch"
+    shutil.rmtree(watched, ignore_errors=True)
+    watched.mkdir()
+    slots, new_tokens, bs = 4, 32, 16
+    lens = [128, 256, 384, 512] * 2
+    need = -(-(max(lens) + new_tokens) // bs)
+    pcfg = PagedCacheConfig(num_blocks=need * slots + 1, block_size=bs)
+    ecfg = EngineConfig(max_slots=slots, max_new_tokens=new_tokens, greedy=True,
+                        max_blocks_per_seq=need)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in lens]
+
+    def engine_on(params):
+        """An engine with every request submitted, keeping each request's
+        logits (prefills run in submission order)."""
+        eng = ServeEngine(params, cfg, build_paged_serve_steps(cfg, pcfg=pcfg, device="cuda"),
+                          pcfg, ecfg)
+        logits, b, order = {}, eng.bundle, iter(range(1, len(lens) + 1))
+
+        def prefill(*args):
+            lg, pools = b.prefill_step(*args)
+            logits[next(order)] = [lg[0].float().cpu()]
+            return lg, pools
+
+        def decode(*args):
+            lg, pools = b.decode_step(*args)
+            for i, sq in enumerate(eng.slots):
+                if sq is not None:
+                    logits[sq.req.uid].append(lg[i].float().cpu())
+            return lg, pools
+
+        eng.bundle = dataclasses.replace(b, prefill_step=prefill, decode_step=decode)
+        for p in prompts:
+            eng.submit(p, new_tokens)
+        return eng, logits
+
+    serving = R.init_params(cfg, seed=1, device="cuda")
+    eng, logits = engine_on(serving)
+    poller = CheckpointPoller(str(watched), serving, group=0)
+    swaps = []
+
+    def on_step(e):
+        if e.stats["decode_steps"] == K and not any(watched.iterdir()):
+            os.rename(ck / f"step_{step:08d}", watched / f"step_{step:08d}")
+        n = len(poller.swapped_steps)
+        poller.on_step(e)
+        if len(poller.swapped_steps) > n:
+            swaps.append(e.stats["decode_steps"])
+
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    results = eng.run(on_step=on_step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    served = dict(param_leaves(eng.params))
+    cast = {n: t.to("cuda", served[n].dtype) for n, t in zip(saved["param_names"],
+                                                              saved["params"])}
+    exact = sorted(cast) == sorted(served) and all(torch.equal(served[n], cast[n])
+                                                   for n in served)
+    fresh, fresh_logits = engine_on(with_leaves(serving, cast))
+    fresh.run()
+    late = [r.uid for r in results if r.uid > slots]  # admitted when the first wave drained
+    tokens = {r.uid: r.tokens for r in fresh.finished}
+    same_tokens = all(tokens[r.uid] == r.tokens for r in results if r.uid in late)
+    err = max(_rel(torch.stack(logits[u]), torch.stack(fresh_logits[u])) for u in late)
+    st = eng.stats
+    L = cfg.num_layers
+    expect = {"flash_attention": st["prefills"] * L, "flash_attention_bwd": 0,
+              "flash_attention_tc": (st["prefills"] * L
+                                     if tc_rule(cfg.dtype, cfg.resolved_head_dim) else 0),
+              "flash_attention_bwd_tc": 0, "paged_decode_attention": st["decode_steps"] * L,
+              "quantize_blockwise": 0, "dequantize_blockwise": 0, "pier_update": 0,
+              "rmsnorm": norm_launches(cfg) * (st["prefills"] + st["decode_steps"]),
+              "rmsnorm_bwd": 0}
+    drained = eng.alloc.num_free == pcfg.num_blocks - 1
+    line = {"phase": "handoff", "config": f"{cfg.name} {L} layers, bf16 serving storage",
+            "checkpoint": f"train_dist_ckpt's step {step} (2 ranks, int8-wire), group 0",
+            "appears_after_decode_step": K, "swapped_steps": poller.swapped_steps,
+            "swapped_at_decode_step": swaps, "served_equal_saved_cast": exact,
+            "requests_after_swap": late, "greedy_equal_fresh_engine": same_tokens,
+            "max_logit_err_over_max_abs": err, "tol": 1e-3, "pool_drained": drained,
+            "tokens_out": st["tokens_out"], "wall_s": wall, "launches": launches,
+            "expected_launches": expect}
+    emit(line)
+    if poller.swapped_steps != [step] or swaps != [K]:
+        raise AssertionError(f"handoff: swaps {poller.swapped_steps} at decode steps {swaps}, "
+                             f"not one of step {step} at {K}")
+    if not (exact and same_tokens and err <= 1e-3 and drained and late):
+        raise AssertionError(f"handoff: served leaves equal {exact}, tokens equal "
+                             f"{same_tokens}, logit err {err}, drained {drained}, late {late}")
+    if launches != expect:
+        raise AssertionError(f"handoff: launches {launches} != {expect}")
     return line
 
 
@@ -3529,7 +3873,7 @@ CUDA_CORE_FLASH = ("flash_attention", "flash_attention_bwd")
 
 def main(argv) -> int:
     studies = {"--witness-lr", "--build-times", "--int8-kv-depth", "--flash-precision",
-               "--norm-quant", "--elastic", "--ckpt-depth"}
+               "--norm-quant", "--elastic", "--ckpt-depth", "--families"}
     if len(argv) > 1 or not set(argv) <= studies:
         print(f"usage: chip_smoke.py [{' | '.join(sorted(studies))}]", file=sys.stderr)
         return 2
@@ -3593,6 +3937,9 @@ def main(argv) -> int:
     if argv == ["--ckpt-depth"]:
         train_dist_ckpt(torch, layers=24)
         return 0
+    if argv == ["--families"]:
+        serve_families(torch, counters)
+        return 0
     results = {}
     timer = Timer(torch)
     if argv == ["--norm-quant"]:
@@ -3631,6 +3978,7 @@ def main(argv) -> int:
     qwen3_int8_kv(torch, params, cfg)
     del params
     torch.cuda.empty_cache()
+    serves += serve_families(torch, counters, kvs=(False,))  # int8 KV: --families
 
     with large_allocations_on_the_heap() as raised:
         emit({"phase": "host_malloc", "thresholds_raised": raised})
@@ -3638,6 +3986,8 @@ def main(argv) -> int:
         fp32_runs += train_compressed_vs_cpu(torch, counters)
         free_cuda(torch)
         fp32_runs += qwen3_vs_cpu(torch, counters)
+        free_cuda(torch)
+        fp32_runs += families_vs_cpu(torch, counters)
     free_cuda(torch)
     flash_tc_vs_plain(torch, counters)
     free_cuda(torch)
@@ -3658,16 +4008,20 @@ def main(argv) -> int:
     train_breakdown(torch, run, phase="train_qwen3_breakdown")
     del run
     free_cuda(torch)
+    run, minicpm_line = train(torch, counters, phase="train_minicpm", arch="minicpm-2b",
+                              layers=4, steps=20, schedule=MINICPM_SCHEDULE)
+    del run
+    free_cuda(torch)
     elastic_line = train_elastic(torch, counters)
     free_cuda(torch)
-    trains = [train_line, compressed_line, qwen3_line, elastic_line]
+    trains = [train_line, compressed_line, qwen3_line, minicpm_line, elastic_line]
     runs = serves + trains
     fp32_runs += train_dist_vs_sim(torch)
     free_cuda(torch)
     dists = train_dist(torch)
     fp32_runs += elastic_phases(torch, counters)
     dists += train_dist_auto(torch)
-    train_dist_ckpt(torch)
+    _, handoff_line = train_dist_ckpt(torch, counters=counters)
 
     def count(launches, name):  # one run's launches of kernel `name`
         n = launches.get(name, 0)
@@ -3684,7 +4038,7 @@ def main(argv) -> int:
                  "ring_allgather", "shard_scatter", "rmsnorm", "rmsnorm_bwd",
                  *CUDA_CORE_FLASH):
         entry = dict(results[name])
-        single = sum(count(r["launches"], name) for r in runs)
+        single = sum(count(r["launches"], name) for r in runs + [handoff_line])
         main_path = single + sum(dist_launches(d, name) for d in dists)
         fp32 = sum(count(ln, name) for ln in fp32_runs)
         # the bf16 main paths run the tensor-core flash kernels; the
@@ -3692,8 +4046,9 @@ def main(argv) -> int:
         entry["launches"] = fp32 if name in CUDA_CORE_FLASH else main_path
         entry["launches_by_path"] = {
             "serve": sum(count(r["launches"], name) for r in serves),
-            "serve_by_run": {f"{r['phase']}_{r['kv']}": count(r["launches"], name)
-                             for r in serves},
+            "serve_by_run": {r.get("run", f"{r['phase']}_{r['kv']}"):
+                             count(r["launches"], name) for r in serves},
+            "handoff": count(handoff_line["launches"], name),
             "train": sum(count(r["launches"], name) for r in trains),
             "train_by_run": {r["phase"]: count(r["launches"], name) for r in trains},
             "train_dist_by_strategy": {d["strategy"]: dist_launches(d, name) for d in dists},

@@ -22,6 +22,13 @@ numbers. bf16 leaves have no numpy dtype: they are stored as the
 reference stores them (the raw two-byte values under the dtype string
 ``<V2``) and restored into a bf16 template by their bytes. The template's
 dtype is authoritative on restore, and every shape is checked.
+
+Large trees stream. A :class:`Rows` leaf is a stack that is written a row
+at a time as its iterator yields them (the Trainer's (G,)-stacked state,
+each row received from its group's rank), and
+:meth:`CheckpointManager.reader` reads one row of a stacked array without
+the others: a stored member is a contiguous byte range after its ``.npy``
+header, so a reader seeks to the row.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ import json
 import os
 import re
 import shutil
+import struct
 import time
 import warnings
 import zipfile
@@ -85,23 +93,129 @@ def _contiguous(arr: np.ndarray) -> np.ndarray:
     return arr if arr.flags.c_contiguous else arr.copy(order="C")  # keeps 0-d arrays 0-d
 
 
-def _npy_bytes(arr: np.ndarray) -> bytes:
+def _npy_header(shape, dtype: np.dtype) -> bytes:
+    """The ``.npy`` header of a C-ordered array; bf16 bytes get the
+    reference's ``'<V2'`` (numpy alone would write ``'|V2'``)."""
     buf = io.BytesIO()
-    if arr.dtype == np.dtype("V2"):
-        # the reference's bf16 header: '<V2' (numpy alone would write '|V2')
-        np.lib.format.write_array_header_1_0(
-            buf, {"descr": _BF16_DESCR, "fortran_order": False, "shape": arr.shape})
-        buf.write(_contiguous(arr).tobytes())
-    else:
-        np.lib.format.write_array(buf, _contiguous(arr), allow_pickle=False)
+    descr = _BF16_DESCR if dtype == np.dtype("V2") else np.lib.format.dtype_to_descr(dtype)
+    np.lib.format.write_array_header_1_0(
+        buf, {"descr": descr, "fortran_order": False, "shape": tuple(shape)})
     return buf.getvalue()
 
 
-def _write_npz(path: str, arrays: Dict[str, np.ndarray]) -> None:
-    """``np.savez``'s layout (stored, one ``key.npy`` a member)."""
+def _np_dtype(dtype) -> np.dtype:
+    """The numpy dtype that a leaf of torch or numpy ``dtype`` is stored as."""
+    if isinstance(dtype, torch.dtype):
+        return _to_numpy(torch.empty(0, dtype=dtype)).dtype
+    return np.dtype(dtype)
+
+
+class Rows:
+    """A leaf saved as the stack of ``n`` rows that ``rows`` yields in order,
+    each a tensor or numpy array of ``shape`` and ``dtype`` (a torch or a
+    numpy dtype): the archive member is written a row at a time, so one
+    row is in memory, not the stack."""
+
+    def __init__(self, n: int, shape, dtype, rows):
+        self.n, self.shape, self.dtype, self.rows = n, tuple(shape), _np_dtype(dtype), rows
+
+
+def _members(tree) -> List[Tuple[str, tuple, np.dtype, Any]]:
+    """(key, shape, dtype, chunks) of every leaf; the chunks' bytes, in
+    order, are the array's in C order. A tensor leaf is its own chunk, so
+    it reaches the host only as its member is written."""
+    out = []
+    for key, leaf in _flatten(tree):
+        if isinstance(leaf, Rows):
+            out.append((key, (leaf.n, *leaf.shape), leaf.dtype, leaf.rows))
+        elif isinstance(leaf, torch.Tensor):
+            out.append((key, tuple(leaf.shape), _np_dtype(leaf.dtype), [leaf]))
+        else:
+            arr = np.asarray(leaf)
+            out.append((key, arr.shape, arr.dtype, [arr]))
+    return out
+
+
+def _write_npz(path: str, members) -> List[str]:
+    """``np.savez``'s layout (stored, one ``key.npy`` a member), each member
+    streamed chunk by chunk. Returns the keys."""
+    keys = set()
     with zipfile.ZipFile(path, "w", compression=zipfile.ZIP_STORED, allowZip64=True) as z:
-        for k, a in arrays.items():
-            z.writestr(k + ".npy", _npy_bytes(a))
+        for key, shape, dtype, chunks in members:
+            if key in keys:
+                raise ValueError(f"duplicate checkpoint key {key!r}")
+            keys.add(key)
+            header = _npy_header(shape, dtype)
+            nbytes = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
+            info = zipfile.ZipInfo(key + ".npy", date_time=(1980, 1, 1, 0, 0, 0))
+            info.compress_type = zipfile.ZIP_STORED
+            info.file_size = len(header) + nbytes  # sizes the zip64 decision
+            with z.open(info, "w") as f:
+                f.write(header)
+                written = 0
+                for chunk in chunks:
+                    chunk = _contiguous(_to_numpy(chunk))
+                    f.write(chunk.reshape(-1).view(np.uint8))
+                    written += chunk.nbytes
+            if written != nbytes:
+                raise ValueError(f"checkpoint/{key}: {written} bytes written for a "
+                                 f"{shape} {dtype} array of {nbytes}")
+    return sorted(keys)
+
+
+_HEADER_READERS = {(1, 0): np.lib.format.read_array_header_1_0,
+                   (2, 0): np.lib.format.read_array_header_2_0}
+
+
+class _NpzRows:
+    """Reads arrays, or one row of a stacked array, out of a stored npz
+    without loading the rest: a stored member is a contiguous byte range
+    after its ``.npy`` header."""
+
+    def __init__(self, path: str):
+        self.path = path
+
+    def __enter__(self):
+        self.f = open(self.path, "rb")
+        self.z = zipfile.ZipFile(self.f)
+        return self
+
+    def __exit__(self, *exc):
+        self.z.close()
+        self.f.close()
+
+    def read(self, key: str, row: Optional[int] = None) -> np.ndarray:
+        """The array under ``key``, or its row ``row`` (``arr[row]``)."""
+        try:
+            info = self.z.getinfo(key + ".npy")
+        except KeyError:
+            raise KeyError(f"{key!r} is not in {self.path}") from None
+        if info.compress_type != zipfile.ZIP_STORED:  # np.savez stores; so do both managers
+            raise ValueError(f"{key!r} in {self.path} is compressed, not stored")
+        f = self.f
+        f.seek(info.header_offset)
+        local = struct.unpack(zipfile.structFileHeader, f.read(zipfile.sizeFileHeader))
+        f.seek(local[zipfile._FH_FILENAME_LENGTH] + local[zipfile._FH_EXTRA_FIELD_LENGTH], 1)
+        version = np.lib.format.read_magic(f)
+        if version not in _HEADER_READERS:
+            raise ValueError(f"{key!r}: .npy format version {version}")
+        shape, fortran, dtype = _HEADER_READERS[version](f)
+        if fortran:
+            raise ValueError(f"{key!r}: a Fortran-ordered array")
+        if row is not None:
+            if not shape or not 0 <= row < shape[0]:
+                raise ValueError(f"{key!r}: row {row} of an array of shape {shape}")
+            shape = shape[1:]
+            f.seek(row * int(np.prod(shape, dtype=np.int64)) * dtype.itemsize, 1)
+        buf = bytearray(int(np.prod(shape, dtype=np.int64)) * dtype.itemsize)
+        if f.readinto(buf) != len(buf):
+            raise ValueError(f"{key!r}: the archive ends early")
+        return np.frombuffer(buf, dtype).reshape(shape)
+
+    def tensor(self, key: str, like, row: Optional[int] = None, *, where: str = ""):
+        """``read(key, row)`` as the template ``like``'s type, dtype and
+        device (its shape is checked)."""
+        return _from_numpy(self.read(key, row), like, where or key)
 
 
 def _from_numpy(arr: np.ndarray, leaf, where: str):
@@ -159,7 +273,8 @@ class CheckpointManager:
 
     # ------------------------------------------------------------------ save
     def save(self, step: int, trees: Dict[str, Any], metadata: Optional[Dict] = None) -> str:
-        """``trees``: name -> tree (e.g. ``{"state": ..., "outer": ...}``)."""
+        """``trees``: name -> tree (e.g. ``{"state": ..., "outer": ...}``).
+        A :class:`Rows` leaf is written a row at a time, as it is yielded."""
         path = self._path(step)
         tmp = path + ".tmp"
         if os.path.exists(tmp):  # stale debris from a crashed save
@@ -168,15 +283,12 @@ class CheckpointManager:
         manifest = {"step": step, "time": time.time(), "metadata": metadata or {},
                     "trees": {}}
         for name, tree in trees.items():
-            arrays = {}
-            for key, leaf in _flatten(tree):
-                if key in arrays:
-                    raise ValueError(f"duplicate checkpoint key {key!r} in tree {name!r}")
-                arrays[key] = _to_numpy(leaf)
             dest = os.path.join(tmp, f"{name}.npz")
-            _write_npz(dest + ".tmp.npz", arrays)
+            try:
+                manifest["trees"][name] = _write_npz(dest + ".tmp.npz", _members(tree))
+            except ValueError as e:
+                raise ValueError(f"tree {name!r}: {e}") from None
             os.replace(dest + ".tmp.npz", dest)
-            manifest["trees"][name] = sorted(arrays)
         mdest = os.path.join(tmp, "manifest.json")
         with open(mdest + ".tmp", "w") as f:
             json.dump(manifest, f, indent=2)
@@ -241,25 +353,37 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, templates: Dict[str, Any]) -> Tuple[Dict[str, Any], Dict]:
-        """``templates``: name -> a tree like the saved one. Returns (trees,
-        metadata): each tree in its template's structure, every leaf of its
-        template's dtype on its template's device (a parameter module comes
-        back as a dict of its leaves, in leaf order)."""
+    def _check(self, step: int) -> None:
         if step not in self._verified:
             err = self._step_error(step)
             if err is not None:
                 raise ValueError(f"checkpoint step_{step:08d} is incomplete/corrupt ({err}); "
                                  f"pick a step from all_steps()")
             self._verified.add(step)
-        path = self._path(step)
-        with open(os.path.join(path, "manifest.json")) as f:
-            manifest = json.load(f)
+
+    def manifest(self, step: int) -> Dict:
+        """``step``'s manifest: its ``metadata`` and each tree's keys."""
+        with open(os.path.join(self._path(step), "manifest.json")) as f:
+            return json.load(f)
+
+    def reader(self, step: int, name: str, *, check: bool = True) -> "_NpzRows":
+        """A reader of tree ``name`` of ``step`` (a context manager): whole
+        arrays, or one row of a stacked array without the others. ``check``:
+        make sure the step is complete first (its CRC sweep, once a step);
+        ``False`` on a Trainer rank whose rank 0 has checked it."""
+        if check:
+            self._check(step)
+        return _NpzRows(os.path.join(self._path(step), f"{name}.npz"))
+
+    def restore(self, step: int, templates: Dict[str, Any]) -> Tuple[Dict[str, Any], Dict]:
+        """``templates``: name -> a tree like the saved one. Returns (trees,
+        metadata): each tree in its template's structure, every leaf of its
+        template's dtype on its template's device (a parameter module comes
+        back as a dict of its leaves, in leaf order)."""
         out = {}
         for name, template in templates.items():
-            flat = {}
-            with np.load(os.path.join(path, f"{name}.npz")) as data:
-                for key, leaf in _flatten(template):
-                    flat[key] = _from_numpy(data[key], leaf, f"{name}/{key}")
+            with self.reader(step, name) as rd:
+                flat = {key: rd.tensor(key, leaf, where=f"{name}/{key}")
+                        for key, leaf in _flatten(template)}
             out[name] = _rebuild(template, flat)
-        return out, manifest["metadata"]
+        return out, self.manifest(step)["metadata"]

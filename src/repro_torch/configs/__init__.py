@@ -1,9 +1,10 @@
 """Architecture configuration registry of the PyTorch port.
 
-The port runs the paper's own GPT-2 family and Qwen3-1.7B, the first
-RMSNorm family (RoPE, qk-norm, SwiGLU, GQA). Each module is a copy of its
-counterpart in ``src/repro/configs/`` (``tests/test_torch_model.py``
-checks the copies field by field). An architecture that the reference
+The port runs the paper's own GPT-2 family and the dense RMSNorm families
+(RoPE, SwiGLU, GQA): Qwen3-1.7B and Qwen3-14B (qk-norm), MiniCPM-2B (MHA,
+a tied table of 122 753 rows) and Granite-8B (an untied ``lm_head``). Each
+module is a copy of its counterpart in ``src/repro/configs/`` (the
+``tests/test_torch_*`` files check the copies field by field). An architecture that the reference
 registers but the port does not run yet raises ``NotImplementedError``.
 """
 
@@ -14,12 +15,12 @@ from typing import List
 
 from repro_torch.config import ModelConfig
 
-ARCH_MODULES = ["gpt2_small", "gpt2_medium", "gpt2_xl", "gpt2_7b", "qwen3_1_7b"]
+ARCH_MODULES = ["gpt2_small", "gpt2_medium", "gpt2_xl", "gpt2_7b", "qwen3_1_7b",
+                "minicpm_2b", "granite_8b", "qwen3_14b"]
 
 # Registered by the reference package, not ported yet (ROADMAP.md queue 1).
 NOT_PORTED = (
-    "deepseek-v2-236b", "granite-8b", "minicpm-2b", "qwen3-14b",
-    "xlstm-1.3b", "chameleon-34b", "recurrentgemma-9b",
+    "deepseek-v2-236b", "xlstm-1.3b", "chameleon-34b", "recurrentgemma-9b",
     "whisper-large-v3", "kimi-k2-1t-a32b",
 )
 

@@ -185,7 +185,8 @@ class SimulatedRun:
         loss.backward()
         grads = [p.grad for _, p in leaves]
         clip_by_global_norm(grads, self.tc.clip_grad)
-        adamw_update(grads, opt, leaves, self.tc, lr_at(self.tc, step))
+        self.lr = lr_at(self.tc, step)
+        adamw_update(grads, opt, leaves, self.tc, self.lr)
         for _, p in leaves:
             p.grad = None  # free before the next replica's backward
         return loss.detach()
@@ -242,8 +243,9 @@ class SimulatedRun:
 
     # ------------------------------------------------------------ the loop
     def run(self, num_steps: int, *, eval_every: int = 0) -> Dict[str, List]:
-        """Run ``num_steps`` and return the loss history."""
-        hist = {"step": [], "train_loss": [], "val_loss": [], "val_step": []}
+        """Run ``num_steps`` and return the history: each step's loss and
+        the inner LR its AdamW steps took."""
+        hist = {"step": [], "train_loss": [], "lr": [], "val_loss": [], "val_step": []}
         tc, st = self.tc, self.state
         for _ in range(num_steps):
             sched = self.sched
@@ -290,6 +292,7 @@ class SimulatedRun:
                 self._apply_inflight()
             hist["step"].append(step)
             hist["train_loss"].append(float(loss))
+            hist["lr"].append(float(self.lr))
             if eval_every and (step + 1) % eval_every == 0:
                 p = st.group_params[0] if st.group_params is not None else st.params
                 hist["val_loss"].append(self.val_loss(p))

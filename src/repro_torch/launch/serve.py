@@ -2,10 +2,13 @@
 
 ``python -m repro_torch.launch.serve --arch gpt2-xl --tokens 32``
 
-The CLI of ``repro/launch/serve.py`` without ``--mesh`` and ``--ckpt-dir``
-(the port has no mesh and no checkpoint handoff yet) and with ``--device``:
-the run is on the card unless ``--device cpu`` is given, where the plain
-PyTorch versions of the kernels run. Weights are random, from ``--seed``.
+The CLI of ``repro/launch/serve.py`` without ``--mesh`` (the port has no
+serving mesh yet) and with ``--device``: the run is on the card unless
+``--device cpu`` is given, where the plain PyTorch versions of the kernels
+run. Weights are random, from ``--seed``. ``--ckpt-dir`` hot-swaps the
+parameters from the newest complete checkpoint there between engine steps
+(``serve/handoff.py``): a Trainer's (group 0's replica) or a plain
+``params`` tree.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, get_reduced_config
 from repro_torch.models import registry as R
-from repro_torch.serve import PagedCacheConfig, generate
+from repro_torch.serve import CheckpointPoller, PagedCacheConfig, generate
 
 
 def main(argv=None):
@@ -36,6 +39,8 @@ def main(argv=None):
                     help="KV-pool block size")
     ap.add_argument("--int8-kv", action="store_true",
                     help="int8-quantized KV blocks")
+    ap.add_argument("--ckpt-dir", default="",
+                    help="hot-swap params from new complete checkpoints here")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (the hand-written kernels) or cpu (their plain versions)")
@@ -57,10 +62,12 @@ def main(argv=None):
     pcfg = PagedCacheConfig(num_blocks=need * args.batch + 1, block_size=bs,
                             quantized=args.int8_kv)
 
+    poller = CheckpointPoller(args.ckpt_dir, params) if args.ckpt_dir else None
     t0 = time.perf_counter()
     out, info = generate(params, mc, prompts, args.tokens,
                          greedy=not args.sample, temperature=args.temperature,
-                         seed=args.seed, pcfg=pcfg)
+                         seed=args.seed, pcfg=pcfg,
+                         on_step=None if poller is None else poller.on_step)
     dt = time.perf_counter() - t0
 
     eng = info["engine"]
@@ -70,6 +77,10 @@ def main(argv=None):
           f"{eng.stats['prefills']} prefills, peak pool "
           f"{eng.stats['peak_blocks']}/{pcfg.num_blocks - 1} blocks")
     print("generated[0,:16]:", np.asarray(out[0, :16]).tolist())
+    if poller is not None:
+        info["poller"] = poller
+        if poller.swapped_steps:
+            print(f"hot-swapped params at checkpoint steps {poller.swapped_steps}")
     return out, info
 
 

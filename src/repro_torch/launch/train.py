@@ -53,6 +53,7 @@ from repro_torch.config import (MembershipConfig, ModelConfig, OuterCommConfig, 
 from repro_torch.core import offload
 from repro_torch.core.pier import PierSchedule
 from repro_torch.kernels.symm import PEER_TIMEOUT_S
+from repro_torch.launch.mesh import MeanWork
 from repro_torch.models.transformer import param_leaves
 from repro_torch.parallel.steps import build_train_steps, mean_metrics
 from repro_torch.sync.delay import ModelDelayController
@@ -92,7 +93,8 @@ class Trainer:
     weighs each outer dispatch, masks its apply and bootstraps rejoining
     groups; ``offload_outer_state`` keeps the outer state in pinned host
     memory between outer events; ``checkpoint_dir`` enables :meth:`save` /
-    :meth:`restore` (each rank keeps its own directory under it).
+    :meth:`restore`, one checkpoint of the whole world in the reference's
+    layout (:meth:`save`).
     """
 
     def __init__(self, mc: ModelConfig, tc: TrainConfig, pc: ParallelConfig, mesh, *,
@@ -126,10 +128,13 @@ class Trainer:
         self._windows = 0
         self._outer_on_host = False
         self.ckpt = None
+        self._ckpt_pg = None  # the world over gloo (None: the default group is)
         if checkpoint_dir:
             from repro_torch.checkpoint import CheckpointManager
 
-            self.ckpt = CheckpointManager(os.path.join(checkpoint_dir, f"rank{mesh.rank:05d}"))
+            self.ckpt = CheckpointManager(checkpoint_dir)
+            if mesh.world_size > 1 and mesh.backend != "gloo":
+                self._ckpt_pg = dist.new_group(backend="gloo")  # collective: every rank
         auto = tc.sync_delay == "auto"
         # the steps read no delay: build them first, so that the controller
         # can count the model's parameters
@@ -250,13 +255,19 @@ class Trainer:
         """Warmup accumulate: eager (``apply_step == sync_step``) installs
         the new outer state at once; delayed, the pending state installs
         at its apply (the correction is identically zero). While the
-        controller measures, the window is timed as a warmup window (the
-        port's accumulate exchanges nothing: the warmup's replicas are the
-        same on every rank) and a freshly resolved delay is adopted."""
+        controller measures, the window is timed as a warmup window and a
+        freshly resolved delay is adopted. The reference's accumulate means
+        the parameters over the world (``_global_pmean``), and that
+        exchange is what its warmup windows time. The port's warmup
+        replicas are the same on every rank, so its accumulate needs no
+        exchange; a measured window runs the same exchange
+        (:meth:`_warmup_exchange`) and drops its result, so that the sample
+        is one of an fp32 world exchange while every value stays local."""
         measure = self._measuring()
         if measure:
             self._sync()
             t0 = time.perf_counter()
+            self._warmup_exchange()
         self._outer_to_device()
         pending = self.bundle.accumulate_step(self.state, self.outer,
                                               self.sched.mu_at(ev.sync_step))
@@ -269,6 +280,12 @@ class Trainer:
             self.sync_controller.observe_window(t_comm=time.perf_counter() - t0, warmup=True)
             self._adopt_delay(self.sync_controller.current_decision())
         self._outer_to_host()
+
+    def _warmup_exchange(self):
+        """A world fp32 mean of the parameters, as the reference's warmup
+        accumulate makes; the means are dropped."""
+        MeanWork([t.detach() for _, t in param_leaves(self.state.params)], None,
+                 self.mesh.world_size).wait()
 
     def _dispatch(self, step: int):
         """Start the outer exchange of the boundary at ``step``; the
@@ -385,7 +402,7 @@ class Trainer:
         ranks take the donor's parameters (the freshly installed anchor, or
         the latest checkpoint's with ``rejoin_bootstrap="checkpoint"``),
         fresh AdamW state and zeroed residual rows."""
-        if not groups:
+        if self.mesh.group_index not in groups:  # bootstrap_group leaves other ranks alone
             return
         self._outer_to_device()
         donor = self._bootstrap_donor()
@@ -397,73 +414,119 @@ class Trainer:
         if cfg is not None and cfg.rejoin_bootstrap == "checkpoint" and self.ckpt is not None:
             latest = self.ckpt.latest_step()
             if latest is not None:
-                trees, _ = self.ckpt.restore(latest, {"outer": self._outer_tree()})
-                return list(trees["outer"]["anchor"].values())
+                with self.ckpt.reader(latest, "outer") as rd:
+                    return [rd.tensor("anchor/" + n, a)
+                            for n, a in zip(self._names(), self.outer.anchor)]
         return self.outer.anchor
 
     # ------------------------------------------------------------ checkpoints
     def _names(self):
         return [n.replace(".", "/") for n, _ in param_leaves(self.state.params)]
 
-    def _outer_tree(self):
-        """The outer state under the reference's field and leaf names."""
-        names, o = self._names(), self.outer
-        tree = {"momentum": dict(zip(names, o.momentum)), "anchor": dict(zip(names, o.anchor)),
-                "num_syncs": np.int32(o.num_syncs)}
+    def _ckpt_leaves(self):
+        """``[(tree, key, tensor, stacked)]`` of this rank's share of a
+        checkpoint, in the order the archive holds them, under the
+        reference's keys: its ``TrainState`` in ``state`` (every leaf
+        (G,)-stacked, a row a group) and its ``OuterState`` in ``outer``
+        (momentum and anchor whole, the same on every rank; the residual
+        rows (G,)-stacked; ``num_syncs`` apart, a number)."""
+        names, st, o = self._names(), self.state, self.outer
+        params = [t for _, t in param_leaves(st.params)]
+        out = [("state", "opt/count", st.opt.count, True)]
+        for field, leaves in (("params", params), ("opt/mu", st.opt.mu), ("opt/nu", st.opt.nu)):
+            out += [("state", f"{field}/{n}", t, True) for n, t in zip(names, leaves)]
+        for field, leaves in (("momentum", o.momentum), ("anchor", o.anchor)):
+            out += [("outer", f"{field}/{n}", t, False) for n, t in zip(names, leaves)]
         for field in ("residual", "residual2"):
-            if getattr(o, field) is not None:
-                tree[field] = dict(zip(names, getattr(o, field)))
-        return tree
+            rows = getattr(o, field)
+            if rows is not None:
+                out += [("outer", f"{field}/{n}", r[0], True) for n, r in zip(names, rows)]
+        order = {"state": 0, "outer": 1}
+        return sorted(out, key=lambda e: (order[e[0]], e[1]))
 
-    def _state_tree(self):
-        names, opt = self._names(), self.state.opt
-        return {"params": self.state.params,
-                "opt": {"count": opt.count, "mu": dict(zip(names, opt.mu)),
-                        "nu": dict(zip(names, opt.nu))}}
+    def _group_ranks0(self) -> List[int]:
+        """Each group's first rank (data_inner index 0), in group order."""
+        return list(range(0, self.mesh.world_size, self.pc.data_inner))
 
     def save(self):
-        """Checkpoint this rank at the current step (flushes first: a
-        checkpoint never strands an in-flight dispatch)."""
+        """Checkpoint the world at the current step, in the reference's
+        layout (``src/repro/launch/train.py:save``): one ``step_*`` directory
+        holding the (G,)-stacked ``TrainState`` (``state.npz``), the
+        ``OuterState`` (``outer.npz``) and the port's own state (the outer
+        strategy, ``trainer.npz``), the manifest last with the reference's
+        metadata. Collective. Rank 0 writes every leaf a row at a time,
+        receiving each other group's row over gloo from that group's first
+        rank, so no rank holds more than one leaf's row on the host. The
+        window is flushed first: a checkpoint never strands an in-flight
+        dispatch."""
+        from repro_torch.checkpoint import Rows
+
         if self.ckpt is None:
             raise ValueError("Trainer.save needs checkpoint_dir")
         self.flush()
-        self._outer_to_device()
-        self.ckpt.save(self.step, {"state": self._state_tree(), "outer": self._outer_tree()},
-                       metadata={"step": self.step, "optimizer": self.tc.optimizer,
-                                 "strategy": self.strategy.name})
-        self._outer_to_host()
+        leaves, firsts, pg = self._ckpt_leaves(), self._group_ranks0(), self._ckpt_pg
+        if self.mesh.rank == 0:
+            def rows(t):
+                yield t
+                for src in firsts[1:]:
+                    buf = torch.empty(t.numel() * t.element_size(), dtype=torch.uint8)
+                    dist.recv(buf, src=src, group=pg)
+                    yield buf.view(t.dtype).view(t.shape)
+
+            trees = {"state": {}, "outer": {"num_syncs": np.int32(self.outer.num_syncs)},
+                     "trainer": {"strategy": self.strategy.name}}
+            for tree, key, t, stacked in leaves:
+                trees[tree][key] = Rows(len(firsts), t.shape, t.dtype, rows(t)) if stacked else t
+            self.ckpt.save(self.step, trees,
+                           metadata={"step": self.step, "optimizer": self.tc.optimizer})
+        elif self.mesh.rank in firsts:
+            for _, _, t, stacked in leaves:
+                if stacked:
+                    dist.send(t.detach().reshape(-1).cpu().view(torch.uint8), dst=0, group=pg)
+        if self.mesh.world_size > 1:
+            dist.barrier(group=pg)
 
     def restore(self, step: Optional[int] = None):
-        """Load a checkpoint into this rank (collective: every rank takes
-        the newest step that all of them hold complete, or ``step``)."""
+        """Load a checkpoint into this rank (collective): rank 0 picks the
+        newest complete step (or checks ``step``), and each rank reads its
+        group's row of every stacked leaf, a leaf at a time, without the
+        other rows. Reads the reference Trainer's checkpoints too."""
         if self.ckpt is None:
             raise ValueError("Trainer.restore needs checkpoint_dir")
-        if step is None:
-            steps = [set(self.ckpt.all_steps())]
-            if self.mesh.world_size > 1:
-                every = [None] * self.mesh.world_size
-                dist.all_gather_object(every, steps[0])
-                steps = every
-            common = set.intersection(*steps)
-            if not common:
-                raise ValueError("no checkpoint step is complete on every rank")
-            step = max(common)
+        err = None
+        if self.mesh.rank == 0:
+            steps = self.ckpt.all_steps()  # the CRC sweep, on rank 0 only
+            if step is None and not steps:
+                err = f"no complete checkpoint under {self.ckpt.directory}"
+            elif step is None:
+                step = steps[-1]
+            elif step not in steps:
+                err = f"checkpoint step_{step:08d} under {self.ckpt.directory} is not complete"
+        if self.mesh.world_size > 1:
+            box = [step, err]
+            dist.broadcast_object_list(box, src=0, group=self._ckpt_pg)
+            step, err = box
+        if err is not None:
+            raise ValueError(err)
+        manifest = self.ckpt.manifest(step)
+        g = self.mesh.group_index
         self._outer_to_device()
-        trees, meta = self.ckpt.restore(step, {"state": self._state_tree(),
-                                               "outer": self._outer_tree()})
-        st, ot = trees["state"], trees["outer"]
+        leaves = self._ckpt_leaves()
         with torch.no_grad():
-            for (_, p), v in zip(param_leaves(self.state.params), st["params"].values()):
-                p.copy_(v)
-            self.state.opt.count.copy_(st["opt"]["count"])
-            for dst, key in ((self.state.opt.mu, "mu"), (self.state.opt.nu, "nu")):
-                for t, v in zip(dst, st["opt"][key].values()):
-                    t.copy_(v)
-        self.outer = self.outer._replace(
-            momentum=list(ot["momentum"].values()), anchor=list(ot["anchor"].values()),
-            num_syncs=int(ot["num_syncs"]),
-            **{f: list(ot[f].values()) for f in ("residual", "residual2") if f in ot})
-        self.step = int(meta["step"])
+            for tree in ("state", "outer"):
+                with self.ckpt.reader(step, tree, check=False) as rd:
+                    for _, key, t, stacked in (e for e in leaves if e[0] == tree):
+                        t.copy_(rd.tensor(key, t, g if stacked else None, where=f"{tree}/{key}"))
+                    if tree == "outer":
+                        num_syncs = int(rd.read("num_syncs"))
+        if "trainer" in manifest["trees"]:
+            with self.ckpt.reader(step, "trainer", check=False) as rd:
+                saved = str(rd.read("strategy"))
+            if saved != self.strategy.name:
+                raise ValueError(f"checkpoint step_{step:08d} was saved under the outer "
+                                 f"strategy {saved}, this Trainer runs {self.strategy.name}")
+        self.outer = self.outer._replace(num_syncs=num_syncs)
+        self.step = int(manifest["metadata"]["step"])
         self._inflight = None  # checkpoints are saved flushed
         self._inflight_member = None
         self._outer_to_host()
@@ -625,6 +688,7 @@ def _launch_counts():
     from repro_torch.kernels import pier_update as PK
     from repro_torch.kernels import quantize as QK
     from repro_torch.kernels import ring_allreduce as RA
+    from repro_torch.kernels import rmsnorm as RK
 
     return {"flash_attention": (FK, "launches"), "flash_attention_bwd": (FK, "bwd_launches"),
             "flash_attention_tc": (FK, "tc_launches"),
@@ -632,7 +696,8 @@ def _launch_counts():
             "quantize_blockwise": (QK, "launches"),
             "dequantize_blockwise": (QK, "dequantize_launches"),
             "pier_update": (PK, "launches"), "ring_allgather": (RA, "ring_launches"),
-            "shard_scatter": (RA, "scatter_launches")}
+            "shard_scatter": (RA, "scatter_launches"), "rmsnorm": (RK, "launches"),
+            "rmsnorm_bwd": (RK, "bwd_launches")}
 
 
 def train_job(info: RankInfo, mc: ModelConfig, tc: TrainConfig, pc: ParallelConfig,

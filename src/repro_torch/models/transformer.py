@@ -96,12 +96,15 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     check_ported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    tree = {
-        "embed": L.init_embeddings(gen, cfg),
-        "final_norm": L.init_norm(gen, cfg),
-        "layers": [init_decoder_layer(gen, cfg, i) for i in range(cfg.num_layers)],
-    }
-    return as_module(tree, cfg, training=training)
+    # each part is cast to its storage as soon as it is made (in the order
+    # the generator draws them), so the fp32 draws of the whole model never
+    # coexist: a 14.8 B model's 59 GB of them would not fit on an 80 GB card
+    parts = {"embed": as_module(L.init_embeddings(gen, cfg), cfg, training=training),
+             "final_norm": as_module(L.init_norm(gen, cfg), cfg, training=training)}
+    parts["layers"] = nn.ModuleList([as_module(init_decoder_layer(gen, cfg, i), cfg,
+                                               training=training)
+                                     for i in range(cfg.num_layers)])
+    return nn.ModuleDict(parts)
 
 
 def param_leaves(params: nn.Module):
@@ -128,6 +131,22 @@ def param_leaves(params: nn.Module):
 
     walk(params, "")
     return out
+
+
+def with_leaves(template: nn.Module, tensors: Dict[str, torch.Tensor]) -> nn.Module:
+    """A parameter module of ``template``'s structure whose leaves are
+    ``tensors`` (keyed by :func:`param_leaves` name), requiring no grad."""
+    def build(node, prefix):
+        if isinstance(node, nn.ParameterDict):
+            return nn.ParameterDict({k: nn.Parameter(tensors[prefix + k], requires_grad=False)
+                                     for k in node.keys()})
+        if isinstance(node, nn.ModuleDict):
+            return nn.ModuleDict({k: build(node[k], prefix + k + ".") for k in node.keys()})
+        if isinstance(node, nn.ModuleList):
+            return nn.ModuleList([build(c, f"{prefix}{i}.") for i, c in enumerate(node)])
+        raise TypeError(f"unexpected parameter node {type(node).__name__}")
+
+    return build(template, "")
 
 
 # ---------------------------------------------------------------------------

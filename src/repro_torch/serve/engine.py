@@ -104,6 +104,7 @@ class ServeEngine:
         # block-table width = the longest admissible sequence in blocks
         self.table_width = ecfg.max_blocks_per_seq or (pcfg.num_blocks - 1)
         self.finished: List[RequestResult] = []
+        self._next_params = None  # set_params' swap, installed at the next step
         self.stats: Dict[str, Any] = {
             "steps": 0, "prefills": 0, "decode_steps": 0,
             "tokens_out": 0, "peak_blocks": 0,
@@ -229,6 +230,8 @@ class ServeEngine:
 
     def step(self) -> bool:
         """One engine iteration. Returns True while work remains."""
+        if self._next_params is not None:  # a swap lands on the step boundary
+            self.params, self._next_params = self._next_params, None
         now = time.perf_counter()
         self._admit_and_prefill(now)
         in_use = self.alloc.num_free
@@ -252,6 +255,26 @@ class ServeEngine:
             raise RuntimeError("engine did not drain within max_steps")
         return sorted(self.finished, key=lambda r: r.uid)
 
+    # -- hot handoff ---------------------------------------------------------
+
+    def set_params(self, params) -> None:
+        """Swap the served parameters (``serve/handoff.py`` calls it between
+        steps); the swap takes effect at the next step boundary. In-flight
+        sequences keep their KV blocks, cached by the old parameters;
+        requests admitted after the swap run on the new ones alone. A tree
+        whose leaf names, shapes, dtypes (serving storage) or device differ
+        from the served one is refused."""
+        def layout(p):
+            return [(n, tuple(t.shape), t.dtype, t.device) for n, t in T.param_leaves(p)]
+
+        have, got = layout(self.params), layout(params)
+        if got != have:
+            diff = [(h, g) for h, g in zip(have, got) if h != g][:3]
+            raise ValueError(f"set_params: the new parameters do not match the served ones "
+                             f"({len(got)} leaves for {len(have)}; first differences "
+                             f"(served, new): {diff})")
+        self._next_params = params
+
     # -- occupancy -----------------------------------------------------------
 
     @property
@@ -267,9 +290,11 @@ class ServeEngine:
 
 def generate(params, cfg: ModelConfig, prompts, num_tokens: int, *,
              greedy: bool = True, temperature: float = 1.0, seed: int = 0,
-             pcfg: Optional[KC.PagedCacheConfig] = None):
+             pcfg: Optional[KC.PagedCacheConfig] = None, on_step=None):
     """Generate ``num_tokens`` per prompt row, on the device the params
-    lie on. Returns ((B, num_tokens) np.int32, info dict).
+    lie on. Returns ((B, num_tokens) np.int32, info dict). ``on_step``:
+    called with the engine between steps, as :meth:`ServeEngine.run` does
+    (e.g. ``CheckpointPoller.on_step``).
 
     Paged-supported architectures go through the continuous-batching engine
     (one request per prompt row). The dense serve path of the reference,
@@ -297,6 +322,6 @@ def generate(params, cfg: ModelConfig, prompts, num_tokens: int, *,
         temperature=temperature, seed=seed, max_blocks_per_seq=need))
     for b in range(B):
         engine.submit(prompts[b], num_tokens)
-    results = engine.run()
+    results = engine.run(on_step=on_step)
     out = np.stack([np.asarray(r.tokens[:num_tokens], np.int32) for r in results])
     return out, {"path": "paged", "engine": engine}

@@ -13,24 +13,40 @@
   delay 1) and with a scripted flat -> int8-wire switch it equals the
   port's simulator bit for bit; a checkpoint-donor rejoin bootstraps from
   the saved step's anchor;
-- a world of 1 rank: the measured controller samples the warmup windows
+- the Trainer's checkpoints are the reference Trainer's: one ``step_*``
+  directory of the whole world, its (G,)-stacked ``TrainState`` and its
+  ``OuterState`` (residual rows stacked by group). The reference
+  ``CheckpointManager`` restores one that the port's ranks saved into
+  templates from the reference's own state constructors, its
+  ``CheckpointPoller`` serves group 1 of it, and a checkpoint that the
+  reference manager wrote restores into the port's ranks, each its row;
+- the measured controller's warmup windows: in the same world, while the
+  controller measures, an accumulate window holds exactly one world
+  all-reduce of the parameters' bytes (the reference's ``_global_pmean``),
+  none otherwise, and the run's bits are those of the run without that
+  exchange; a world of 1 rank samples the warmup windows
   (``tests/test_event_engine.py:test_warmup_windows_feed_measured_controller``).
-  The port's accumulate exchanges nothing (the warmup's replicas are the
-  same on every rank), so those windows time the local accumulate.
 """
 
 import os
 import warnings
+import zipfile
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch.distributed as dist  # noqa: E402
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+import repro.config as jax_config  # noqa: E402
 from repro.checkpoint import CheckpointManager as JaxManager  # noqa: E402
+from repro.core.outer import outer_init as jax_outer_init  # noqa: E402
+from repro.optim.adamw import AdamWState as JaxAdamWState  # noqa: E402
+from repro.parallel.steps import TrainState as JaxTrainState  # noqa: E402
+from repro.serve.handoff import CheckpointPoller as JaxPoller  # noqa: E402
 import repro_torch.config as pt_config  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.core.simulate import SimulatedRun  # noqa: E402
@@ -189,16 +205,114 @@ CHURN = "drop:1@1,rejoin:1@2"
 SWITCH = {2: PS.Int8Wire(8, 256)}
 
 
+def _reference_state(tree, seed=11, G=2):
+    """A (G,)-stacked ``TrainState`` and its ``OuterState`` (int8-wire's
+    residual rows) built by the reference's own constructors over ``tree``,
+    every leaf then filled with numbers from ``seed`` (each group's rows
+    different)."""
+    rng = np.random.default_rng(seed)
+    jtc = jax_config.TrainConfig(**TC_KW, outer_comm=jax_config.OuterCommConfig(
+        compression="int8-wire"))
+    params = jax.tree.map(jnp.asarray, tree)
+    stack = lambda t: jax.tree.map(lambda x: jnp.zeros((G, *x.shape), x.dtype), t)  # noqa: E731
+    state = JaxTrainState(params=stack(params), opt=JaxAdamWState(
+        count=jnp.zeros((G,), jnp.int32), mu=stack(params), nu=stack(params)))
+    outer = jax_outer_init(params, jtc, num_groups=G, needs_residual=True)
+    fill = lambda x: (jnp.asarray(rng.integers(1, 9, x.shape), x.dtype)  # noqa: E731
+                      if x.dtype == jnp.int32
+                      else jnp.asarray(rng.standard_normal(x.shape), x.dtype))
+    return jax.tree.map(fill, state), jax.tree.map(fill, outer)
+
+
+def _world(info, jobs, probes):
+    """The module's world: each job through ``train_job`` (through
+    :func:`_snapshot_job` where it says ``snapshot``), then each
+    warmup-window probe."""
+    outs = [(_snapshot_job if k.pop("snapshot", False) else LT.train_job)(info, *a, **k)
+            for a, k in jobs]
+    return outs, [_warmup_probe(info, *p) for p in probes]
+
+
+def _snapshot_job(info, *args, **kw):
+    """``train_job`` that also returns the rank's AdamW state, momentum and
+    anchor as ``Trainer.save`` wrote them or as ``Trainer.restore`` left
+    them: the rest of what a checkpoint holds beside ``keep_params``'s."""
+    snap = {}
+    real_save, real_restore = LT.Trainer.save, LT.Trainer.restore
+
+    def take(trainer):
+        st, o = trainer.state, trainer.outer
+        snap.update(opt={"count": st.opt.count.clone(),
+                         "mu": [t.cpu().clone() for t in st.opt.mu],
+                         "nu": [t.cpu().clone() for t in st.opt.nu]},
+                    momentum=[t.cpu().clone() for t in o.momentum],
+                    anchor=[t.cpu().clone() for t in o.anchor])
+
+    def save(self):
+        real_save(self)
+        take(self)
+
+    def restore(self, *a, **k):
+        real_restore(self, *a, **k)
+        take(self)
+
+    LT.Trainer.save, LT.Trainer.restore = save, restore
+    try:
+        out = LT.train_job(info, *args, **kw)
+    finally:
+        LT.Trainer.save, LT.Trainer.restore = real_save, real_restore
+    return {**out, **snap}
+
+
+def _warmup_probe(info, tc, stub: bool):
+    """A 16-step run of ``tc`` on this rank, recording the all-reduces made
+    inside each warmup accumulate window and whether the controller was
+    measuring there; ``stub`` drops the measured window's exchange (the
+    Trainer before it had one)."""
+    calls, windows = [], []
+    real_all_reduce, real_acc = dist.all_reduce, LT.Trainer._dispatch_accumulate
+    real_exchange = LT.Trainer._warmup_exchange
+
+    def all_reduce(t, *a, **k):
+        calls.append((t.numel() * t.element_size(), k.get("group")))
+        return real_all_reduce(t, *a, **k)
+
+    def accumulate(self, ev):
+        n, measuring = len(calls), self._measuring()
+        real_acc(self, ev)
+        windows.append((measuring, calls[n:]))
+
+    ctrl = None
+    if tc.sync_delay == "auto":
+        ctrl = PS.DelayDecisionAdapter(PS.MeasuredDelayController(
+            tc, min_windows=2, max_windows=3, skip_windows=1))
+    dist.all_reduce, LT.Trainer._dispatch_accumulate = all_reduce, accumulate
+    if stub:
+        LT.Trainer._warmup_exchange = lambda self: None
+    try:
+        out = LT.train_job(info, PMC, tc, PC2, 16, params=_params().state_dict(),
+                           batches=_batches(16), keep_params=True, sync_controller=ctrl)
+    finally:
+        dist.all_reduce, LT.Trainer._dispatch_accumulate = real_all_reduce, real_acc
+        LT.Trainer._warmup_exchange = real_exchange
+    out["windows"] = windows
+    return out
+
+
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("world")
-    ck, ck_off, ck_donor = (str(tmp / d) for d in ("ck", "ck_off", "ck_donor"))
+    ck, ck_off, ck_donor, ck_x, ck_ref = (str(tmp / d) for d in
+                                         ("ck", "ck_off", "ck_donor", "ck_x", "ck_ref"))
     base = {k: v.detach().clone() for k, v in _params().state_dict().items()}
     batches = _batches()
     wire = _tc(comm={"compression": "int8-wire"})
     churn_tc = _tc(comm={"compression": "int8-wire"}, sync_delay=1, warmup_frac=0.0,
                    membership=pt_config.MembershipConfig())
     donor_tc = _tc(membership=pt_config.MembershipConfig(rejoin_bootstrap="checkpoint"))
+    ref_state, ref_outer = _reference_state(_tree(_params()))
+    JaxManager(ck_ref).save(6, {"state": ref_state, "outer": ref_outer},
+                            metadata={"step": 6, "optimizer": "pier"})
     kw = {"params": base, "batches": batches, "keep_params": True}
     jobs = [
         ((PMC, wire, PC2, STEPS), kw),  # 0: uninterrupted
@@ -214,10 +328,18 @@ def world(tmp_path_factory):
         ((PMC, donor_tc, PC2, 6), {**kw, "checkpoint_dir": ck_donor, "save": True}),  # 7
         ((PMC, donor_tc, PC2, 2), {**kw, "checkpoint_dir": ck_donor, "restore": True,
                                    "churn": "drop:1@0,rejoin:1@2"}),  # 8: rejoin from it
+        ((PMC, wire, PC2, 6), {**kw, "checkpoint_dir": ck_x, "save": True,
+                               "snapshot": True}),  # 9: for the reference to read
+        ((PMC, wire, PC2, 0), {**kw, "checkpoint_dir": ck_ref, "restore": True,
+                               "snapshot": True}),  # 10: the reference's checkpoint
     ]
-    outs = LT.spawn(LT.train_jobs, (jobs,), nproc=2, device="cpu",
-                    timeout=30 + 15 * len(jobs), workdir=str(tmp))
-    return {"outs": outs, "base": base, "batches": batches, "ck_donor": ck_donor}
+    auto = _tc(total_steps=24, warmup_frac=0.5, sync_delay="auto")
+    probes = [(auto, False), (auto, True), (auto.replace(sync_delay=1), False)]
+    outs = LT.spawn(_world, (jobs, probes), nproc=2, device="cpu",
+                    timeout=30 + 15 * (len(jobs) + len(probes)), workdir=str(tmp))
+    return {"outs": [o[0] for o in outs], "probes": [o[1] for o in outs], "base": base,
+            "batches": batches, "ck_donor": ck_donor, "ck_x": ck_x,
+            "ref": (ref_state, ref_outer)}
 
 
 def _sim(tc, world, steps=STEPS, **kw):
@@ -299,13 +421,115 @@ def test_trainer_checkpoint_donor_bootstraps_from_the_saved_anchor(world):
     parameters are the saved anchor bit for bit, while group 0 installed
     the new one."""
     names = [n.replace(".", "/") for n, _ in param_leaves(_params())]
-    mgr = CheckpointManager(os.path.join(world["ck_donor"], "rank00001"))
+    mgr = CheckpointManager(world["ck_donor"])
     assert mgr.latest_step() == 6
     with np.load(os.path.join(mgr._path(6), "outer.npz")) as data:
         saved = [torch.from_numpy(data["anchor/" + n]) for n in names]
     g0, g1 = world["outs"][0][8], world["outs"][1][8]
     assert g1["final_step"] == 8 and _same(g1["params"], saved)
     assert not _same(g0["params"], saved)
+
+
+def _np(x):
+    return [np.asarray(a) for a in jax.tree_util.tree_leaves(x)]
+
+
+def _rows_equal(stacked, per_rank):
+    """Row g of every stacked leaf is rank g's tensor, bit for bit."""
+    return all(np.array_equal(a[g], t.numpy()) for g, tensors in enumerate(per_rank)
+               for a, t in zip(stacked, tensors))
+
+
+def test_trainer_checkpoint_is_the_reference_layout(world):
+    """One ``step_*`` directory for the world (no directory per rank): the
+    reference's ``state`` and ``outer`` archives, the port's own state in a
+    third, and the reference's metadata keys."""
+    mgr = CheckpointManager(world["ck_x"])
+    assert os.listdir(world["ck_x"]) == ["step_00000006"]
+    manifest = mgr.manifest(6)
+    assert manifest["metadata"] == {"step": 6, "optimizer": "pier"}
+    assert sorted(manifest["trees"]) == ["outer", "state", "trainer"]
+    with zipfile.ZipFile(os.path.join(mgr._path(6), "state.npz")) as z:
+        assert all(i.compress_type == zipfile.ZIP_STORED for i in z.infolist())
+    with np.load(os.path.join(mgr._path(6), "trainer.npz")) as data:
+        assert str(data["strategy"]) == "int8-wire(block=256)"
+
+
+def test_reference_manager_restores_the_trainers_checkpoint(world):
+    """Job 9's checkpoint (2 ranks, int8-wire, step 6) through the
+    reference's ``CheckpointManager.restore`` into templates from the
+    reference's own constructors (``TrainState`` over a group-stacked
+    params tree, ``outer_init`` with the residual): every leaf is the port
+    ranks' tensors bit for bit, each group's row of the stacked ones; the
+    reference's CRC sweep passes the port's extra archive."""
+    outs = [world["outs"][r][9] for r in range(2)]
+    state, outer = _reference_state(_tree(_params()), seed=0)
+    mgr = JaxManager(world["ck_x"])
+    assert mgr.latest_step() == 6
+    trees, meta = mgr.restore(6, {"state": state, "outer": outer})
+    assert meta == {"step": 6, "optimizer": "pier"}
+    st, ot = trees["state"], trees["outer"]
+    assert _rows_equal(_np(st.params), [o["params"] for o in outs])
+    assert _rows_equal(_np(st.opt.mu), [o["opt"]["mu"] for o in outs])
+    assert _rows_equal(_np(st.opt.nu), [o["opt"]["nu"] for o in outs])
+    assert _rows_equal([np.asarray(st.opt.count)], [[o["opt"]["count"]] for o in outs])
+    assert _rows_equal(_np(ot.residual), [o["residual"] for o in outs])
+    for o in outs:
+        assert all(np.array_equal(a, t.numpy()) for a, t in zip(_np(ot.momentum), o["momentum"]))
+        assert all(np.array_equal(a, t.numpy()) for a, t in zip(_np(ot.anchor), o["anchor"]))
+        assert int(ot.num_syncs) == o["num_syncs"]
+    assert any(float(x.abs().max()) > 0 for x in outs[1]["residual"])
+
+
+def test_reference_poller_serves_group_1_of_the_trainers_checkpoint(world):
+    template = jax.tree.map(jnp.asarray, _tree(_params()))
+    step, params = JaxPoller(world["ck_x"], template, group=1).poll()
+    assert step == 6
+    assert all(np.array_equal(a, t.numpy())
+               for a, t in zip(_np(params), world["outs"][1][9]["params"]))
+
+
+def test_reference_checkpoint_restores_into_the_trainers_ranks(world):
+    """A checkpoint that the reference manager wrote from a (G,)-stacked
+    state (every leaf different, each group's rows different) restores
+    into the port's Trainer: each rank gets its group's row of every
+    stacked leaf, and the momentum, anchor, sync count and step."""
+    ref_state, ref_outer = world["ref"]
+    outs = [world["outs"][r][10] for r in range(2)]
+    assert _rows_equal(_np(ref_state.params), [o["params"] for o in outs])
+    assert _rows_equal(_np(ref_state.opt.mu), [o["opt"]["mu"] for o in outs])
+    assert _rows_equal(_np(ref_state.opt.nu), [o["opt"]["nu"] for o in outs])
+    assert _rows_equal([np.asarray(ref_state.opt.count)], [[o["opt"]["count"]] for o in outs])
+    assert _rows_equal(_np(ref_outer.residual), [o["residual"] for o in outs])
+    for o in outs:
+        assert o["final_step"] == 6 and o["num_syncs"] == int(ref_outer.num_syncs)
+        assert all(np.array_equal(a, t.numpy()) for a, t in zip(_np(ref_outer.momentum),
+                                                                 o["momentum"]))
+        assert all(np.array_equal(a, t.numpy()) for a, t in zip(_np(ref_outer.anchor),
+                                                                 o["anchor"]))
+
+
+def test_measured_warmup_windows_hold_one_world_exchange(world):
+    """``sync_delay="auto"`` (interval 2, so d* is 1 whatever the timings):
+    while the controller measures (3 of the 6 warmup accumulates), each
+    accumulate window holds exactly one all-reduce, over the world, of the
+    parameters' fp32 bytes: the traffic of the reference's
+    ``_global_pmean``, timed with the window. Unmeasured windows, and a
+    fixed delay, make no collective call. The exchange's result is dropped:
+    the run's losses and parameters are those of the same run without it,
+    bit for bit."""
+    nbytes = 4 * sum(t.numel() for _, t in param_leaves(_params()))
+    for r in range(2):
+        auto, stub, fixed = world["probes"][r]
+        assert len(auto["windows"]) == len(fixed["windows"]) == 6
+        assert [m for m, _ in auto["windows"]] == [True] * 3 + [False] * 3
+        assert [c for _, c in auto["windows"]] == [[(nbytes, None)]] * 3 + [[]] * 3
+        assert [c for _, c in stub["windows"]] == [[]] * 6
+        assert fixed["windows"] == [(False, [])] * 6
+        assert auto["sync_delay"] == stub["sync_delay"] == 1
+        assert auto["decisions"] == stub["decisions"]
+        assert [h["loss"] for h in auto["history"]] == [h["loss"] for h in stub["history"]]
+        assert _same(auto["params"], stub["params"])
 
 
 @pytest.mark.parametrize("comm", [{}, {"compression": "int8-wire", "block": 64}])
