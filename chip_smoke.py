@@ -22,7 +22,13 @@ and no result line:
    8, hd 128, bf16) and at Qwen3-14B's GQA 5:1 (H 40, Hkv 8, hd 128: the
    forward and backward at S 512 and a ragged 333, each run twice to the
    same bits on the tensor cores; decode at 4 slots over contexts
-   128-512), timed beside Granite-8B's 4:1 and MiniCPM-2B's MHA, quantize at its KV rows (block 128, a prefill layer's
+   128-512), timed beside Granite-8B's 4:1 and MiniCPM-2B's MHA; at
+   RecurrentGemma-9B's MQA 16:1, hd 256, bf16 on the CUDA-core route: the
+   forward at S 512 and 2304 with window 2048, each run twice to the same
+   bits, timed at the serve phase's B 4 x 512 and at 2304 beside SDPA, and
+   decode over its dense cache viewed as a pool (4 slots at contexts
+   513-544, a full ring of 2048), repeated to the bit and timed;
+   quantize at its KV rows (block 128, a prefill layer's
    and a decode step's, bit for bit, the prefill one timed) and at n ending
    mid-vector at each block size, bf16 at block 256, an unaligned view and
    block 96 (the scalar kernel), each case run twice to the same bits and
@@ -80,7 +86,8 @@ and no result line:
    ragged lengths, the int4 nibble wire, the GPT-2 medium token table's int8
    payload through the quantized all-reduce, reduce-scatter and all-gather,
    and every GPT-2 medium leaf's wire packed into one buffer. Times there
-   (CUDA events, median of 25) beside the plain version's and gloo's
+   at 2 ranks, the main path's (CUDA events, median of 25) beside the
+   plain version's and gloo's
    ``all_gather_into_tensor`` on host copies; a broken peer (one rank skips
    the launch) must raise at the kernel's 2 s deadline.
 2c. ``adamw``: the inner AdamW update (``optim/adamw.py``, plain PyTorch,
@@ -106,10 +113,26 @@ and no result line:
    rollout, every logit within 2% of max |logit|; at full depth in bf16
    against the bf16-KV rollout, reported.
 4c. ``serve_families``: the same traffic with bf16 KV through full
-   MiniCPM-2B (40 layers, MHA, a tied table of 122 753 rows), Granite-8B
-   (36, GQA 4:1, untied) and Qwen3-14B (40, GQA 5:1, qk-norm, untied),
-   each made on the card in serving storage and freed before the next:
-   launches exact at each depth (``--families`` adds the int8-KV runs).
+   MiniCPM-2B (40 layers, MHA, a tied table of 122 753 rows), and
+   Granite-8B (GQA 4:1, untied) and Qwen3-14B (GQA 5:1, qk-norm, untied)
+   at full width with 8 layers each (for the time limit), each made on the
+   card in serving storage and freed before the next: launches exact at
+   each depth (``--families`` runs all three at full depth, 36 and 40
+   layers, with bf16 and int8 KV).
+4d. ``serve_recurrent``: full RecurrentGemma-9B (38 layers: RG-LRU and
+   local MQA attention, 16 heads over 1 at hd 256, window 2048) and full
+   xLSTM-1.3B (48 layers, mLSTM and sLSTM at 7:1), bf16, random seeded
+   weights made on the card in serving storage, one model freed before
+   the next: 4 prompts of 512 tokens, 32 new tokens, greedy, through
+   ``generate``'s dense path (``build_serve_steps``: one prefill, 31 decode
+   steps, the local-attention caches viewed as pools for the paged decode
+   kernel). Tokens/s, TTFT, decode-step p50/p99, peak memory; launches
+   exact: rmsnorm 77 (49) x 32 forwards, flash 12 (on the CUDA-core route
+   at hd 256), decode 12 x 31. Then one decode step's device time beside
+   its wall time (``torch.profiler``), RecurrentGemma's prefill too (not
+   xLSTM's: its 90 000 kernels take the profiler longer than the run), and
+   one layer's RG-LRU scan and prefill, or one sLSTM and one mLSTM
+   layer's prefill, the same way.
 5. ``breakdown``: device time by kernel group (``torch.profiler``) beside
    the host's wall time, for one 512-token prefill and for decode steps
    over 4 slots of the bf16 serve path, and the same decode steps with
@@ -136,8 +159,8 @@ and no result line:
    logits, one batch's loss and gradients, and 8 steps of ``SimulatedRun``
    (G = 2, per-group batch 2 x 128, flat sync), all within 1e-3; rmsnorm =
    rmsnorm_bwd = 9 per forward and backward, every launch count exact.
-   The fp32 phases 3, 6, 6b, 6c, 6e and 8c take the CUDA-core attention
-   kernels: no tensor-core launch.
+   The fp32 phases 3, 6, 6b, 6c, 6e, 6f and 8c take the CUDA-core
+   attention kernels: no tensor-core launch.
 6d. ``flash_tc_vs_plain``: GPT-2 XL width at 4 layers and Qwen3-1.7B width
    at 2 layers, bf16 compute, training storage: one batch's (2 x 1024)
    loss and every gradient leaf through the tensor-core attention kernels
@@ -152,6 +175,14 @@ and no result line:
    64 tokens, their prefills and 8 decode steps over the 4 slots; every
    logit within 1e-3, int8 KV within 2% of max |logit| of fp32 KV,
    launches exact.
+6f. ``recurrent_vs_cpu``: the dense path card vs CPU in fp32, the same
+   seeded weights, a prefill and 16 teacher-forced decode steps through
+   ``registry.prefill`` / ``decode_step``: RecurrentGemma-9B at full width
+   with 3 layers (one rglru / rglru / local_attn cycle), 2 prompts of 200,
+   at its window of 2048 and at 128 (the ring wraps on the card); xLSTM-
+   1.3B at full width with 8 layers (one 7:1 cycle), a prompt of 192 (the
+   chunkwise form) and one of 50 (the parallel form). Every logit within
+   1e-3; every launch count exact.
 7. ``train``: full GPT-2 XL (bf16 compute, fp32 parameters and state),
    G = 2, sync_delay 0, per-group batch 2 x 1024 tokens, 10 steps of the
    same schedule shape (inner LR 5e-5, warmed up over the lazy start).
@@ -176,7 +207,9 @@ and no result line:
    leaves x outer syncs. After each of the two runs, a
    ``*_dispatch_breakdown`` line: device time by kernel group of one more
    outer dispatch beside its wall time, and the idle share.
-8c. ``train_dist_vs_sim``: the multi-process Trainer (ranks sharing the
+8c. (8c, 8d, 8g and 8h run after 8f, their 2-rank jobs in one spawned
+   world, ``two_rank_world``, which saves three worlds' start.)
+   ``train_dist_vs_sim``: the multi-process Trainer (ranks sharing the
    card) against ``SimulatedRun`` on the card, GPT-2 medium width, 2 layers,
    fp32, per-group batch 2 x 256, 8 steps without lazy start (four outer
    syncs): flat, int8-wire and rs-ag at 2 ranks, delay 0 and 1, and
@@ -213,7 +246,8 @@ and no result line:
    switch (within 1e-5, or three int8 quantization steps of its residual
    scale where larger: the flat windows mean Δθ in the Trainer and θ in the
    simulator); every rank's launches exact, ring and scatter included.
-8h. ``train_dist_auto``: full GPT-2 medium on 2 ranks, ``sync_delay="auto"``,
+8h. ``train_dist_auto``: GPT-2 medium's width at 12 of its 24 layers (for
+   the time limit) on 2 ranks, ``sync_delay="auto"``,
    14 steps, once with the measured controller and once with the adaptive
    ladder: per window t_inner, t_comm, d*, the rung and every switch (no
    bound on the decisions: they follow the card's timings; a measured
@@ -239,18 +273,19 @@ and no result line:
    fresh engine's greedy tokens, logits within 1e-3 of max |logit|; the
    pool drained; launches exact.
 9. a ``{"kernels": [...]}`` line: per kernel its launches on the main-path
-   runs (serve, serve_qwen3, serve_families and handoff, train,
+   runs (serve, serve_qwen3, serve_families, serve_recurrent and handoff, train,
    train_compressed, train_qwen3, train_minicpm,
    train_elastic and, summed over ranks, train_dist and train_dist_auto;
-   for the CUDA-core attention kernels,
-   which those bf16 runs no longer take, their launches in the fp32
-   card-vs-CPU phases), max error, kernel / plain / library times and
+   for the CUDA-core attention backward,
+   which those bf16 runs no longer take, its launches in the fp32
+   card-vs-CPU phases; the CUDA-core forward's main path is
+   RecurrentGemma's hd-256 prefill), max error, kernel / plain / library times and
    the bound at the main path's shape (bytes over 3.35 TB/s and operations
    over the peak rate of the inputs' type, the larger of the two; H100 SXM
    data sheet). A kernel with no launch fails the run.
 10. the last line, ``{"ok": true, "device": {...}}``.
 
-Eight studies run instead of the phases above when asked for, each after
+Nine studies run instead of the phases above when asked for, each after
 the build, and print their own JSON lines:
 
     python3 chip_smoke.py --witness-lr     # the train run at Table I's LR,
@@ -264,7 +299,9 @@ the build, and print their own JSON lines:
                                            # RMSNorm checks and times alone
     python3 chip_smoke.py --elastic        # phases 8e-8i alone
     python3 chip_smoke.py --ckpt-depth     # phase 8i at GPT-2 medium's 24 layers
-    python3 chip_smoke.py --families       # phase 4c with bf16 and int8 KV
+    python3 chip_smoke.py --families       # phase 4c at full depth, bf16 and int8 KV
+    python3 chip_smoke.py --recurrent      # phase 2's attention and decode
+                                           # checks, phases 4d and 6f alone
 """
 
 from __future__ import annotations
@@ -292,7 +329,14 @@ REPS = 25
 SLEEP_CYCLES = 4_000_000             # ~2 ms: covers the host's enqueue time
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also says when it was printed, in
+    seconds since the script started (``t_s``), for the time budget."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -664,6 +708,14 @@ def _core_bwd(torch, q, k, v, out, lse, do):
 # GQA 2:1, 4:1 and 5:1, MQA, window 64, softcap 30, non-causal and ragged S
 # (1, 77, 200, 257, 300, 333, 700) on it. The rest take the CUDA-core route.
 FIVE_TO_ONE = ("qwen3_14b_gqa5_s512_bf16", "qwen3_14b_gqa5_s333_bf16")
+# RecurrentGemma-9B's local attention: MQA 16:1 at hd 256 in bf16 (the
+# CUDA-core route), window 2048, at a prompt of 512 (the window as causal)
+# and of 2304 (the window active)
+RECURRENT_FLASH = ("recurrentgemma_mqa16_hd256_s512_w2048_bf16",
+                   "recurrentgemma_mqa16_hd256_s2304_w2048_bf16")
+REPEATED_FLASH = FIVE_TO_ONE + RECURRENT_FLASH  # each must give the same bits twice
+
+
 def _flash_cases(torch):
     bf, f32 = torch.bfloat16, torch.float32
     return {
@@ -688,6 +740,10 @@ def _flash_cases(torch):
         "gqa5": [
             ("qwen3_14b_gqa5_s512_bf16", 1, 512, 40, 8, 128, bf, True, 0, 0.0),
             ("qwen3_14b_gqa5_s333_bf16", 1, 333, 40, 8, 128, bf, True, 0, 0.0),
+        ],
+        "recurrent": [
+            (RECURRENT_FLASH[0], 1, 512, 16, 1, 256, bf, True, 2048, 0.0),
+            (RECURRENT_FLASH[1], 1, 2304, 16, 1, 256, bf, True, 2048, 0.0),
         ],
         "core": [
             ("hd40_window_softcap_bf16", 1, 45, 4, 2, 40, bf, True, 16, 10.0),
@@ -725,6 +781,7 @@ def check_flash(torch, timer, results):
         ("qwen3_train_b2_s1024_bf16", 2, 1024, 16, 8, 128, bf, True, 0, 0.0),
         *groups["tc"],
         *groups["gqa5"],
+        *groups["recurrent"],
         ("xl_s512_f32", 1, 512, 25, 25, 64, f32, True, 0, 0.0),
         ("hd256_f32", 1, 77, 2, 1, 256, f32, True, 0, 0.0),
         ("hd40_f32", 1, 45, 4, 2, 40, f32, True, 16, 10.0),
@@ -744,7 +801,7 @@ def check_flash(torch, timer, results):
         err, rms = max_err(out, ref), rel_rms(out, ref)
         lse_err = max_err(lse, lse_ref)
         same_out = torch.equal(out_t, out)
-        if name in FIVE_TO_ONE:  # the new head layout: a second run gives the same bits
+        if name in REPEATED_FLASH:  # the newer head layouts: a second run gives the same bits
             same_out = same_out and torch.equal(FK.flash_attention(q, k, v, **opts), out)
         tol = 1e-4 if dt == torch.float32 else 2e-2
         emit({"phase": "kernels", "kernel": "flash_attention", "case": name, "route": route,
@@ -793,6 +850,43 @@ def check_flash(torch, timer, results):
                                **timed(1, 512, 32, 8, 128, False)},
            "qwen3_14b_gqa5": {"shape": "bf16 B=1 S=512 H=40 Hkv=8 hd=128 causal",
                               **timed(1, 512, 40, 8, 128, False)}}
+    def timed_window(B, S, H, Hkv, hd, window):
+        """The windowed causal forward through the wrapper (the CUDA-core
+        route at hd 256), its plain version and SDPA (``is_causal`` where the
+        window covers the prompt, else a boolean band mask), and its bound
+        over the pairs the window keeps."""
+        q = rand((B, S, H, hd), bf)
+        k, v = (rand((B, S, Hkv, hd), bf) for _ in range(2))
+        tc0 = FK.tc_launches
+        out = {"ms": timer.ms(lambda: FK.flash_attention(q, k, v, causal=True,
+                                                          window=window)),
+               "plain_ms": timer.ms(lambda: flash_attention_ref(q, k, v, causal=True,
+                                                                window=window))}
+        if FK.tc_launches != tc0:
+            raise AssertionError("hd 256 took the tensor-core route")
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        if window >= S:
+            sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,  # noqa: E731
+                                                          enable_gqa=True)
+        else:
+            i = torch.arange(S, device="cuda")
+            band = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+            sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band,  # noqa: E731
+                                                          enable_gqa=True)
+        out["library_ms"] = timer.ms(sdpa)
+        pairs = sum(min(i + 1, window) for i in range(S))
+        out["bound_ms"], out["bound_by"] = bound_ms(
+            2 * B * S * (2 * H + 2 * Hkv) * hd, 4 * hd * H * B * pairs, "bfloat16")
+        out["bound_share"] = out["bound_ms"] / out["ms"]
+        return out
+
+    # RecurrentGemma-9B's local-attention prefill layer: the serve phase's
+    # 4 prompts of 512, and one prompt past the window
+    rg = {"serve_prefill": {"shape": "bf16 B=4 S=512 H=16 Hkv=1 hd=256 causal window 2048 "
+                                     "(one prefill layer of serve_recurrent)",
+                            **timed_window(4, 512, 16, 1, 256, 2048)},
+          "window_active": {"shape": "bf16 B=1 S=2304 H=16 Hkv=1 hd=256 causal window 2048",
+                            **timed_window(1, 2304, 16, 1, 256, 2048)}}
     library = "F.scaled_dot_product_attention forward"
     results["flash_attention_tc"] = {
         "name": "flash_attention_tc", "route": "cuda",
@@ -809,18 +903,23 @@ def check_flash(torch, timer, results):
         "qwen3_train_shape": {"shape": "bf16 B=2 S=1024 H=16 Hkv=8 hd=128 causal, with "
                                        "lse (one training layer)", **q3_t},
         "families": fam}
+    main = rg["serve_prefill"]
     results["flash_attention"] = {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:42",
-        "route_note": "the CUDA-core kernel: fp32 and head_dims other than 64 / 128; timed "
-                      "here through its C entry point at the bf16 shapes the tensor-core "
-                      "kernel now takes",
-        "shape": "bf16 B=1 S=512 H=Hkv=25 hd=64 causal (one prefill layer)",
-        "max_abs_err": worst["cuda_cores"], "ms": xl["cuda_cores_ms"],
-        "kernel_ms": xl["cuda_cores_ms"], "plain_ms": xl["plain_ms"],
-        "bound_ms": xl["bound_ms"], "bound_by": xl["bound_by"],
-        "library_ms": xl["library_ms"], "library": library,
+        "route_note": "the CUDA-core kernel: fp32 and head_dims other than 64 / 128; on the "
+                      "bf16 main path RecurrentGemma-9B's hd-256 prefill, whose shape the "
+                      "top-level numbers are; the GPT-2 XL and Qwen3 entries time it through "
+                      "its C entry point at bf16 shapes the tensor-core kernel takes",
+        "shape": main["shape"], "max_abs_err": worst["cuda_cores"], "ms": main["ms"],
+        "kernel_ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": main["library_ms"], "library": library,
+        "recurrentgemma_window_active": rg["window_active"],
+        "gpt2_xl": {"shape": "bf16 B=1 S=512 H=Hkv=25 hd=64 causal (one prefill layer)",
+                    "ms": xl["cuda_cores_ms"], "plain_ms": xl["plain_ms"],
+                    "bound_ms": xl["bound_ms"], "bound_by": xl["bound_by"],
+                    "library_ms": xl["library_ms"]},
         "qwen3": {"shape": "bf16 B=1 S=512 H=16 Hkv=8 hd=128 causal (one prefill layer)",
                   "ms": q3["cuda_cores_ms"], "plain_ms": q3["plain_ms"],
                   "bound_ms": q3["bound_ms"], "bound_by": q3["bound_by"],
@@ -851,6 +950,21 @@ def _paged_inputs(torch, g, *, B, H, Hkv, hd, bs, cls, dt, quantized, T=None):
         (kp, ks), (vp, vs) = q8(kf), q8(vf)
         return q, kp, vp, tables, context, ks, vs
     return q, kf.to(dt), vf.to(dt), tables, context, None, None
+
+
+def _dense_view_inputs(torch, g, *, B, H, Hkv, hd, size, cls):
+    """Random q and a dense (B, size, Hkv, hd) bf16 cache, viewed as the
+    dense serve path views it (``models/attention.py:_block_view``): a pool
+    of B * size / 16 blocks with the identity block table."""
+    from repro_torch.models.attention import DENSE_BLOCK, _block_view
+
+    q = torch.randn((B, H, hd), generator=g, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((B, size, Hkv, hd), generator=g, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    nblk = size // DENSE_BLOCK
+    tables = torch.arange(B * nblk, dtype=torch.int32, device="cuda").view(B, nblk)
+    context = torch.tensor(cls, dtype=torch.int32, device="cuda")
+    return q, _block_view(k), _block_view(v), tables, context, None, None
 
 
 def stage_ms(torch, timer, fn, stages, reps: int = REPS):
@@ -958,6 +1072,29 @@ def check_decode(torch, timer, results):
                                  f"slot or a second run that differs ({repeats})")
         worst = max(worst, err)
 
+    # RecurrentGemma-9B's decode over its dense cache viewed as a pool
+    # (``models/attention.py``: identity block table, bs 16, no window):
+    # 4 slots of a linear cache of 544 slots (the serve phase's 512 + 32) at
+    # contexts 513-544, and a full ring of 2048 (the window)
+    for name, B, size, cls in (("recurrentgemma_dense_view_544_bf16", 4, 544,
+                                [513, 522, 533, 544]),
+                               ("recurrentgemma_dense_ring2048_bf16", 4, 2048, [2048] * 4)):
+        args = _dense_view_inputs(torch, g, B=B, H=16, Hkv=1, hd=256, size=size, cls=cls)
+        out = DK.paged_decode_attention(*args)
+        again = DK.paged_decode_attention(*args)
+        ref = paged_decode_attention_ref(*args)
+        torch.cuda.synchronize()
+        err, repeats = max_err(out, ref), torch.equal(out, again)
+        emit({"phase": "kernels", "kernel": "paged_decode_attention", "case": name,
+              "B": B, "H": 16, "Hkv": 1, "hd": 256, "bs": 16, "cache_slots": size,
+              "context_lens": cls, "dtype": "bfloat16", "dense_cache_view": True,
+              "splits": DK.num_splits(size // 16, 16), "span": DK.split_size(size // 16, 16),
+              "max_abs_err": err, "tol": 2e-2, "repeats_bitwise": repeats})
+        if not (out.dtype == bf16 and err <= 2e-2 and repeats):
+            raise AssertionError(f"decode {name}: max err {err} > 2e-2 or a second run that "
+                                 f"differs ({repeats})")
+        worst = max(worst, err)
+
     def decode_bytes(cls, H, Hkv, hd, T):  # live K/V rows, q, out (bf16); table, lengths
         B = len(cls)
         return 2 * sum(cls) * Hkv * hd * 2 + 2 * B * H * hd * 2 + 4 * B * T + 4 * B
@@ -983,6 +1120,25 @@ def check_decode(torch, timer, results):
                 qs, kc, vc, attn_mask=mask, enable_gqa=Hkv != H))
         return out
 
+    def timed_dense(B, size, cls):
+        """As ``timed``, over RecurrentGemma's dense cache view, beside SDPA
+        on a (B, Hkv, S, hd) copy of the live rows (the copy not timed)."""
+        args = _dense_view_inputs(torch, g, B=B, H=16, Hkv=1, hd=256, size=size, cls=cls)
+        T = size // 16
+        b, by = bound_ms(decode_bytes(cls, 16, 1, 256, T), 4 * sum(cls) * 16 * 256, "bfloat16")
+        out = {"B": B, "context_lens": cls, "T": T, "splits": DK.num_splits(T, 16),
+               "ms": timer.ms(lambda: DK.paged_decode_attention(*args)),
+               "plain_ms": timer.ms(lambda: paged_decode_attention_ref(*args)),
+               "bound_ms": b, "bound_by": by}
+        out["bound_share"] = b / out["ms"]
+        q, kp, vp = args[:3]
+        S = max(cls)
+        kc, vc = (p.view(B, size, 1, 256)[:, :S].transpose(1, 2).contiguous() for p in (kp, vp))
+        mask = (torch.arange(S, device="cuda")[None, :] < args[4][:, None])[:, None, None]
+        out["sdpa_contiguous_ms"] = timer.ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None, :], kc, vc, attn_mask=mask, enable_gqa=True))
+        return out
+
     def stages(cls, H, Hkv, hd, T):
         args = _paged_inputs(torch, g, B=len(cls), H=H, Hkv=Hkv, hd=hd, bs=16, cls=cls,
                              dt=bf16, quantized=False, T=T)
@@ -1003,6 +1159,13 @@ def check_decode(torch, timer, results):
            for name, H, Hkv, hd in (("minicpm_2b_mha", 36, 36, 64),
                                     ("granite_8b_gqa4", 32, 8, 128),
                                     ("qwen3_14b_gqa5", 40, 8, 128))}
+    fam["recurrentgemma_dense_view"] = {
+        "shape": "bf16 4 slots of a dense cache of 544 viewed as a pool, contexts 513-544, "
+                 "bs 16, H=16 Hkv=1 hd 256 (one decode layer of serve_recurrent)",
+        **timed_dense(4, 544, [544] * 4)}
+    fam["recurrentgemma_dense_ring2048"] = {
+        "shape": "bf16 4 slots of a full ring of 2048 viewed as a pool, bs 16, H=16 Hkv=1 "
+                 "hd 256", **timed_dense(4, 2048, [2048] * 4)}
     # bandwidth-bound shapes: 16 slots of long contexts
     xl16 = timed([256 + round(i * 768 / 15) for i in range(16)], 25, 25, 64, 64, sdpa=True)
     q316 = timed([1024 + round(i * 3072 / 15) for i in range(16)], 16, 8, 128, 256, sdpa=True)
@@ -1734,18 +1897,28 @@ def int8_kv_depth(torch):
 FAMILIES = ("minicpm-2b", "granite-8b", "qwen3-14b")
 
 
-def serve_families(torch, counters, *, kvs=(False, True)):
-    """``serve``'s traffic through each family's full model (weights made
-    on the card in serving storage, freed before the next family), with
-    bf16 KV and then int8 KV (``kvs``: the whole script runs bf16 KV only,
-    for its time limit; ``--families`` runs both); ``serve`` checks every
-    launch count, the RMSNorm and decode ones at the family's depth."""
+# the whole script's depths for serve_families, for its time limit:
+# MiniCPM-2B at its full 40 layers, Granite-8B and Qwen3-14B at their full
+# width with 8 layers each (``--families`` serves all three at full depth)
+FAMILY_SCRIPT_LAYERS = {"granite-8b": 8, "qwen3-14b": 8}
+
+
+def serve_families(torch, counters, *, kvs=(False, True), layers=None):
+    """``serve``'s traffic through each family's model (weights made on the
+    card in serving storage, freed before the next family), with bf16 KV
+    and then int8 KV (``kvs``), at full depth or at ``layers[arch]``
+    layers (the whole script runs bf16 KV at ``FAMILY_SCRIPT_LAYERS``, for
+    its time limit; ``--families`` runs both KV formats at full depth);
+    ``serve`` checks every launch count, the RMSNorm and decode ones at the
+    depth run."""
     from repro_torch.configs import get_config
     from repro_torch.models import registry as R
 
     lines = []
     for arch in FAMILIES:
         cfg = get_config(arch)
+        if layers and arch in layers:
+            cfg = cfg.replace(num_layers=layers[arch])
         t0 = time.perf_counter()
         params = R.init_params(cfg, seed=0, device="cuda")
         torch.cuda.synchronize()
@@ -1819,6 +1992,248 @@ def families_vs_cpu(torch, counters):
         del params_gpu, params_cpu
         free_cuda(torch)
     return fp32_runs
+
+
+# ---------------------------------------------------------------------------
+# phases 4d and 6f: the dense serve path with RecurrentGemma-9B and xLSTM-1.3B
+# ---------------------------------------------------------------------------
+
+RECURRENT = ("recurrentgemma-9b", "xlstm-1.3b")
+
+
+def dense_norm_launches(cfg) -> int:
+    """RMSNorm kernel launches of one forward of a model with recurrent
+    blocks (a prefill or a decode step): norm1 of every layer, norm2 of
+    every layer with an MLP (none in mLSTM or sLSTM blocks), the final
+    norm. mLSTM's and sLSTM's per-head group norm is plain PyTorch."""
+    from repro_torch.models.transformer import _layer_has_mlp
+
+    return sum(1 + _layer_has_mlp(cfg, cfg.block_kind(i)) for i in range(cfg.num_layers)) + 1
+
+
+def _kind_count(cfg, kind: str) -> int:
+    return sum(cfg.block_kind(i) == kind for i in range(cfg.num_layers))
+
+
+def dense_rollout(torch, params, cfg, toks, S, device):
+    """Teacher-forced dense rollout: ``registry.prefill`` of toks[:, :S]
+    (the last position's logits), then ``decode_step`` for each later token
+    -> (B, D + 1, V) logits on the host."""
+    from repro_torch.models import registry as R
+
+    D = toks.shape[1] - S
+    t = toks.to(device)
+    with torch.no_grad():
+        lg, state = R.prefill(params, cfg, {"tokens": t[:, :S]}, max_len=S + D,
+                              last_only=True)
+        out = [lg[:, 0].float().cpu()]
+        for i in range(D):
+            lg, state = R.decode_step(params, cfg, state, t[:, S + i:S + i + 1])
+            out.append(lg[:, 0].float().cpu())
+    return torch.stack(out, 1)
+
+
+def recurrent_vs_cpu(torch, counters):
+    """RecurrentGemma-9B at full width with 3 layers (one rglru / rglru /
+    local_attn cycle; 2 prompts of 200, once at its window of 2048 and once
+    at 128, where the ring wraps) and xLSTM-1.3B at full width with 8 layers
+    (one 7:1 cycle; a prompt of 192, the chunkwise form, and one of 50, the
+    parallel form), fp32, the same seeded weights on the card (kernels) and
+    on the CPU (plain versions): the prefill and 16 teacher-forced decode
+    steps through ``registry.prefill`` / ``decode_step``. Every logit within
+    1e-3; every launch count exact."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry as R
+    from repro_torch.models.transformer import param_leaves, with_leaves
+
+    D = 16
+    # (arch, layers, prompts, [(config overrides, prompt length)]): the
+    # weights are made once an arch; the window does not change them
+    runs = (("recurrentgemma-9b", 3, 2, [({"local_window": 2048}, 200),
+                                         ({"local_window": 128}, 200)]),
+            ("xlstm-1.3b", 8, 1, [({}, 192), ({}, 50)]))
+    fp32_runs = []
+    for arch, layers, P, cases in runs:
+        base = get_config(arch).replace(num_layers=layers, dtype="float32")
+        params_gpu = R.init_params(base, seed=0, device="cuda")
+        params_cpu = with_leaves(params_gpu, {n: t.cpu() for n, t in param_leaves(params_gpu)})
+        for kw, S in cases:
+            fp32_runs.append(_recurrent_case(torch, counters, base.replace(**kw), kw, params_gpu,
+                                             params_cpu, P, S, D))
+        del params_gpu, params_cpu
+        free_cuda(torch)
+    return fp32_runs
+
+
+def _recurrent_case(torch, counters, cfg, kw, params_gpu, params_cpu, P, S, D):
+    """One ``recurrent_vs_cpu`` comparison -> the card's launches."""
+    arch, layers = cfg.name, cfg.num_layers
+    t0 = time.perf_counter()
+    toks = torch.randint(0, cfg.vocab_size, (P, S + D), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(23))
+    for c in counters.values():
+        c.launches = 0
+    card = dense_rollout(torch, params_gpu, cfg, toks, S, "cuda")
+    launches = {k: c.launches for k, c in counters.items()}
+    t_card = time.perf_counter() - t0
+    cpu = dense_rollout(torch, params_cpu, cfg, toks, S, "cpu")
+    err = float((card - cpu).abs().max())
+    n_attn = _kind_count(cfg, "local_attn")
+    expect = {"flash_attention": n_attn, "flash_attention_bwd": 0, "flash_attention_tc": 0,
+              "flash_attention_bwd_tc": 0, "paged_decode_attention": D * n_attn,
+              "quantize_blockwise": 0, "dequantize_blockwise": 0, "pier_update": 0,
+              "rmsnorm": (1 + D) * dense_norm_launches(cfg), "rmsnorm_bwd": 0}
+    emit({"phase": "recurrent_vs_cpu", "arch": arch,
+          "config": f"{arch} width, {layers} layers, float32", "pattern": [
+              cfg.block_kind(i) for i in range(layers)], "local_window": cfg.local_window,
+          "prompts": P, "prompt": S, "decode_steps": D,
+          "ring_wraps": n_attn > 0 and S + D > cfg.local_window,
+          "mlstm_form": ("chunkwise" if S > cfg.mlstm_chunk and S % cfg.mlstm_chunk == 0
+                         else "parallel") if arch.startswith("xlstm") else None,
+          "max_abs_logit_err_card_vs_cpu": err, "tol": 1e-3,
+          "max_abs_logit": float(card.abs().max()),
+          "greedy_agree_card_vs_cpu": float(
+              (card.argmax(-1) == cpu.argmax(-1)).float().mean()),
+          "card_launches": launches, "expected_launches": expect,
+          "card_seconds": t_card, "seconds": time.perf_counter() - t0})
+    if not (bool(torch.isfinite(card).all()) and card.shape == (P, D + 1, cfg.vocab_size)):
+        raise AssertionError(f"recurrent_vs_cpu {arch}: non-finite logits or wrong shape")
+    if err > 1e-3:
+        raise AssertionError(f"recurrent_vs_cpu {arch} {kw}: card vs cpu logits differ by "
+                             f"{err}")
+    if launches != expect:
+        raise AssertionError(f"recurrent_vs_cpu {arch}: launches {launches} != {expect}")
+    return launches
+
+
+def _profiled(torch, fn):
+    """(wall ms of one call, its device ms, kernels, device ms by kernel
+    group) from an unprofiled call and a profiled one after it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    groups, n = {}, 0
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            grp = _kernel_group(evt.name)
+            groups[grp] = groups.get(grp, 0.0) + evt.time_range.elapsed_us() / 1e3
+            n += 1
+    busy = sum(groups.values())
+    return {"wall_ms": wall, "device_ms": busy if n else "not measured",
+            "device_idle_share": 1 - busy / wall if n else "not measured",
+            "kernels": n, "device_ms_by_group": groups}
+
+
+def serve_recurrent(torch, counters, arch: str):
+    """Full RecurrentGemma-9B (38 layers) or xLSTM-1.3B (48), bf16, random
+    seeded weights made on the card in serving storage: 4 prompts of 512
+    tokens and 32 new tokens, greedy, through ``generate`` (the dense path:
+    ``build_serve_steps``, one prefill, 31 decode steps). Tokens/s, TTFT,
+    decode-step p50 / p99, peak memory; every launch count exact. Then
+    where the time goes: one decode step's device time beside its wall
+    time (``torch.profiler``), RecurrentGemma's prefill the same way, and
+    the recurrences that the host drives: one layer's RG-LRU scan over the
+    prompts (log-depth, 9 rounds) and prefill, or one sLSTM layer's
+    prefill (a step a position) and one mLSTM layer's."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry as R
+    from repro_torch.models import rglru as RG
+    from repro_torch.models import ssm as SSM
+    from repro_torch.serve import generate
+
+    B, S, N = 4, 512, 32
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    params = R.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in params.parameters())
+    n_bytes = sum(t.numel() * t.element_size() for t in params.parameters())
+    prompts = np.random.default_rng(24).integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    generate(params, cfg, prompts[:, :16], 2)  # warm-up (cuBLAS handles, allocator)
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    out, info = generate(params, cfg, prompts, N)
+    launches = {k: c.launches for k, c in counters.items()}
+    times = info["token_times"]
+    wall = times[-1] - times[0]
+    dec = sorted(1e3 * (b - a) for a, b in zip(times[1:], times[2:]))
+    n_attn = _kind_count(cfg, "local_attn")
+    expect = {"flash_attention": n_attn, "flash_attention_bwd": 0,
+              "flash_attention_tc": n_attn if tc_rule(cfg.dtype, cfg.resolved_head_dim) else 0,
+              "flash_attention_bwd_tc": 0, "paged_decode_attention": (N - 1) * n_attn,
+              "quantize_blockwise": 0, "dequantize_blockwise": 0, "pier_update": 0,
+              "rmsnorm": N * dense_norm_launches(cfg), "rmsnorm_bwd": 0}
+    line = {"phase": "serve_recurrent", "run": f"serve_recurrent_{arch}", "path": info["path"],
+            "config": f"{cfg.name} {cfg.num_layers} layers bf16", "params": n_params,
+            "param_bytes_serving_storage": n_bytes, "init_s": t_init, "batch": B,
+            "prompt_len": S, "new_tokens": N, "wall_s": wall, "tokens_out": int(out.size),
+            "tokens_per_s": out.size / wall, "ttft_ms": 1e3 * (times[1] - times[0]),
+            "decode_step_ms_p50": statistics.median(dec),
+            "decode_step_ms_p99": dec[min(len(dec) - 1, math.ceil(0.99 * len(dec)) - 1)],
+            "decode_steps": len(dec), "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "launches": launches, "expected_launches": expect}
+
+    # where the time goes: one prefill and one decode step of the same bundle
+    bundle = info["bundle"]
+    tok = torch.from_numpy(prompts).cuda()
+    state = {}
+
+    def prefill():
+        state["logits"], state["s"] = bundle.prefill_step(params, {"tokens": tok})
+
+    def decode():
+        state["step_logits"] = bundle.serve_step(params, state["s"], step_tok)[0]
+
+    if arch.startswith("recurrentgemma"):
+        line["prefill_profile"] = _profiled(torch, prefill)
+    else:
+        # xLSTM's prefill launches about 90 000 kernels (the sLSTM loop): the
+        # profiler's trace of it takes longer than the run, so its wall time
+        # is the TTFT and its device time is read from one layer of each kind
+        prefill()
+    step_tok = tok[:, :1].contiguous()
+    line["decode_step_profile"] = _profiled(torch, decode)
+    finite = all(bool(torch.isfinite(state[k]).all()) for k in ("logits", "step_logits"))
+    x = torch.randn((B, S, cfg.d_model), device="cuda").to(torch.bfloat16)
+    if arch.startswith("recurrentgemma"):
+        W = cfg.resolved_lru_width
+        log_a = -torch.rand((B, S, W), device="cuda")
+        x0 = torch.randn((B, S, W), device="cuda")
+        line["rglru_scan_log_depth_profile"] = _profiled(
+            torch, lambda: RG._linear_scan(log_a, x0, None))
+        line["rglru_layer_prefill_profile"] = _profiled(
+            torch, lambda: RG.apply_rglru(params["layers"][0]["mix"], x, cfg))
+    else:
+        i = next(i for i in range(cfg.num_layers) if cfg.block_kind(i) == "slstm")
+        line["slstm_layer_prefill_profile"] = _profiled(
+            torch, lambda: SSM.apply_slstm(params["layers"][i]["mix"], x, cfg))
+        line["mlstm_layer_prefill_profile"] = _profiled(
+            torch, lambda: SSM.apply_mlstm(params["layers"][0]["mix"], x, cfg,
+                                           return_state=True))
+    emit(line)
+    if info["path"] != "dense" or out.shape != (B, N):
+        raise AssertionError(f"serve_recurrent {arch}: path {info['path']}, shape {out.shape}")
+    if not finite or not ((out >= 0) & (out < cfg.vocab_size)).all():
+        raise AssertionError(f"serve_recurrent {arch}: non-finite logits or token ids out "
+                             f"of range")
+    if launches != expect:
+        raise AssertionError(f"serve_recurrent {arch}: launches {launches} != {expect}")
+    del params, bundle, state, info
+    free_cuda(torch)
+    return line
 
 
 # ---------------------------------------------------------------------------
@@ -2771,7 +3186,8 @@ def _ring_worker(info):
         same(f"allgather_{name}", RA.allgather_qs(q2, s2, ex, **kw),
              RA.allgather_qs(q2.cpu(), s2.cpu(), cpu_ex, **kw))
         del x, q, s, red, q2, s2, got
-    # the whole model packed: the main path's shapes (one launch per stage)
+    # the whole model packed: the main path's shapes (one launch per stage),
+    # checked at every E and timed at E = 2, the main path's
     timings = {}
     xs = {"ring_allgather": rand_bytes(layout.nbytes),
           "shard_scatter": rand_bytes(E * slot_layout.nbytes).reshape(E, -1)}
@@ -2779,6 +3195,8 @@ def _ring_worker(info):
         fn = RA.ring_allgather if kname == "ring_allgather" else RA.shard_scatter
         xc = x.cpu()
         same(f"{kname}_whole_model", fn(x, ex), fn(xc, cpu_ex), nbytes=x.numel())
+        if E != 2:
+            continue
         torch.cuda.synchronize()
         dist.barrier(group=pg)
         evs = []
@@ -3001,11 +3419,37 @@ DIST_VS_SIM_ARCH = {"qwen3_int8_wire_d0": "qwen3-1.7b"}  # the rest: gpt2-medium
 DIST_VS_SIM_BITWISE = ("qwen3_int8_wire_d0",)
 
 
+def two_rank_world(torch, phases):
+    """Run the Trainer jobs of several phases in one spawned world of two
+    ranks sharing the card: each world pays its ranks' start (about 15 s),
+    so the phases share one. Each phase is a generator that yields its
+    jobs once, is sent (every rank's outputs of its own jobs, the world's
+    seconds), and returns its result, which this returns in order."""
+    from repro_torch.launch.train import spawn, train_jobs
+
+    lists = [next(p) for p in phases]
+    t0 = time.perf_counter()
+    outs = spawn(train_jobs, ([job for jobs in lists for job in jobs],), nproc=2,
+                 device="cuda", timeout=DIST_DEADLINE_S)
+    wall = time.perf_counter() - t0
+    results, k = [], 0
+    for p, jobs in zip(phases, lists):
+        try:
+            p.send(([o[k:k + len(jobs)] for o in outs], wall))
+        except StopIteration as done:
+            results.append(done.value)
+        else:
+            raise RuntimeError("a phase of two_rank_world yielded twice")
+        k += len(jobs)
+    return results
+
+
 def train_dist_vs_sim(torch):
     """The Trainer (ranks on the card) against ``SimulatedRun`` on the card:
     GPT-2 medium width (Qwen3-1.7B width for the RMSNorm case), 2 layers,
     fp32, per-group batch 2 x 256, 8 steps of the 40-step schedule with no
-    lazy start (four outer syncs)."""
+    lazy start (four outer syncs). A phase of ``two_rank_world``: it yields
+    its 2-rank jobs and spawns its 4-rank world itself."""
     from repro_torch.config import OuterCommConfig, ParallelConfig, TrainConfig
     from repro_torch.configs import get_config
     from repro_torch.core.simulate import SimulatedRun
@@ -3032,9 +3476,12 @@ def train_dist_vs_sim(torch):
             tcs.append(tc)
             arch = DIST_VS_SIM_ARCH.get(name, "gpt2-medium")
             jobs.append(((cfgs[arch], tc, pc, steps), {"params": sds[arch], "keep_params": True}))
-        t0 = time.perf_counter()
-        outs = spawn(train_jobs, (jobs,), nproc=E, device="cuda", timeout=DIST_DEADLINE_S)
-        t_dist = time.perf_counter() - t0
+        if E == 2:  # run in the shared world of two ranks (``two_rank_world``)
+            outs, t_dist = yield jobs
+        else:
+            t0 = time.perf_counter()
+            outs = spawn(train_jobs, (jobs,), nproc=E, device="cuda", timeout=DIST_DEADLINE_S)
+            t_dist = time.perf_counter() - t0
         for i, (name, comm, ranks, P, delay) in enumerate(cases):
             tc = tcs[i]
             arch = DIST_VS_SIM_ARCH.get(name, "gpt2-medium")
@@ -3091,10 +3538,10 @@ def _gpt2_medium_val(torch, cfg, seq):
 
 def train_dist(torch):
     """Full GPT-2 medium, 2 ranks sharing the card (G = 2), 10 steps, with
-    int8-wire and with rs-ag; returns the runs' lines."""
+    int8-wire and with rs-ag; returns the runs' lines. A phase of
+    ``two_rank_world``."""
     from repro_torch.config import OuterCommConfig, ParallelConfig, TrainConfig
     from repro_torch.configs import get_config
-    from repro_torch.launch.train import spawn, train_jobs
     from repro_torch.sync import resolve_strategy
 
     cfg = get_config("gpt2-medium")
@@ -3104,9 +3551,7 @@ def train_dist(torch):
     tcs = [TrainConfig(**TRAIN_TC, **TRAIN_LR, global_batch_size=G * per, seq_len=seq,
                        outer_comm=OuterCommConfig(compression=c)) for c in ("int8-wire", "rs-ag")]
     jobs = [((cfg, tc, pc, steps), {"val_batch": val, "timed": True}) for tc in tcs]
-    t0 = time.perf_counter()
-    outs = spawn(train_jobs, (jobs,), nproc=G, device="cuda", timeout=DIST_DEADLINE_S)
-    wall = time.perf_counter() - t0
+    outs, wall = yield jobs  # in the shared world of two ranks (``two_rank_world``)
     lines = []
     for i, tc in enumerate(tcs):
         r0 = outs[0][i]
@@ -3484,12 +3929,11 @@ def train_dist_elastic_vs_sim(torch):
     """The Trainer (2 ranks on the card) against ``SimulatedRun`` on the
     card with churn and a scripted switch: GPT-2 XL width, 2 layers, fp32,
     per-group batch 2 x 256, 8 steps with no lazy start (outer windows
-    after steps 1, 3, 5, 7)."""
+    after steps 1, 3, 5, 7). A phase of ``two_rank_world``."""
     from repro_torch.config import (MembershipConfig, OuterCommConfig, ParallelConfig,
                                     TrainConfig)
     from repro_torch.configs import get_config
     from repro_torch.core.simulate import SimulatedRun
-    from repro_torch.launch.train import spawn, train_jobs
     from repro_torch.models import registry as R
     from repro_torch.models.transformer import param_leaves
     from repro_torch.sync import (ChurnSchedule, FlatFP32, Int8Wire, MembershipController,
@@ -3512,9 +3956,7 @@ def train_dist_elastic_vs_sim(torch):
         if scripted:
             kw["sync_controller"] = ScriptedSyncController(0, switch)
         jobs.append(((cfg, tc, pc, steps), kw))
-    t0 = time.perf_counter()
-    outs = spawn(train_jobs, (jobs,), nproc=ranks, device="cuda", timeout=DIST_DEADLINE_S)
-    t_dist = time.perf_counter() - t0
+    outs, t_dist = yield jobs  # in the shared world of two ranks (``two_rank_world``)
     seen = []
     for i, (name, comm, delay, churn, scripted) in enumerate(DIST_ELASTIC):
         tc = tcs[i]
@@ -3575,20 +4017,25 @@ def train_dist_elastic_vs_sim(torch):
     return seen
 
 
+AUTO_LAYERS = 12  # train_dist_auto's depth at GPT-2 medium's width (of 24)
+
+
 def train_dist_auto(torch):
-    """Full GPT-2 medium, 2 ranks sharing the card, ``sync_delay="auto"``:
+    """GPT-2 medium's width at ``AUTO_LAYERS`` layers (half its depth, for
+    the script's time limit: the measured t_comm, about 3.5 s of gloo
+    staging at full depth, stays many times t_inner, so the decisions do
+    not turn on it), 2 ranks sharing the card, ``sync_delay="auto"``:
     the measured controller, then the adaptive ladder, 14 steps of the
     40-step schedule (accumulates after steps 1, 3; outer windows after
     steps 5, 7, 9, 11, 13: the sixth window closes the first measurement,
     and a ladder that switches there dispatches the window after step 13
     on its new rung, whose quantize and dequantize launches must be
-    exactly that strategy's for one window)."""
+    exactly that strategy's for one window). A phase of ``two_rank_world``."""
     from repro_torch.config import ParallelConfig, TrainConfig
     from repro_torch.configs import get_config
-    from repro_torch.launch.train import spawn, train_jobs
     from repro_torch.sync import default_ladder, resolve_strategy
 
-    cfg = get_config("gpt2-medium")
+    cfg = get_config("gpt2-medium").replace(num_layers=AUTO_LAYERS)
     G, per, seq, steps = 2, 2, 1024, 14
     pc = ParallelConfig(data_axis_size=G, data_outer=G)
     tc = TrainConfig(**TRAIN_TC, **TRAIN_LR, global_batch_size=G * per, seq_len=seq,
@@ -3596,9 +4043,7 @@ def train_dist_auto(torch):
     val = _gpt2_medium_val(torch, cfg, seq)
     jobs = [((cfg, tc, pc, steps), {"val_batch": val, "adaptive_sync": adaptive})
             for adaptive in (False, True)]
-    t0 = time.perf_counter()
-    outs = spawn(train_jobs, (jobs,), nproc=G, device="cuda", timeout=DIST_DEADLINE_S)
-    wall = time.perf_counter() - t0
+    outs, wall = yield jobs  # in the shared world of two ranks (``two_rank_world``)
     lines = []
     for i, adaptive in enumerate((False, True)):
         r0 = outs[0][i]
@@ -3606,7 +4051,8 @@ def train_dist_auto(torch):
                 "controller": "adaptive ladder" if adaptive else "measured",
                 "strategy": f"auto ({'adaptive' if adaptive else 'measured'}) -> "
                             f"{r0['strategy']}",
-                "config": "gpt2-medium 24 layers, bf16 compute, fp32 params", "ranks": G,
+                "config": f"gpt2-medium width, {cfg.num_layers} layers, bf16 compute, fp32 "
+                          f"params", "ranks": G,
                 "note": "2 ranks share one card: time-sliced contexts, not a two-GPU rate",
                 "steps": steps, "windows": r0["windows"], "final": r0["controller"],
                 "decisions": r0["decisions"], "final_strategy": r0["strategy"],
@@ -3854,16 +4300,14 @@ def handoff(torch, counters, cfg, ck, step: int, saved):
 
 def elastic_phases(torch, counters):
     """``elastic_vs_cpu`` and ``switch_vs_cpu`` (each card half, then the
-    CPU halves), then ``train_dist_elastic_vs_sim``. Returns the fp32 runs'
-    launches."""
+    CPU halves). Returns the card runs' launches."""
     with large_allocations_on_the_heap():
         cases = elastic_vs_cpu(torch, counters) + switch_vs_cpu(torch, counters)
         free_cuda(torch)
         for _, finish in cases:
             finish()
-    launches = [ln for ln, _ in cases] + train_dist_elastic_vs_sim(torch)
     free_cuda(torch)
-    return launches
+    return [ln for ln, _ in cases]
 
 
 # the CUDA-core flash kernels' entries of the kernels line (their counters
@@ -3873,7 +4317,7 @@ CUDA_CORE_FLASH = ("flash_attention", "flash_attention_bwd")
 
 def main(argv) -> int:
     studies = {"--witness-lr", "--build-times", "--int8-kv-depth", "--flash-precision",
-               "--norm-quant", "--elastic", "--ckpt-depth", "--families"}
+               "--norm-quant", "--elastic", "--ckpt-depth", "--families", "--recurrent"}
     if len(argv) > 1 or not set(argv) <= studies:
         print(f"usage: chip_smoke.py [{' | '.join(sorted(studies))}]", file=sys.stderr)
         return 2
@@ -3931,7 +4375,8 @@ def main(argv) -> int:
         train_elastic(torch, counters)
         free_cuda(torch)
         elastic_phases(torch, counters)
-        train_dist_auto(torch)
+        two_rank_world(torch, [train_dist_elastic_vs_sim(torch), train_dist_auto(torch)])
+        free_cuda(torch)
         train_dist_ckpt(torch)
         return 0
     if argv == ["--ckpt-depth"]:
@@ -3942,6 +4387,17 @@ def main(argv) -> int:
         return 0
     results = {}
     timer = Timer(torch)
+    if argv == ["--recurrent"]:
+        check_flash(torch, timer, results)
+        check_decode(torch, timer, results)
+        del timer
+        emit({"recurrent_kernels": [results["flash_attention"],
+                                    results["paged_decode_attention"]]})
+        for arch in RECURRENT:
+            serve_recurrent(torch, counters, arch)
+        with large_allocations_on_the_heap():
+            recurrent_vs_cpu(torch, counters)
+        return 0
     if argv == ["--norm-quant"]:
         check_quantize(torch, timer, results)
         check_dequantize(torch, timer, results)
@@ -3978,7 +4434,9 @@ def main(argv) -> int:
     qwen3_int8_kv(torch, params, cfg)
     del params
     torch.cuda.empty_cache()
-    serves += serve_families(torch, counters, kvs=(False,))  # int8 KV: --families
+    # int8 KV and full depth: --families
+    serves += serve_families(torch, counters, kvs=(False,), layers=FAMILY_SCRIPT_LAYERS)
+    serves += [serve_recurrent(torch, counters, arch) for arch in RECURRENT]
 
     with large_allocations_on_the_heap() as raised:
         emit({"phase": "host_malloc", "thresholds_raised": raised})
@@ -3988,6 +4446,7 @@ def main(argv) -> int:
         fp32_runs += qwen3_vs_cpu(torch, counters)
         free_cuda(torch)
         fp32_runs += families_vs_cpu(torch, counters)
+        fp32_runs += recurrent_vs_cpu(torch, counters)
     free_cuda(torch)
     flash_tc_vs_plain(torch, counters)
     free_cuda(torch)
@@ -4016,11 +4475,13 @@ def main(argv) -> int:
     free_cuda(torch)
     trains = [train_line, compressed_line, qwen3_line, minicpm_line, elastic_line]
     runs = serves + trains
-    fp32_runs += train_dist_vs_sim(torch)
-    free_cuda(torch)
-    dists = train_dist(torch)
     fp32_runs += elastic_phases(torch, counters)
-    dists += train_dist_auto(torch)
+    vs_sim, dists, elastic_vs_sim, auto = two_rank_world(
+        torch, [train_dist_vs_sim(torch), train_dist(torch), train_dist_elastic_vs_sim(torch),
+                train_dist_auto(torch)])
+    fp32_runs += vs_sim + elastic_vs_sim
+    dists += auto
+    free_cuda(torch)
     _, handoff_line = train_dist_ckpt(torch, counters=counters)
 
     def count(launches, name):  # one run's launches of kernel `name`
@@ -4041,12 +4502,13 @@ def main(argv) -> int:
         single = sum(count(r["launches"], name) for r in runs + [handoff_line])
         main_path = single + sum(dist_launches(d, name) for d in dists)
         fp32 = sum(count(ln, name) for ln in fp32_runs)
-        # the bf16 main paths run the tensor-core flash kernels; the
-        # CUDA-core ones run in the fp32 card-vs-CPU phases
-        entry["launches"] = fp32 if name in CUDA_CORE_FLASH else main_path
+        # the bf16 main paths run the tensor-core flash kernels, but for
+        # RecurrentGemma's prefill at hd 256 (the CUDA-core forward); the
+        # CUDA-core backward runs in the fp32 card-vs-CPU phases only
+        entry["launches"] = fp32 if name == "flash_attention_bwd" else main_path
         entry["launches_by_path"] = {
             "serve": sum(count(r["launches"], name) for r in serves),
-            "serve_by_run": {r.get("run", f"{r['phase']}_{r['kv']}"):
+            "serve_by_run": {r["run"] if "run" in r else f"{r['phase']}_{r['kv']}":
                              count(r["launches"], name) for r in serves},
             "handoff": count(handoff_line["launches"], name),
             "train": sum(count(r["launches"], name) for r in trains),

@@ -1,8 +1,10 @@
 """Architecture configuration registry of the PyTorch port.
 
-The port runs the paper's own GPT-2 family and the dense RMSNorm families
+The port runs the paper's own GPT-2 family, the dense RMSNorm families
 (RoPE, SwiGLU, GQA): Qwen3-1.7B and Qwen3-14B (qk-norm), MiniCPM-2B (MHA,
-a tied table of 122 753 rows) and Granite-8B (an untied ``lm_head``). Each
+a tied table of 122 753 rows) and Granite-8B (an untied ``lm_head``), and,
+through the dense serve path, the recurrent families RecurrentGemma-9B
+(RG-LRU and local MQA attention) and xLSTM-1.3B (mLSTM and sLSTM). Each
 module is a copy of its counterpart in ``src/repro/configs/`` (the
 ``tests/test_torch_*`` files check the copies field by field). An architecture that the reference
 registers but the port does not run yet raises ``NotImplementedError``.
@@ -16,18 +18,17 @@ from typing import List
 from repro_torch.config import ModelConfig
 
 ARCH_MODULES = ["gpt2_small", "gpt2_medium", "gpt2_xl", "gpt2_7b", "qwen3_1_7b",
-                "minicpm_2b", "granite_8b", "qwen3_14b"]
+                "minicpm_2b", "granite_8b", "qwen3_14b", "recurrentgemma_9b", "xlstm_1_3b"]
 
 # Registered by the reference package, not ported yet (ROADMAP.md queue 1).
 NOT_PORTED = (
-    "deepseek-v2-236b", "xlstm-1.3b", "chameleon-34b", "recurrentgemma-9b",
-    "whisper-large-v3", "kimi-k2-1t-a32b",
+    "deepseek-v2-236b", "chameleon-34b", "whisper-large-v3", "kimi-k2-1t-a32b",
 )
 
 # display names as the reference's registry spells them, and its aliases
-_DISPLAY = {"qwen3_1_7b": "qwen3-1.7b"}
+_DISPLAY = {"qwen3_1_7b": "qwen3-1.7b", "xlstm_1_3b": "xlstm-1.3b"}
 _CANONICAL = {_DISPLAY.get(m, m.replace("_", "-")): m for m in ARCH_MODULES}
-_ALIASES = {"qwen3-1-7b": "qwen3_1_7b"}
+_ALIASES = {"qwen3-1-7b": "qwen3_1_7b", "xlstm-1-3b": "xlstm_1_3b"}
 
 
 def _module_for(name: str):

@@ -4,8 +4,11 @@
 (``jax.tree.map(np.asarray, params)`` on the reference's side) and returns
 the port's parameter module, so that both packages compute the same model.
 Key names and layouts carry over unchanged: the pytree path
-``layers/3/mix/wq`` becomes the state-dict key ``layers.3.mix.wq``. This
-module imports no JAX: it only reads numpy arrays.
+``layers/3/mix/wq`` becomes the state-dict key ``layers.3.mix.wq``, the
+recurrent blocks' leaves included (mLSTM's (H, dh, dh) projections and
+(H, dh) ``out_norm``, the (W, C) conv kernels, RG-LRU's ``lambda``), each
+in the storage its name gives (``layers.stored_dtype``). This module
+imports no JAX: it only reads numpy arrays.
 """
 
 from __future__ import annotations

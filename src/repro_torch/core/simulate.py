@@ -79,7 +79,7 @@ from repro_torch.core.pier import PierSchedule
 from repro_torch.data.synthetic import MarkovLM, make_train_batch
 from repro_torch.models import registry as R
 from repro_torch.models.layers import torch_dtype
-from repro_torch.models.transformer import param_leaves
+from repro_torch.models.transformer import check_trainable, param_leaves
 from repro_torch.optim.adamw import adamw_init, adamw_update, clone_state
 from repro_torch.sync.membership import MembershipController
 from repro_torch.optim.clip import clip_by_global_norm
@@ -121,6 +121,7 @@ class SimulatedRun:
         if tc.optimizer != "adamw" and num_groups < 1:
             raise ValueError(f"num_groups must be >= 1, got {num_groups}")
         validate_pod_grouping(num_groups, num_pods)
+        check_trainable(mc)
         if not isinstance(tc.sync_delay, int):
             raise ValueError("sync_delay='auto' must be resolved before simulation "
                              "(launch/train.py:resolve_auto_sync_delay)")

@@ -8,7 +8,10 @@ serving mesh yet) and with ``--device``: the run is on the card unless
 run. Weights are random, from ``--seed``. ``--ckpt-dir`` hot-swaps the
 parameters from the newest complete checkpoint there between engine steps
 (``serve/handoff.py``): a Trainer's (group 0's replica) or a plain
-``params`` tree.
+``params`` tree. Architectures with recurrent blocks (RecurrentGemma-9B,
+xLSTM-1.3B) serve through the dense path (``path=dense``: one static batch
+in lockstep); ``--ckpt-dir`` and ``--int8-kv``, which only the paged path
+has, raise there rather than being ignored.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, get_reduced_config
 from repro_torch.models import registry as R
-from repro_torch.serve import CheckpointPoller, PagedCacheConfig, generate
+from repro_torch.serve import CheckpointPoller, PagedCacheConfig, generate, paged_supported
 
 
 def main(argv=None):
@@ -49,6 +52,10 @@ def main(argv=None):
     device = resolve_device(args.device)
     mc = (get_reduced_config(args.arch) if args.reduced
           else get_config(args.arch))
+    paged, why = paged_supported(mc)
+    if not paged and (args.ckpt_dir or args.int8_kv):
+        raise ValueError(f"{mc.name} serves through the dense path ({why}): --ckpt-dir and "
+                         f"--int8-kv are options of the paged path")
 
     # independent streams for the weights and the prompts
     params = R.init_params(mc, seed=args.seed, device=device)
@@ -56,11 +63,13 @@ def main(argv=None):
     prompts = torch.randint(0, mc.vocab_size, (args.batch, args.prompt_len),
                             generator=gen, dtype=torch.int32).numpy()
 
-    bs = args.block_size
-    padded = -(-args.prompt_len // bs) * bs
-    need = -(-(padded + args.tokens) // bs)  # blocks per sequence
-    pcfg = PagedCacheConfig(num_blocks=need * args.batch + 1, block_size=bs,
-                            quantized=args.int8_kv)
+    pcfg = None
+    if paged:
+        bs = args.block_size
+        padded = -(-args.prompt_len // bs) * bs
+        need = -(-(padded + args.tokens) // bs)  # blocks per sequence
+        pcfg = PagedCacheConfig(num_blocks=need * args.batch + 1, block_size=bs,
+                                quantized=args.int8_kv)
 
     poller = CheckpointPoller(args.ckpt_dir, params) if args.ckpt_dir else None
     t0 = time.perf_counter()
@@ -70,12 +79,16 @@ def main(argv=None):
                          on_step=None if poller is None else poller.on_step)
     dt = time.perf_counter() - t0
 
-    eng = info["engine"]
     print(f"arch={mc.name} path={info['path']} device={device} "
           f"tokens/s={out.size / max(dt, 1e-9):.1f} ({dt:.2f}s total)")
-    print(f"engine: {eng.stats['decode_steps']} decode steps, "
-          f"{eng.stats['prefills']} prefills, peak pool "
-          f"{eng.stats['peak_blocks']}/{pcfg.num_blocks - 1} blocks")
+    if paged:
+        eng = info["engine"]
+        print(f"engine: {eng.stats['decode_steps']} decode steps, "
+              f"{eng.stats['prefills']} prefills, peak pool "
+              f"{eng.stats['peak_blocks']}/{pcfg.num_blocks - 1} blocks")
+    else:
+        print(f"dense: one prefill of {args.batch} x {args.prompt_len} tokens, "
+              f"{args.tokens - 1} decode steps")
     print("generated[0,:16]:", np.asarray(out[0, :16]).tolist())
     if poller is not None:
         info["poller"] = poller

@@ -845,8 +845,17 @@ def train_job(info: RankInfo, mc: ModelConfig, tc: TrainConfig, pc: ParallelConf
 def train_jobs(info: RankInfo, jobs) -> List[Dict[str, Any]]:
     """Several :func:`train_job` runs, one after another, in one world:
     ``jobs`` is a list of ``(args, kwargs)``. Spawning once saves each
-    run the ranks' start-up."""
-    return [train_job(info, *a, **k) for a, k in jobs]
+    run the ranks' start-up. Between runs a finished run's memory is
+    given back (its trainer holds reference cycles, which only the
+    collector frees; ranks that share a card cannot use each other's
+    cached blocks)."""
+    out = []
+    for a, k in jobs:
+        out.append(train_job(info, *a, **k))
+        gc.collect()
+        if torch.cuda.is_initialized():
+            torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -917,6 +926,7 @@ def configs_from_args(args):
     """(ModelConfig, TrainConfig, ParallelConfig) from parsed flags; a flag
     the port does not run raises ``NotImplementedError``."""
     from repro_torch.configs import get_config, get_reduced_config
+    from repro_torch.models.transformer import check_trainable
 
     unported = {"--kernel-backend": bool(args.kernel_backend),
                 "--sharded-outer": args.sharded_outer, "--comm-chunks": args.comm_chunks > 1}
@@ -926,6 +936,7 @@ def configs_from_args(args):
     if (args.adaptive_sync or args.remeasure_every) and args.sync_delay != "auto":
         raise ValueError("--adaptive-sync / --remeasure-every need --sync-delay auto")
     mc = get_reduced_config(args.arch) if args.reduced else get_config(args.arch)
+    check_trainable(mc)
     if args.mesh:
         shape = tuple(int(x) for x in args.mesh.split(","))
         pods, shape = (shape[0], shape[1:]) if len(shape) == 4 else (1, shape)

@@ -1,16 +1,33 @@
-"""GQA / MQA / MHA self-attention, the no-cache (training / prefill) path.
+"""GQA / MQA / MHA self-attention: training / prefill, and the dense
+serve path's decode cache.
 
-Counterpart of ``repro/models/attention.py``. The attention itself goes
-through ``kernels.ops.flash_attention``: on a CUDA tensor that launches the
-hand-written flash kernel (and raises on a layout it does not take), on a
-CPU tensor it runs the plain masked softmax of the reference's XLA path
-(``attention.py:123-154``, with positions 0..S-1 for queries and keys).
-qk-norm (``layers.rms_norm_headwise``, the RMSNorm kernel on the card) and
-RoPE are applied as the reference applies them; the decode cache of the
-dense serve path is not ported yet.
+Counterpart of ``repro/models/attention.py``. Without a cache the attention
+goes through ``kernels.ops.flash_attention``: on a CUDA tensor that
+launches the hand-written flash kernel (and raises on a layout it does not
+take), on a CPU tensor it runs the plain masked softmax of the reference's
+XLA path (``attention.py:123-154``, with positions 0..S-1 for queries and
+keys). qk-norm (``layers.rms_norm_headwise``, the RMSNorm kernel on the
+card) and RoPE are applied as the reference applies them.
+
+Decode cache (the dense serve path): ``{"k", "v": (B, size, Hkv, hd) in
+cfg.dtype, "pos": (B, size) int32 (-1 marks an unwritten slot), "length":
+int}``, the reference's layout, with ``length`` a host integer (the dense
+path's positions are in lockstep, so the host knows them). A window layer's
+cache is a ring of ``size = window`` slots (slot = position % size); any
+other layer's is a linear buffer. The decode step's attention goes through
+the paged decode kernel (``kernels.ops.paged_decode_attention``): the
+contiguous cache is viewed, without a copy, as a pool of ``B * size /
+DENSE_BLOCK`` blocks with an identity block table, over a context of
+``min(length + 1, size)`` and no window. That is exact: a ring of ``window``
+slots holds exactly the last ``window`` positions, and a linear buffer holds
+its positions in order with its unwritten slots past the context. So a
+linear buffer's size is rounded up to a multiple of ``DENSE_BLOCK``, and a
+ring whose window is not a multiple of it raises.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -58,18 +75,113 @@ def _project_qkv(p, x, xkv, cfg: ModelConfig):
 
 
 def apply_self_attention(p, x, cfg: ModelConfig, *, window: int = 0,
-                         return_kv: bool = False, causal: bool = True):
-    """Self-attention over x (B, S, D) at positions 0..S-1, no cache.
+                         return_kv: bool = False, causal: bool = True,
+                         cache: Optional[dict] = None):
+    """Self-attention over x (B, S, D).
 
-    Returns (out, extra) where extra is the (k, v) pair when ``return_kv``
-    (prefill collects them for the cache; k after RoPE), else None.
+    - training / prefill: ``cache=None``, positions 0..S-1; with
+      ``return_kv`` extra is the (k, v) pair (k after RoPE), else None;
+    - decode: ``cache`` given (the module docstring's layout), x is the one
+      new token at position ``cache["length"]``; extra is the new cache,
+      whose tensors are the old ones written in place.
     """
     q, k, v = _project_qkv(p, x, x, cfg)
-    if cfg.positional == "rope":
-        positions = torch.arange(x.shape[1], device=x.device)
-        q = L.apply_rope(q, positions, cfg.rope_theta)
-        k = L.apply_rope(k, positions, cfg.rope_theta)
-    out = gqa_attention(q, k, v, causal=causal, window=window, softcap=0.0)
+    if cache is None:
+        if cfg.positional == "rope":
+            positions = torch.arange(x.shape[1], device=x.device)
+            q = L.apply_rope(q, positions, cfg.rope_theta)
+            k = L.apply_rope(k, positions, cfg.rope_theta)
+        out = gqa_attention(q, k, v, causal=causal, window=window, softcap=0.0)
+        extra = (k, v) if return_kv else None
+    else:
+        out, extra = _decode_attention(q, k, v, cache, cfg, window=window)
     B, S, H, hd = out.shape
     out = out.reshape(B, S, H * hd) @ L.cast(p["wo"], cfg).reshape(H * hd, -1)
-    return out, ((k, v) if return_kv else None)
+    return out, extra
+
+
+# ---------------------------------------------------------------------------
+# the dense decode cache
+# ---------------------------------------------------------------------------
+
+DENSE_BLOCK = 16  # slots a block of the cache's pool view holds
+
+
+def cache_size(max_len: int, window: int = 0) -> int:
+    """Slots of a layer's decode cache: a ring of ``window`` slots when the
+    context can outgrow the window, else ``max_len`` rounded up to a
+    multiple of :data:`DENSE_BLOCK` (the positions never wrap there, and
+    all of them lie inside any window)."""
+    if window > 0 and max_len >= window:
+        if window % DENSE_BLOCK:
+            raise ValueError(f"a ring cache of window {window} cannot be viewed as blocks of "
+                             f"{DENSE_BLOCK} slots")
+        return window
+    return -(-max_len // DENSE_BLOCK) * DENSE_BLOCK
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, window: int = 0,
+               device="cpu"):
+    """Empty KV cache. ``pos`` = -1 marks unwritten slots."""
+    hd = cfg.resolved_head_dim
+    size = cache_size(max_len, window)
+    kv = dict(dtype=L.compute_dtype(cfg), device=device)
+    return {"k": torch.zeros((batch, size, cfg.num_kv_heads, hd), **kv),
+            "v": torch.zeros((batch, size, cfg.num_kv_heads, hd), **kv),
+            "pos": torch.full((batch, size), -1, dtype=torch.int32, device=device),
+            "length": 0}
+
+
+def cache_from_kv(cfg: ModelConfig, k, v, *, max_len: int, window: int = 0):
+    """A decode cache from prefill's (k, v) streams at positions 0..S-1.
+
+    A ring keeps only the last ``size`` tokens, in ring order (slot = pos %
+    size), so decode's writes continue the ring.
+    """
+    B, S = k.shape[:2]
+    cache = init_cache(cfg, B, max_len, window=window, device=k.device)
+    size = cache["k"].shape[1]
+    keep = min(S, size)
+    positions = torch.arange(S - keep, S, device=k.device)
+    slots = positions % size if window > 0 else positions
+    cache["k"][:, slots] = k[:, S - keep:].to(cache["k"].dtype)
+    cache["v"][:, slots] = v[:, S - keep:].to(cache["v"].dtype)
+    cache["pos"][:, slots] = positions.to(torch.int32)
+    cache["length"] = S
+    return cache
+
+
+def _block_view(cache_t):
+    """(B, size, Hkv, hd) -> the pool view (B * size / DENSE_BLOCK,
+    DENSE_BLOCK, Hkv, hd) of the same storage."""
+    B, size = cache_t.shape[:2]
+    if size % DENSE_BLOCK or not cache_t.is_contiguous():
+        raise ValueError(f"a cache of {size} slots (contiguous: {cache_t.is_contiguous()}) "
+                         f"cannot be viewed as blocks of {DENSE_BLOCK}")
+    return cache_t.view(B * size // DENSE_BLOCK, DENSE_BLOCK, *cache_t.shape[2:])
+
+
+def _decode_attention(q, k, v, cache, cfg: ModelConfig, *, window: int):
+    """Write the new token's k / v at its slot, then attend over the cache
+    through the paged decode kernel (the module docstring's view)."""
+    cache_k, cache_v, cache_pos = cache["k"], cache["v"], cache["pos"]
+    B, size = cache_k.shape[:2]
+    start = cache["length"]
+    if q.shape[1] != 1:
+        raise ValueError(f"decode takes one token a sequence, got {q.shape[1]}")
+    if window <= 0 and start >= size:
+        raise ValueError(f"the decode cache of {size} slots is full")
+    if cfg.positional == "rope":
+        positions = torch.full((1,), start, dtype=torch.int64, device=q.device)
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
+    slot = start % size if window > 0 else start
+    cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
+    cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
+    cache_pos[:, slot] = start
+    nblk = size // DENSE_BLOCK
+    tables = torch.arange(B * nblk, dtype=torch.int32, device=q.device).view(B, nblk)
+    context = torch.full((B,), min(start + 1, size), dtype=torch.int32, device=q.device)
+    out = kops.paged_decode_attention(q[:, 0].contiguous(), _block_view(cache_k),
+                                      _block_view(cache_v), tables, context)
+    return out[:, None], {"k": cache_k, "v": cache_v, "pos": cache_pos, "length": start + 1}

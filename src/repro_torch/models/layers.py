@@ -10,7 +10,8 @@ matmul weights and the learned positions to ``cfg.dtype`` at each use
 reaches the fp32 leaf and the optimizers update fp32 masters. For serving
 it casts those leaves once, when the parameters are built, which gives the
 same forward numbers in half the memory (:func:`stored_dtype`); the cast at
-use is then a no-op. Norm parameters and the token table stay in
+use is then a no-op. Norm parameters, the leaves the reference reads in
+fp32 (the recurrent blocks' gates, ``_COMPUTE_DTYPE_LEAVES``) and the token table stay in
 ``cfg.param_dtype`` either way: norms compute in fp32, and the tied logits
 table is read in fp32 (``lm_logits``), while looked-up embedding rows are
 cast to ``cfg.dtype``.
@@ -27,9 +28,16 @@ import torch.nn.functional as F
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops as kops
 
-# leaves the reference casts to cfg.dtype at every use
+# leaves the reference casts to cfg.dtype at every use (``L.cast``). The
+# set is keyed by leaf name alone, so a name joins it only if every block
+# that has a leaf of that name casts it: the recurrent blocks' gate weights
+# and biases (RG-LRU ``w_a``, ``b_a``, ``w_i``, ``b_i``, ``lambda``; mLSTM
+# ``w_igate``, ``b_igate``, ``w_fgate``, ``b_fgate``; sLSTM ``w_i``,
+# ``w_f``, ``w_z``, ``w_o``, ``b_*``, ``r_*``) and the per-head
+# ``out_norm`` are read in fp32 there, and stay in ``cfg.param_dtype``.
 _COMPUTE_DTYPE_LEAVES = frozenset(
-    {"wq", "wk", "wv", "wo", "w_up", "w_gate", "w_down", "positions"})
+    {"wq", "wk", "wv", "wo", "w_up", "w_gate", "w_down", "positions",
+     "w_x", "w_y", "conv"})
 
 
 def torch_dtype(name: str) -> torch.dtype:

@@ -1,18 +1,26 @@
 """Model registry: the public entry points of the model (``repro/models/registry.py``).
 
-``init_params`` / ``forward`` / ``loss_fn`` for the ported dense decoders.
-The dense decode path (``prefill`` / ``decode_step``) and ``count_params``
-are not ported yet; serving goes through the paged path
-(``repro_torch.serve``).
+``init_params`` / ``forward`` / ``loss_fn`` for training;
+``init_decode_state`` / ``prefill`` / ``decode_step`` for the dense serve
+path (a static batch in lockstep: every architecture the port runs, and the
+only one for models with recurrent blocks; attention models also serve
+through the paged path, ``repro_torch.serve``). The reference's
+scanned-layer and encoder-decoder branches are left out, as the port runs
+neither. ``count_params`` is not ported.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.config import ModelConfig
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+from repro_torch.models import rglru as RG
+from repro_torch.models import ssm as SSM
 from repro_torch.models import transformer as T
 
 init_params = T.init_params
@@ -38,3 +46,69 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
     metrics = {"lm_loss": loss, "moe_aux": aux["moe_aux"], "moe_z": aux["moe_z"],
                "tokens": mask.sum()}
     return loss, metrics
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
+
+def _layer_state(cfg: ModelConfig, layer_idx: int, batch: int, max_len: int, device):
+    kind = cfg.block_kind(layer_idx)
+    if kind in T.ATTENTION_KINDS:
+        return A.init_cache(cfg, batch, max_len, window=T._layer_window(cfg, layer_idx),
+                            device=device)
+    if kind == "mlstm":
+        return SSM.init_mlstm_state(cfg, batch, device)
+    if kind == "slstm":
+        return SSM.init_slstm_state(cfg, batch, device)
+    return RG.init_rglru_state(cfg, batch, device)
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda"):
+    """Decode state: per-layer caches / recurrent states, and the position
+    of the next token (a host integer: the batch moves in lockstep)."""
+    T.check_ported(cfg)
+    dev = resolve_device(device)
+    return {"layers": [_layer_state(cfg, i, batch, max_len, dev)
+                       for i in range(cfg.num_layers)],
+            "position": 0}
+
+
+def decode_step(params, cfg: ModelConfig, state, tokens):
+    """One serving step: tokens (B, 1) -> (logits (B, 1, V), new_state).
+
+    The caches' tensors and the recurrent states' are updated in place or
+    replaced; the old ``state`` is not to be used again.
+    """
+    pos = state["position"]
+    x = L.embed_tokens(params["embed"], tokens, cfg, position_offset=pos)
+    new_layers = []
+    for i, lp in enumerate(params["layers"]):
+        x, extra = T._decoder_layer_fwd(lp, x, cfg, i, state=state["layers"][i])
+        new_layers.append(extra)
+    x = L.apply_norm(params["final_norm"], x, cfg)
+    logits = L.lm_logits(params["embed"], x, cfg)
+    return logits, {**state, "layers": new_layers, "position": pos + 1}
+
+
+def prefill(params, cfg: ModelConfig, batch, *, max_len: int, last_only: bool = False):
+    """Process whole prompts, returning (logits, decode_state).
+
+    Attention layers hand their (k, v) streams to a cache; recurrent layers
+    their final state. ``last_only``: logits of the last position alone.
+    """
+    tokens = batch["tokens"]
+    S = tokens.shape[1]
+    if S > max_len:
+        raise ValueError(f"a prompt of {S} tokens exceeds max_len {max_len}")
+    logits, aux = forward(params, cfg, batch, collect_kv=True, last_only=last_only)
+    layers = []
+    for i, stream in enumerate(aux["kv"]):
+        if cfg.block_kind(i) in T.ATTENTION_KINDS:
+            k, v = stream
+            stream = A.cache_from_kv(cfg, k, v, max_len=max_len,
+                                     window=T._layer_window(cfg, i))
+        layers.append(stream)
+    state: Dict[str, Any] = {"layers": layers, "position": S}
+    return logits, state

@@ -1,9 +1,12 @@
-"""Decoder stack: parameters and the training / prefill forward.
+"""Decoder stack: parameters and the training / prefill / decode forward.
 
-Counterpart of ``repro/models/transformer.py`` for dense decoders whose
-layers are all attention blocks ("attn" / "local_attn", gqa family), with
-unscanned layers. MoE, MLA, SSM / rgLRU blocks and encoder-decoder models
-are not ported yet and raise.
+Counterpart of ``repro/models/transformer.py`` for decoders with unscanned
+layers whose blocks are attention ("attn" / "local_attn", the gqa family),
+RG-LRU ("rglru", Griffin) or xLSTM ("mlstm" / "slstm"). MoE, MLA and
+encoder-decoder models are not ported yet and raise. Models with recurrent
+blocks serve through the dense path (``registry.prefill`` /
+``decode_step``); training them is not ported yet and raises
+(:func:`check_trainable`).
 
 Parameters are an ``nn.ModuleDict`` tree with the reference's key names and
 layouts, so the state-dict key ``layers.3.mix.wq`` is the reference's pytree
@@ -24,18 +27,25 @@ from repro_torch import resolve_device
 from repro_torch.config import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import rglru as RG
+from repro_torch.models import ssm as SSM
+
+ATTENTION_KINDS = ("attn", "local_attn")
+RECURRENT_KINDS = ("rglru", "mlstm", "slstm")
+
+
+def block_kinds(cfg: ModelConfig) -> set:
+    return {cfg.block_kind(i) for i in range(cfg.num_layers)}
 
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise for a configuration the port cannot run yet."""
-    if cfg.is_moe or cfg.is_encoder_decoder or cfg.attention_kind != "gqa":
+    if cfg.is_moe or cfg.is_encoder_decoder or cfg.attention_kind not in ("gqa", "none"):
         raise NotImplementedError(
             f"{cfg.name}: MoE, MLA and encoder-decoder models are not ported yet")
-    kinds = {cfg.block_kind(i) for i in range(cfg.num_layers)}
-    if kinds - {"attn", "local_attn"}:
-        raise NotImplementedError(
-            f"{cfg.name}: recurrent blocks {sorted(kinds - {'attn', 'local_attn'})} "
-            f"are not ported yet")
+    unknown = block_kinds(cfg) - set(ATTENTION_KINDS + RECURRENT_KINDS)
+    if unknown:
+        raise ValueError(f"{cfg.name}: unknown block kinds {sorted(unknown)}")
     if cfg.positional not in ("learned", "rope", "none") or cfg.activation not in (
             "gelu", "swiglu"):
         raise NotImplementedError(
@@ -43,9 +53,25 @@ def check_ported(cfg: ModelConfig) -> None:
             f"{cfg.activation!r} are not ported")
 
 
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise for a configuration the port can serve but not train yet."""
+    check_ported(cfg)
+    recurrent = block_kinds(cfg) & set(RECURRENT_KINDS)
+    if recurrent:
+        raise NotImplementedError(
+            f"{cfg.name}: training models with recurrent blocks {sorted(recurrent)} is not "
+            f"ported yet (ROADMAP.md queue 1); they serve through the dense path")
+
+
 def _layer_window(cfg: ModelConfig, layer_idx: int) -> int:
     kind = cfg.block_kind(layer_idx)
     return cfg.local_window if kind == "local_attn" else cfg.sliding_window
+
+
+def _layer_has_mlp(cfg: ModelConfig, kind: str) -> bool:
+    if kind in ("mlstm", "slstm"):
+        return False
+    return cfg.d_ff > 0
 
 
 # ---------------------------------------------------------------------------
@@ -53,10 +79,15 @@ def _layer_window(cfg: ModelConfig, layer_idx: int) -> int:
 # ---------------------------------------------------------------------------
 
 
+_INIT_MIX = {"attn": A.init_attention, "local_attn": A.init_attention,
+             "mlstm": SSM.init_mlstm, "slstm": SSM.init_slstm, "rglru": RG.init_rglru}
+
+
 def init_decoder_layer(gen: torch.Generator, cfg: ModelConfig, layer_idx: int):
+    kind = cfg.block_kind(layer_idx)
     p: Dict[str, Any] = {"norm1": L.init_norm(gen, cfg),
-                         "mix": A.init_attention(gen, cfg)}
-    if cfg.d_ff > 0:
+                         "mix": _INIT_MIX[kind](gen, cfg)}
+    if _layer_has_mlp(cfg, kind):
         p["norm2"] = L.init_norm(gen, cfg)
         p["mlp"] = L.init_mlp(gen, cfg)
     return p
@@ -154,13 +185,27 @@ def with_leaves(template: nn.Module, tensors: Dict[str, torch.Tensor]) -> nn.Mod
 # ---------------------------------------------------------------------------
 
 
-def _decoder_layer_fwd(lp, x, cfg: ModelConfig, layer_idx: int, *,
+def _apply_mix(lp, x, cfg: ModelConfig, kind: str, *, window: int, state=None,
+               return_kv: bool = False):
+    if kind in ATTENTION_KINDS:
+        return A.apply_self_attention(lp, x, cfg, window=window, cache=state,
+                                      return_kv=return_kv)
+    if kind == "mlstm":
+        return SSM.apply_mlstm(lp, x, cfg, state=state, return_state=return_kv)
+    if kind == "slstm":
+        return SSM.apply_slstm(lp, x, cfg, state=state, return_state=return_kv)
+    return RG.apply_rglru(lp, x, cfg, state=state, return_state=return_kv)
+
+
+def _decoder_layer_fwd(lp, x, cfg: ModelConfig, layer_idx: int, *, state=None,
                        return_kv: bool = False):
-    """One decoder layer. Returns (x, extra) with extra the (k, v) pair."""
+    """One decoder layer. Returns (x, extra): an attention layer's (k, v)
+    pair or a recurrent layer's final state (with ``return_kv``), the
+    layer's new state (with ``state``: decode), else None."""
     h = L.apply_norm(lp["norm1"], x, cfg)
-    mix_out, extra = A.apply_self_attention(
-        lp["mix"], h, cfg, window=_layer_window(cfg, layer_idx),
-        return_kv=return_kv)
+    mix_out, extra = _apply_mix(lp["mix"], h, cfg, cfg.block_kind(layer_idx),
+                                window=_layer_window(cfg, layer_idx), state=state,
+                                return_kv=return_kv)
     x = x + mix_out
     if "mlp" in lp:
         h = L.apply_norm(lp["norm2"], x, cfg)
@@ -169,12 +214,14 @@ def _decoder_layer_fwd(lp, x, cfg: ModelConfig, layer_idx: int, *,
 
 
 def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
-            collect_kv: bool = False):
+            collect_kv: bool = False, last_only: bool = False):
     """Training/prefill forward. batch: {"tokens": (B, S) integer}.
 
     Returns (logits (B, S, V) fp32, aux) where aux = {"moe_aux", "moe_z"}
-    (zeros: no MoE layers) plus "kv", the per-layer (k, v) streams, when
-    ``collect_kv``.
+    (zeros: no MoE layers) plus "kv" when ``collect_kv``: per layer, an
+    attention layer's (k, v) streams or a recurrent layer's final state.
+    ``last_only``: the logits of the last position alone, (B, 1, V) (a
+    serving prefill, whose other rows nobody reads).
     """
     check_ported(cfg)
     x = L.embed_tokens(params["embed"], batch["tokens"], cfg)
@@ -183,6 +230,8 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
         x, extra = _decoder_layer_fwd(lp, x, cfg, i, return_kv=collect_kv)
         if collect_kv:
             kv_streams.append(extra)
+    if last_only:
+        x = x[:, -1:].contiguous()
     x = L.apply_norm(params["final_norm"], x, cfg)
     logits = L.lm_logits(params["embed"], x, cfg)
     zero = torch.zeros((), device=logits.device)

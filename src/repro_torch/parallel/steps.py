@@ -1,6 +1,7 @@
 """Step functions: the Pier training steps of one rank
-(``repro/parallel/steps.py:build_train_steps``) and the paged serve steps
-(``build_paged_serve_steps``).
+(``repro/parallel/steps.py:build_train_steps``), the paged serve steps
+(``build_paged_serve_steps``) and the dense serve steps
+(``build_serve_steps``).
 
 The reference jits each step over a device mesh whose manual axes are the
 Pier groups; here each rank is one process of a
@@ -104,6 +105,42 @@ def build_paged_serve_steps(mc: ModelConfig, *, pcfg: KC.PagedCacheConfig,
         init_pools=lambda: KC.init_pools(mc, pcfg, dev), device=dev)
 
 
+@dataclass
+class ServeBundle:
+    """The dense serve path's steps (``repro/parallel/steps.py:ServeBundle``
+    without the mesh and shardings: one device)."""
+    serve_step: Callable
+    prefill_step: Callable
+    init_state: Callable
+    device: torch.device
+
+
+def build_serve_steps(mc: ModelConfig, *, batch: int, max_len: int,
+                      device="cuda") -> ServeBundle:
+    """Dense serving of a static batch of ``batch`` sequences of up to
+    ``max_len`` tokens: ``prefill_step(params, {"tokens": (B, S)})`` ->
+    (logits (B, 1, V) of the last position, state); ``serve_step(params,
+    state, tokens (B, 1))`` -> (logits (B, 1, V), state); ``init_state()``."""
+    T.check_ported(mc)
+    dev = resolve_device(device)
+
+    @torch.no_grad()
+    def serve_step(params, state, tokens):
+        return R.decode_step(params, mc, state, tokens)
+
+    @torch.no_grad()
+    def prefill_step(params, batch_in):
+        tokens = batch_in["tokens"]
+        if tokens.shape[0] != batch:
+            raise ValueError(f"prefill of {tokens.shape[0]} prompts in a bundle for {batch}")
+        # serving semantics: only the next-token logits leave the step
+        return R.prefill(params, mc, batch_in, max_len=max_len, last_only=True)
+
+    return ServeBundle(
+        serve_step=serve_step, prefill_step=prefill_step,
+        init_state=lambda: R.init_decode_state(mc, batch, max_len, device=dev), device=dev)
+
+
 # ===========================================================================
 # Training
 # ===========================================================================
@@ -202,6 +239,7 @@ def build_train_steps(mc: ModelConfig, tc: TrainConfig, pc: ParallelConfig, mesh
     """The steps of this rank. ``params``: initial parameters in training
     storage (every rank must pass the same); by default made from
     ``tc.seed`` on the mesh's device, as ``SimulatedRun`` makes them."""
+    T.check_trainable(mc)
     strategy = strategy if strategy is not None else resolve_strategy(tc)
     if isinstance(strategy, Chunked):
         raise NotImplementedError(

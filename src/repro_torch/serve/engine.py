@@ -297,26 +297,35 @@ def generate(params, cfg: ModelConfig, prompts, num_tokens: int, *,
     (e.g. ``CheckpointPoller.on_step``).
 
     Paged-supported architectures go through the continuous-batching engine
-    (one request per prompt row). The dense serve path of the reference,
-    for MLA / SSM / encoder-decoder models, is not ported yet: such a
-    config raises.
+    (one request per prompt row; ``info["path"] == "paged"``). The others
+    (models with recurrent blocks) take the dense path of the reference
+    (``repro/serve/engine.py:328-356``): a static batch with lockstep
+    positions through ``build_serve_steps``, one prefill of all the rows,
+    then a decode step a token, sampled on the host from a numpy
+    ``default_rng(seed)`` (``info["path"] == "dense"``). That path has no
+    engine steps, so ``on_step`` and a paged-cache config raise there.
     """
-    from repro_torch.parallel.steps import build_paged_serve_steps
+    from repro_torch.parallel.steps import build_paged_serve_steps, build_serve_steps
 
     prompts = np.asarray(prompts, np.int32)
     B, S = prompts.shape
+    device = params["embed"]["tokens"].device
     ok, why = KC.paged_supported(cfg)
     if not ok:
-        raise NotImplementedError(
-            f"{cfg.name}: the dense serve path ({why}) is not ported yet")
+        if on_step is not None or pcfg is not None:
+            raise ValueError(f"{cfg.name} serves through the dense path ({why}), which has "
+                             f"no engine steps for on_step and no paged KV cache for pcfg")
+        bundle = build_serve_steps(cfg, batch=B, max_len=S + num_tokens, device=device)
+        out, times = _generate_dense(bundle, params, prompts, num_tokens, greedy=greedy,
+                                     temperature=temperature, seed=seed)
+        return out, {"path": "dense", "bundle": bundle, "token_times": times}
     if pcfg is None:
         bs = KC.PagedCacheConfig().block_size
         padded = -(-S // bs) * bs
         need = KC.PagedCacheConfig().blocks_for(padded + num_tokens)
         pcfg = KC.PagedCacheConfig(num_blocks=need * B + 1)
     need = pcfg.blocks_for(-(-S // pcfg.block_size) * pcfg.block_size + num_tokens)
-    bundle = build_paged_serve_steps(cfg, pcfg=pcfg,
-                                     device=params["embed"]["tokens"].device)
+    bundle = build_paged_serve_steps(cfg, pcfg=pcfg, device=device)
     engine = ServeEngine(params, cfg, bundle, pcfg, EngineConfig(
         max_slots=B, max_new_tokens=num_tokens, greedy=greedy,
         temperature=temperature, seed=seed, max_blocks_per_seq=need))
@@ -325,3 +334,36 @@ def generate(params, cfg: ModelConfig, prompts, num_tokens: int, *,
     results = engine.run(on_step=on_step)
     out = np.stack([np.asarray(r.tokens[:num_tokens], np.int32) for r in results])
     return out, {"path": "paged", "engine": engine}
+
+
+def _generate_dense(bundle, params, prompts, num_tokens: int, *, greedy: bool,
+                    temperature: float, seed: int):
+    """The dense path's loop -> ((B, num_tokens) np.int32, times): ``times``
+    holds the host clock (``time.perf_counter``) before the prefill, then
+    after each of the ``num_tokens`` steps' tokens were sampled (reading
+    the logits back waits for the device, so these are of finished work)."""
+    B = prompts.shape[0]
+    rng = np.random.default_rng(seed)
+
+    def sample(logits):
+        arr = logits[:, -1].float().cpu().numpy()  # (B, V)
+        if greedy:
+            return np.argmax(arr, axis=-1).astype(np.int32)
+        z = arr / max(temperature, 1e-6)
+        z = z - z.max(axis=-1, keepdims=True)
+        p = np.exp(z) / np.exp(z).sum(axis=-1, keepdims=True)
+        return np.stack([rng.choice(arr.shape[-1], p=p[b]) for b in range(B)]).astype(np.int32)
+
+    times = [time.perf_counter()]
+    logits, state = bundle.prefill_step(
+        params, {"tokens": torch.from_numpy(prompts).to(bundle.device)})
+    next_tok = sample(logits)
+    times.append(time.perf_counter())
+    generated = [next_tok]
+    for _ in range(num_tokens - 1):
+        tokens = torch.from_numpy(next_tok[:, None]).to(bundle.device)
+        logits, state = bundle.serve_step(params, state, tokens)
+        next_tok = sample(logits)
+        times.append(time.perf_counter())
+        generated.append(next_tok)
+    return np.stack(generated, axis=1), times

@@ -71,7 +71,8 @@ def test_gpt2_configs_equal_reference(name):
 
 def test_get_config_refuses_unported_architectures():
     ported = set(pt_configs.list_architectures())
-    assert ported == set(GPT2) | {"qwen3-1.7b", "minicpm-2b", "granite-8b", "qwen3-14b"}
+    assert ported == set(GPT2) | {"qwen3-1.7b", "minicpm-2b", "granite-8b", "qwen3-14b",
+                                  "recurrentgemma-9b", "xlstm-1.3b"}
     for name in set(jax_configs.list_architectures()) - ported:
         with pytest.raises(NotImplementedError):
             pt_configs.get_config(name)

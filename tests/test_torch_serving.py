@@ -286,8 +286,10 @@ def test_generate_greedy_and_unported_paths():
     seq = torch.from_numpy(np.concatenate([prompts[0], out[0, :3]])[None].astype(np.int32))
     logits, _ = PR.forward(params, cfg, {"tokens": seq})
     assert logits[0, 5:].argmax(-1).tolist() == out[0].tolist()
-    with pytest.raises(NotImplementedError):  # the dense serve path is not ported
-        generate(params, cfg.replace(block_pattern=("mlstm",)), prompts, 2)
+    # an mLSTM pattern is not paged-supported: it serves through the dense path
+    mcfg = cfg.replace(block_pattern=("mlstm",))
+    out_m, info_m = generate(PR.init_params(mcfg, seed=0, device="cpu"), mcfg, prompts, 2)
+    assert info_m["path"] == "dense" and out_m.shape == (2, 2) and out_m.dtype == np.int32
     with pytest.raises(NotImplementedError):  # MLA is not ported
         PR.init_params(cfg.replace(attention_kind="mla"), device="cpu")
 
