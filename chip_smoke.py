@@ -23,9 +23,13 @@ and no result line:
    forward and backward at S 512 and a ragged 333, each run twice to the
    same bits on the tensor cores; decode at 4 slots over contexts
    128-512), timed beside Granite-8B's 4:1 and MiniCPM-2B's MHA; at
-   RecurrentGemma-9B's MQA 16:1, hd 256, bf16 on the CUDA-core route: the
-   forward at S 512 and 2304 with window 2048, each run twice to the same
-   bits, timed at the serve phase's B 4 x 512 and at 2304 beside SDPA, and
+   RecurrentGemma-9B's MQA 16:1, hd 256, bf16 on the tensor-core route
+   (``flash_attention_tc256.cu``): the forward at S 512 and 2304 with
+   window 2048, each run twice to the same bits, timed at the serve
+   phase's B 4 x 512 and at 2304 beside the CUDA-core kernel that ran it
+   before and SDPA, the hd-256 forward's edges (S 1, ragged 77 and 333,
+   window 64, softcap 30, non-causal, MHA, GQA 2:1) and its backward on
+   the CUDA cores through ``FlashAttentionFn``, and
    decode over its dense cache viewed as a pool (4 slots at contexts
    513-544, a full ring of 2048), repeated to the bit and timed;
    quantize at its KV rows (block 128, a prefill layer's
@@ -54,9 +58,10 @@ and no result line:
    of the same K/V; the two stages of the decode kernels and of the RMSNorm
    backward are timed apart once (``torch.profiler``), and the backward
    beside ``torch.add`` moving the same bytes.
-   Attention takes two routes: bf16 at head_dim 64 and 128 the
-   tensor-core kernels (``flash_attention_tc.cu``,
-   ``flash_attention_bwd_tc.cu``), every other case the CUDA-core ones;
+   Attention takes two routes: the forward of bf16 at head_dim 64, 128
+   and 256 the tensor-core kernels (``flash_attention_tc.cu``, at 256
+   ``flash_attention_tc256.cu``), the backward of bf16 at 64 and 128
+   ``flash_attention_bwd_tc.cu``, every other case the CUDA-core ones;
    each case's line names the route its launches took (from the
    ``tc_launches`` counters) and the run fails if it is not the routing
    rule's. The tensor-core cases cover GQA 2:1 and 4:1, MQA, window 64,
@@ -127,8 +132,8 @@ and no result line:
    ``generate``'s dense path (``build_serve_steps``: one prefill, 31 decode
    steps, the local-attention caches viewed as pools for the paged decode
    kernel). Tokens/s, TTFT, decode-step p50/p99, peak memory; launches
-   exact: rmsnorm 77 (49) x 32 forwards, flash 12 (on the CUDA-core route
-   at hd 256), decode 12 x 31. Then one decode step's device time beside
+   exact: rmsnorm 77 (49) x 32 forwards, flash 12 (the hd-256 tensor-core
+   kernel, ``flash_attention_tc256``), decode 12 x 31. Then one decode step's device time beside
    its wall time (``torch.profiler``), RecurrentGemma's prefill too (not
    xLSTM's: its 90 000 kernels take the profiler longer than the run), and
    one layer's RG-LRU scan and prefill, or one sLSTM and one mLSTM
@@ -170,6 +175,14 @@ and no result line:
    and backward launches, all on the tensor cores. Reported beside it, not
    checked: the same distance for the plain attention with its keys
    summed in another fp32 order, the comparison's floor.
+6d'. ``flash_tc256_vs_plain``: RecurrentGemma-9B at full width, 3 layers
+   (one rglru / rglru / local_attn cycle), bf16, serving storage: a prefill
+   of 4 x 512 and one of 1 x 2304 (the window of 2048 active) through the
+   hd-256 tensor-core kernel against the same prefills through the plain
+   attention; every position's logits within 2% of max |logit| and 1%
+   relative RMS; one flash launch a prefill, on that kernel, none in the
+   plain run; the plain attention in another fp32 order reported as the
+   floor.
 6e. ``families_vs_cpu``: the three families at full width, 2 layers,
    fp32, the same seeded weights on the card and on the CPU: 4 prompts of
    64 tokens, their prefills and 8 decode steps over the 4 slots; every
@@ -276,10 +289,11 @@ and no result line:
    runs (serve, serve_qwen3, serve_families, serve_recurrent and handoff, train,
    train_compressed, train_qwen3, train_minicpm,
    train_elastic and, summed over ranks, train_dist and train_dist_auto;
-   for the CUDA-core attention backward,
-   which those bf16 runs no longer take, its launches in the fp32
-   card-vs-CPU phases; the CUDA-core forward's main path is
-   RecurrentGemma's hd-256 prefill), max error, kernel / plain / library times and
+   for the CUDA-core attention forward and backward,
+   which those bf16 runs no longer take, their launches in the fp32
+   card-vs-CPU phases and the Trainer's fp32 cases; the hd-256 tensor-core
+   forward's are RecurrentGemma's prefills in serve_recurrent), max error,
+   kernel / plain / library times and
    the bound at the main path's shape (bytes over 3.35 TB/s and operations
    over the peak rate of the inputs' type, the larger of the two; H100 SXM
    data sheet). A kernel with no launch fails the run.
@@ -301,7 +315,7 @@ the build, and print their own JSON lines:
     python3 chip_smoke.py --ckpt-depth     # phase 8i at GPT-2 medium's 24 layers
     python3 chip_smoke.py --families       # phase 4c at full depth, bf16 and int8 KV
     python3 chip_smoke.py --recurrent      # phase 2's attention and decode
-                                           # checks, phases 4d and 6f alone
+                                           # checks, phases 4d, 6d' and 6f alone
 """
 
 from __future__ import annotations
@@ -663,16 +677,22 @@ def _route_of(FK, tc_before: int, launches: int, what: str) -> str:
 
 
 def tc_rule(dtype: str, hd: int) -> bool:
-    """The flash wrapper's routing rule, restated so that the launch
+    """The flash wrapper's forward routing rule, restated so that the launch
     expectations do not read it from the code they check: bf16 at head_dim
-    64 or 128 takes the tensor-core kernels."""
+    64, 128 or 256 takes the tensor-core forward."""
+    return dtype == "bfloat16" and hd in (64, 128, 256)
+
+
+def tc_bwd_rule(dtype: str, hd: int) -> bool:
+    """The backward's rule, restated the same way: bf16 at head_dim 64 or
+    128 takes the tensor-core backward (at 256 the CUDA-core one)."""
     return dtype == "bfloat16" and hd in (64, 128)
 
 
-def _core_fwd(torch, q, k, v, lse=None):
-    """The CUDA-core forward kernel through its C entry point, for inputs
-    that the wrapper sends to the tensor cores: its time beside the new
-    route's in one call. Not a path of the port; counts no launch."""
+def _core_fwd(torch, q, k, v, lse=None, window=0):
+    """The causal CUDA-core forward kernel through its C entry point, for
+    inputs that the wrapper sends to the tensor cores: its time beside the
+    new route's in one call. Not a path of the port; counts no launch."""
     from repro_torch.kernels import _build
 
     B, S, H, hd = q.shape
@@ -680,7 +700,7 @@ def _core_fwd(torch, q, k, v, lse=None):
     err = _build.lib().flash_attention_fwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if lse is not None else None, _build.DTYPE_CODES[q.dtype], B, S, H,
-        k.shape[2], hd, 1, 0, 0.0, 1.0 / math.sqrt(hd), q.device.index,
+        k.shape[2], hd, 1, window, 0.0, 1.0 / math.sqrt(hd), q.device.index,
         _build.stream_ptr(q.device))
     _build.check(err, "flash_attention (CUDA cores)")
     return out
@@ -704,13 +724,14 @@ def _core_bwd(torch, q, k, v, out, lse, do):
 
 
 # Attention cases: name, B, S, H, Hkv, hd, dtype, causal, window, softcap.
-# bf16 at head_dim 64 and 128 takes the tensor-core route; those cases run
-# GQA 2:1, 4:1 and 5:1, MQA, window 64, softcap 30, non-causal and ragged S
-# (1, 77, 200, 257, 300, 333, 700) on it. The rest take the CUDA-core route.
+# bf16 at head_dim 64, 128 and 256 takes the tensor-core forward; those
+# cases run GQA 2:1, 4:1 and 5:1, MQA, MHA, window 64, softcap 30,
+# non-causal and ragged S (1, 77, 200, 257, 300, 333, 700) on it. The rest
+# take the CUDA-core route, as does the backward at head_dim 256.
 FIVE_TO_ONE = ("qwen3_14b_gqa5_s512_bf16", "qwen3_14b_gqa5_s333_bf16")
 # RecurrentGemma-9B's local attention: MQA 16:1 at hd 256 in bf16 (the
-# CUDA-core route), window 2048, at a prompt of 512 (the window as causal)
-# and of 2304 (the window active)
+# tensor-core forward of flash_attention_tc256.cu), window 2048, at a
+# prompt of 512 (the window as causal) and of 2304 (the window active)
 RECURRENT_FLASH = ("recurrentgemma_mqa16_hd256_s512_w2048_bf16",
                    "recurrentgemma_mqa16_hd256_s2304_w2048_bf16")
 REPEATED_FLASH = FIVE_TO_ONE + RECURRENT_FLASH  # each must give the same bits twice
@@ -718,6 +739,10 @@ REPEATED_FLASH = FIVE_TO_ONE + RECURRENT_FLASH  # each must give the same bits t
 
 def _flash_cases(torch):
     bf, f32 = torch.bfloat16, torch.float32
+    # bf16 at hd 256 through FlashAttentionFn in check_flash_bwd: the
+    # forward on the tensor cores, the backward on the CUDA cores
+    hd256_bwd = [("hd256_gqa_bf16", 1, 77, 4, 2, 256, bf, True, 0, 0.0),
+                 ("hd256_mqa16_window64_bf16", 1, 200, 16, 1, 256, bf, True, 64, 0.0)]
     return {
         "tc": [
             ("tc_gqa2_hd128_s77", 1, 77, 8, 4, 128, bf, True, 0, 0.0),
@@ -745,9 +770,21 @@ def _flash_cases(torch):
             (RECURRENT_FLASH[0], 1, 512, 16, 1, 256, bf, True, 2048, 0.0),
             (RECURRENT_FLASH[1], 1, 2304, 16, 1, 256, bf, True, 2048, 0.0),
         ],
+        "hd256_bwd": hd256_bwd,
+        # the hd-256 forward's edges: two heads a block where H / Hkv is
+        # even, one where it is odd (MHA)
+        "tc256": [
+            hd256_bwd[0],
+            ("tc256_s1", 2, 1, 4, 2, 256, bf, True, 0, 0.0),
+            ("tc256_mqa16_s333", 1, 333, 16, 1, 256, bf, True, 0, 0.0),
+            ("tc256_window64_s300", 1, 300, 8, 1, 256, bf, True, 64, 0.0),
+            ("tc256_softcap30_s257", 1, 257, 4, 2, 256, bf, True, 0, 30.0),
+            ("tc256_noncausal_s200", 2, 200, 4, 2, 256, bf, False, 0, 0.0),
+            ("tc256_mha_s200", 1, 200, 4, 4, 256, bf, True, 0, 0.0),
+            ("tc256_gqa2_s512", 2, 512, 8, 4, 256, bf, True, 0, 0.0),
+        ],
         "core": [
             ("hd40_window_softcap_bf16", 1, 45, 4, 2, 40, bf, True, 16, 10.0),
-            ("hd256_gqa_bf16", 1, 77, 4, 2, 256, bf, True, 0, 0.0),
             ("gqa4_f32", 2, 200, 8, 2, 64, f32, True, 0, 0.0),
             ("mqa_hd128_f32", 1, 100, 8, 1, 128, f32, True, 0, 0.0),
             ("window64_f32", 1, 300, 4, 4, 64, f32, True, 64, 0.0),
@@ -782,20 +819,24 @@ def check_flash(torch, timer, results):
         *groups["tc"],
         *groups["gqa5"],
         *groups["recurrent"],
+        *groups["tc256"],
         ("xl_s512_f32", 1, 512, 25, 25, 64, f32, True, 0, 0.0),
         ("hd256_f32", 1, 77, 2, 1, 256, f32, True, 0, 0.0),
         ("hd40_f32", 1, 45, 4, 2, 40, f32, True, 16, 10.0),
         *groups["core"],
     ]
-    worst = {"tensor_cores": 0.0, "cuda_cores": 0.0}
+    # the largest error of each kernel: tensor cores at hd 64 / 128, at hd
+    # 256, CUDA cores
+    worst = {"tensor_cores": 0.0, "tensor_cores_hd256": 0.0, "cuda_cores": 0.0}
     for name, B, S, H, Hkv, hd, dt, causal, window, softcap in cases:
         opts = dict(causal=causal, window=window, softcap=softcap)
         q, k, v = rand((B, S, H, hd), dt), rand((B, S, Hkv, hd), dt), rand((B, S, Hkv, hd), dt)
-        tc0 = FK.tc_launches
+        tc0, tc256 = FK.tc_launches, FK.tc256_launches
         out = FK.flash_attention(q, k, v, **opts)
         # the training forward: the same kernel, writing the log-sum-exp too
         out_t, lse = FK._launch_fwd(q, k, v, causal, window, softcap, want_lse=True)
         route = _route_of(FK, tc0, 2, "tc_launches")
+        hd256 = FK.tc256_launches - tc256
         ref, lse_ref = flash_attention_fwd_ref(q, k, v, **opts)
         torch.cuda.synchronize()
         err, rms = max_err(out, ref), rel_rms(out, ref)
@@ -815,11 +856,14 @@ def check_flash(torch, timer, results):
             ok = ok and rms <= BF16_RMS_REL
         if (route == "tensor_cores") != tc_rule(str(dt).replace("torch.", ""), hd):
             raise AssertionError(f"flash {name}: took the {route} route")
+        if hd256 != (2 if route == "tensor_cores" and hd == 256 else 0):
+            raise AssertionError(f"flash {name}: {hd256} launches of the hd-256 kernel")
         if not ok:
             raise AssertionError(f"flash {name}: max err {err} (limit {tol}), rel rms "
                                  f"{rms}, lse err {lse_err} (limit {LSE_TOL}), output "
                                  f"with lse equal: {same_out}")
-        worst[route] = max(worst[route], err)
+        key = route + ("_hd256" if hd256 else "")
+        worst[key] = max(worst[key], err)
 
     def timed(B, S, H, Hkv, hd, want_lse):
         """Tensor-core, CUDA-core, plain and SDPA times of the causal forward
@@ -851,33 +895,40 @@ def check_flash(torch, timer, results):
            "qwen3_14b_gqa5": {"shape": "bf16 B=1 S=512 H=40 Hkv=8 hd=128 causal",
                               **timed(1, 512, 40, 8, 128, False)}}
     def timed_window(B, S, H, Hkv, hd, window):
-        """The windowed causal forward through the wrapper (the CUDA-core
-        route at hd 256), its plain version and SDPA (``is_causal`` where the
-        window covers the prompt, else a boolean band mask), and its bound
-        over the pairs the window keeps."""
+        """The windowed causal forward through the wrapper (the tensor-core
+        route at hd 256), the CUDA-core kernel through its C entry point, the
+        plain version and SDPA (``is_causal`` where the window covers the
+        prompt, else a boolean band mask, with ``is_causal`` beside it as a
+        yardstick over more pairs), and the bound over the pairs the window
+        keeps."""
         q = rand((B, S, H, hd), bf)
         k, v = (rand((B, S, Hkv, hd), bf) for _ in range(2))
-        tc0 = FK.tc_launches
+        tc0 = FK.tc256_launches
         out = {"ms": timer.ms(lambda: FK.flash_attention(q, k, v, causal=True,
-                                                          window=window)),
-               "plain_ms": timer.ms(lambda: flash_attention_ref(q, k, v, causal=True,
-                                                                window=window))}
-        if FK.tc_launches != tc0:
-            raise AssertionError("hd 256 took the tensor-core route")
+                                                          window=window))}
+        if FK.tc256_launches == tc0:
+            raise AssertionError("bf16 at hd 256 did not take the tensor-core route")
+        out["cuda_cores_ms"] = timer.ms(lambda: _core_fwd(torch, q, k, v, window=window))
+        out["plain_ms"] = timer.ms(lambda: flash_attention_ref(q, k, v, causal=True,
+                                                               window=window))
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+        def causal_sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
         if window >= S:
-            sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,  # noqa: E731
-                                                          enable_gqa=True)
+            out["library_ms"] = timer.ms(causal_sdpa)
         else:
             i = torch.arange(S, device="cuda")
             band = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
-            sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band,  # noqa: E731
-                                                          enable_gqa=True)
-        out["library_ms"] = timer.ms(sdpa)
+            out["library_ms"] = timer.ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=band, enable_gqa=True))
+            out["library_is_causal_ms"] = timer.ms(causal_sdpa)
         pairs = sum(min(i + 1, window) for i in range(S))
         out["bound_ms"], out["bound_by"] = bound_ms(
             2 * B * S * (2 * H + 2 * Hkv) * hd, 4 * hd * H * B * pairs, "bfloat16")
         out["bound_share"] = out["bound_ms"] / out["ms"]
+        out["cuda_cores_bound_share"] = out["bound_ms"] / out["cuda_cores_ms"]
         return out
 
     # RecurrentGemma-9B's local-attention prefill layer: the serve phase's
@@ -903,19 +954,40 @@ def check_flash(torch, timer, results):
         "qwen3_train_shape": {"shape": "bf16 B=2 S=1024 H=16 Hkv=8 hd=128 causal, with "
                                        "lse (one training layer)", **q3_t},
         "families": fam}
-    main = rg["serve_prefill"]
+    main, act = rg["serve_prefill"], rg["window_active"]
+    results["flash_attention_tc256"] = {
+        "name": "flash_attention_tc256", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_tc256.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:42",
+        "route_note": "the tensor-core forward at bf16 hd 256 (RecurrentGemma-9B's prefill), "
+                      "through flash_attention_fwd_tc_launch; cuda_cores_ms is the CUDA-core "
+                      "kernel that ran this shape before, timed in the same call",
+        "shape": main["shape"], "max_abs_err": worst["tensor_cores_hd256"],
+        "ms": main["ms"], "kernel_ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "bound_share": main["bound_share"], "cuda_cores_ms": main["cuda_cores_ms"],
+        "library_ms": main["library_ms"], "library": library + " (is_causal)",
+        "window_active": {**act, "library": library + " with a boolean band mask "
+                                 "(library_ms); is_causal over every causal pair "
+                                 "(library_is_causal_ms)"}}
     results["flash_attention"] = {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:42",
-        "route_note": "the CUDA-core kernel: fp32 and head_dims other than 64 / 128; on the "
-                      "bf16 main path RecurrentGemma-9B's hd-256 prefill, whose shape the "
-                      "top-level numbers are; the GPT-2 XL and Qwen3 entries time it through "
-                      "its C entry point at bf16 shapes the tensor-core kernel takes",
-        "shape": main["shape"], "max_abs_err": worst["cuda_cores"], "ms": main["ms"],
-        "kernel_ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-        "bound_by": main["bound_by"], "library_ms": main["library_ms"], "library": library,
-        "recurrentgemma_window_active": rg["window_active"],
+        "route_note": "the CUDA-core kernel: fp32 and bf16 head_dims other than 64 / 128 / "
+                      "256, launched on the main path by the fp32 phases; the top-level "
+                      "numbers time it through its C entry point at RecurrentGemma-9B's "
+                      "hd-256 prefill, which it ran until the hd-256 tensor-core kernel, "
+                      "and the GPT-2 XL and Qwen3 entries at bf16 shapes the tensor-core "
+                      "kernel takes",
+        "shape": main["shape"], "max_abs_err": worst["cuda_cores"], "ms": main["cuda_cores_ms"],
+        "kernel_ms": main["cuda_cores_ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"], "library": library,
+        "recurrentgemma_window_active": {
+            "shape": act["shape"], "ms": act["cuda_cores_ms"], "plain_ms": act["plain_ms"],
+            "bound_ms": act["bound_ms"], "bound_by": act["bound_by"],
+            "library_ms": act["library_ms"]},
         "gpt2_xl": {"shape": "bf16 B=1 S=512 H=Hkv=25 hd=64 causal (one prefill layer)",
                     "ms": xl["cuda_cores_ms"], "plain_ms": xl["plain_ms"],
                     "bound_ms": xl["bound_ms"], "bound_by": xl["bound_by"],
@@ -1511,6 +1583,7 @@ def check_flash_bwd(torch, timer, results):
         ("qwen3_train_b2_s1024_bf16", 2, 1024, 16, 8, 128, bf, True, 0, 0.0),
         *groups["tc"],
         *groups["gqa5"],
+        *groups["hd256_bwd"],
         ("hd40_window_softcap_f32", 1, 45, 4, 2, 40, f32, True, 16, 10.0),
         ("xl_s300_f32", 1, 300, 25, 25, 64, f32, True, 0, 0.0),
         ("hd256_gqa_f32", 1, 77, 4, 2, 256, f32, True, 0, 0.0),
@@ -1522,13 +1595,14 @@ def check_flash_bwd(torch, timer, results):
         opts = dict(causal=causal, window=window, softcap=softcap)
         ins = [rand((B, S, h, hd), dt).requires_grad_() for h in (H, Hkv, Hkv)]
         do = rand((B, S, H, hd), dt)
-        tc0 = FK.tc_bwd_launches
+        tc0, tcf0 = FK.tc_bwd_launches, FK.tc_launches
         FK.flash_attention(*ins, **opts).backward(do)
         got = [t.grad for t in ins]
         # determinism: the same inputs again give the same bits
         again = [t.detach().clone().requires_grad_() for t in ins]
         FK.flash_attention(*again, **opts).backward(do)
         route = _route_of(FK, tc0, 2, "tc_bwd_launches")
+        fwd_route = _route_of(FK, tcf0, 2, "tc_launches")
         refs = [t.detach().clone().requires_grad_() for t in ins]
         flash_attention_ref(*refs, **opts).backward(do)
         want = [t.grad for t in refs]
@@ -1546,13 +1620,16 @@ def check_flash_bwd(torch, timer, results):
             tol = {"max_err_over_max_abs": BF16_MAX_REL, "rel_rms_err": BF16_RMS_REL}
             ok = max(rel.values()) <= BF16_MAX_REL and max(rms.values()) <= BF16_RMS_REL
         emit({"phase": "kernels", "kernel": "flash_attention_bwd", "case": name,
-              "route": route, "B": B, "S": S, "H": H, "Hkv": Hkv, "hd": hd,
-              "dtype": str(dt).replace("torch.", ""), "causal": causal,
+              "route": route, "forward_route": fwd_route, "B": B, "S": S, "H": H,
+              "Hkv": Hkv, "hd": hd, "dtype": str(dt).replace("torch.", ""), "causal": causal,
               "window": window, "softcap": softcap, "max_abs_err": errs,
               "max_abs_grad": scales, "max_err_over_max_abs": rel, "rel_rms_err": rms,
               "tol": tol, "bitwise_repeatable": bitwise})
-        if (route == "tensor_cores") != tc_rule(str(dt).replace("torch.", ""), hd):
-            raise AssertionError(f"flash backward {name}: took the {route} route")
+        dtype = str(dt).replace("torch.", "")
+        if ((route == "tensor_cores") != tc_bwd_rule(dtype, hd)
+                or (fwd_route == "tensor_cores") != tc_rule(dtype, hd)):
+            raise AssertionError(f"flash backward {name}: took the {route} route, its "
+                                 f"forward the {fwd_route} one")
         if not (all(a.dtype == dt for a in got) and ok and bitwise):
             raise AssertionError(f"flash backward {name}: errors {errs}, relative {rel}, "
                                  f"rel rms {rms}; limits {tol}; repeatable {bitwise}")
@@ -2137,7 +2214,9 @@ def serve_recurrent(torch, counters, arch: str):
     seeded weights made on the card in serving storage: 4 prompts of 512
     tokens and 32 new tokens, greedy, through ``generate`` (the dense path:
     ``build_serve_steps``, one prefill, 31 decode steps). Tokens/s, TTFT,
-    decode-step p50 / p99, peak memory; every launch count exact. Then
+    decode-step p50 / p99, peak memory; every launch count exact, and
+    RecurrentGemma's 12 flash launches a prefill those of the hd-256
+    tensor-core kernel (``flash_attention_tc256``). Then
     where the time goes: one decode step's device time beside its wall
     time (``torch.profiler``), RecurrentGemma's prefill the same way, and
     the recurrences that the host drives: one layer's RG-LRU scan over the
@@ -2146,6 +2225,7 @@ def serve_recurrent(torch, counters, arch: str):
     import numpy as np
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FK
     from repro_torch.models import registry as R
     from repro_torch.models import rglru as RG
     from repro_torch.models import ssm as SSM
@@ -2164,9 +2244,11 @@ def serve_recurrent(torch, counters, arch: str):
     torch.cuda.synchronize()
     for c in counters.values():
         c.launches = 0
+    FK.tc256_launches = 0
     torch.cuda.reset_peak_memory_stats()
     out, info = generate(params, cfg, prompts, N)
     launches = {k: c.launches for k, c in counters.items()}
+    launches["flash_attention_tc256"] = FK.tc256_launches
     times = info["token_times"]
     wall = times[-1] - times[0]
     dec = sorted(1e3 * (b - a) for a, b in zip(times[1:], times[2:]))
@@ -2175,7 +2257,9 @@ def serve_recurrent(torch, counters, arch: str):
               "flash_attention_tc": n_attn if tc_rule(cfg.dtype, cfg.resolved_head_dim) else 0,
               "flash_attention_bwd_tc": 0, "paged_decode_attention": (N - 1) * n_attn,
               "quantize_blockwise": 0, "dequantize_blockwise": 0, "pier_update": 0,
-              "rmsnorm": N * dense_norm_launches(cfg), "rmsnorm_bwd": 0}
+              "rmsnorm": N * dense_norm_launches(cfg), "rmsnorm_bwd": 0,
+              "flash_attention_tc256": n_attn if tc_rule(cfg.dtype, cfg.resolved_head_dim)
+              and cfg.resolved_head_dim == 256 else 0}
     line = {"phase": "serve_recurrent", "run": f"serve_recurrent_{arch}", "path": info["path"],
             "config": f"{cfg.name} {cfg.num_layers} layers bf16", "params": n_params,
             "param_bytes_serving_storage": n_bytes, "init_s": t_init, "batch": B,
@@ -2387,8 +2471,9 @@ def _train_expect(run, steps: int, num_leaves: int):
     norms = norm_launches(run.mc) * forwards
     nq, ndq = _quant_launches(run.strategy, run.G, run.P)
     tc = fwd if tc_rule(run.mc.dtype, run.mc.resolved_head_dim) else 0
+    tc_bwd = fwd if tc_bwd_rule(run.mc.dtype, run.mc.resolved_head_dim) else 0
     return {"flash_attention": fwd, "flash_attention_bwd": fwd,
-            "flash_attention_tc": tc, "flash_attention_bwd_tc": tc,
+            "flash_attention_tc": tc, "flash_attention_bwd_tc": tc_bwd,
             "pier_update": num_leaves * syncs, "paged_decode_attention": 0,
             "quantize_blockwise": nq * num_leaves * syncs,
             "dequantize_blockwise": ndq * num_leaves * syncs,
@@ -2742,6 +2827,75 @@ def flash_tc_vs_plain(torch, counters):
             raise AssertionError(f"flash_tc_vs_plain {arch}: launches {l_k} / {l_p}")
         del params, g_k, g_p, g_r
         free_cuda(torch)
+
+
+def flash_tc256_vs_plain(torch, counters):
+    """RecurrentGemma-9B at full width with 3 layers (one rglru / rglru /
+    local_attn cycle), bf16, serving storage, random seeded weights: one
+    prefill of 4 x 512 and one of 1 x 2304 (its window of 2048 active)
+    through the hd-256 tensor-core flash kernel, against the same prefills
+    with ``kops.flash_attention`` swapped for the plain attention
+    (``flash_attention_ref``), as ``flash_tc_vs_plain`` swaps it: the
+    bf16 end-to-end check of that kernel, which the fp32 ``recurrent_vs_cpu``
+    does not take. Every position's logits within BF16_MAX_REL of max
+    |logit| and within a relative RMS of BF16_RMS_REL; one flash launch a
+    prefill, on the hd-256 tensor-core kernel, and none in the plain run.
+    Reported beside it, not checked: the same distance for the plain
+    attention in another fp32 order (``_plain_reordered``), the floor."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FK
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.models import registry as R
+
+    t0 = time.perf_counter()
+    cfg = get_config("recurrentgemma-9b").replace(num_layers=3)
+    params = R.init_params(cfg, seed=0, device="cuda")
+
+    def prefill(tokens, attention):
+        kernel_attention = kops.flash_attention
+        kops.flash_attention = attention
+        try:
+            for c in counters.values():
+                c.launches = 0
+            FK.tc256_launches = 0
+            with torch.no_grad():
+                logits, _ = R.prefill(params, cfg, {"tokens": tokens}, max_len=tokens.shape[1])
+            torch.cuda.synchronize()
+        finally:
+            kops.flash_attention = kernel_attention
+        launches = {k: counters[k].launches for k in ("flash_attention", "flash_attention_tc")}
+        launches["flash_attention_tc256"] = FK.tc256_launches
+        return logits, launches
+
+    for B, S in ((4, 512), (1, 2304)):
+        toks = torch.randint(0, cfg.vocab_size, (B, S), dtype=torch.int32,
+                             generator=torch.Generator().manual_seed(31)).cuda()
+        got, l_k = prefill(toks, kops.flash_attention)
+        want, l_p = prefill(toks, flash_attention_ref)
+        scale = float(want.abs().max())
+        rel_max, rms = max_err(got, want) / scale, rel_rms(got, want)
+        finite = bool(torch.isfinite(got).all()) and got.shape == (B, S, cfg.vocab_size)
+        del got
+        floor, _ = prefill(toks, _plain_reordered)
+        emit({"phase": "flash_tc256_vs_plain",
+              "config": f"{cfg.name} width, {cfg.num_layers} layers "
+                        f"{[cfg.block_kind(i) for i in range(cfg.num_layers)]}, bf16",
+              "batch": [B, S], "local_window": cfg.local_window, "max_abs_logit": scale,
+              "max_err_over_max_abs": rel_max, "rel_rms_err": rms,
+              "tol": {"max_err_over_max_abs": BF16_MAX_REL, "rel_rms_err": BF16_RMS_REL},
+              "floor_plain_reordered": {"max_err_over_max_abs": max_err(floor, want) / scale,
+                                        "rel_rms_err": rel_rms(floor, want)},
+              "launches_kernels": l_k, "launches_plain": l_p,
+              "t_phase_s": time.perf_counter() - t0})
+        del want, floor
+        if not (finite and rel_max <= BF16_MAX_REL and rms <= BF16_RMS_REL):
+            raise AssertionError(f"flash_tc256_vs_plain {B}x{S}: logits {rel_max} of max, "
+                                 f"rel rms {rms}, finite and shaped: {finite}")
+        if list(l_k.values()) != [1, 1, 1] or any(l_p.values()):
+            raise AssertionError(f"flash_tc256_vs_plain {B}x{S}: launches {l_k} / {l_p}")
+    del params
+    free_cuda(torch)
 
 
 def flash_precision(torch, counters):
@@ -3370,9 +3524,9 @@ def check_ring(torch, results):
 
 def _dist_expect(strategy, E: int, leaves: int, cfg, steps: int, syncs: int):
     """Launches of one rank's main path: its one replica's attention (on
-    the tensor cores by ``tc_rule``) and norms, the outer update, and the
-    exchange's kernels per leaf and sync as ``sync/strategies.py`` makes
-    them (``E`` the wire's endpoints)."""
+    the tensor cores by ``tc_rule`` and ``tc_bwd_rule``) and norms, the
+    outer update, and the exchange's kernels per leaf and sync as
+    ``sync/strategies.py`` makes them (``E`` the wire's endpoints)."""
     from repro_torch.sync import Hierarchical, Int8Wire, Quantized
 
     inner = strategy.inner if isinstance(strategy, Hierarchical) else strategy
@@ -3388,8 +3542,9 @@ def _dist_expect(strategy, E: int, leaves: int, cfg, steps: int, syncs: int):
         nq, ndq = 1, 1
     fwd = cfg.num_layers * steps
     tc = fwd if tc_rule(cfg.dtype, cfg.resolved_head_dim) else 0
+    tc_bwd = fwd if tc_bwd_rule(cfg.dtype, cfg.resolved_head_dim) else 0
     return {"flash_attention": fwd, "flash_attention_bwd": fwd,
-            "flash_attention_tc": tc, "flash_attention_bwd_tc": tc,
+            "flash_attention_tc": tc, "flash_attention_bwd_tc": tc_bwd,
             "pier_update": leaves * syncs, "quantize_blockwise": nq * leaves * syncs,
             "dequantize_blockwise": ndq * leaves * syncs, "ring_allgather": ring * syncs,
             "shard_scatter": scatter * syncs, "rmsnorm": norm_launches(cfg) * steps,
@@ -4391,10 +4546,12 @@ def main(argv) -> int:
         check_flash(torch, timer, results)
         check_decode(torch, timer, results)
         del timer
-        emit({"recurrent_kernels": [results["flash_attention"],
+        emit({"recurrent_kernels": [results["flash_attention_tc256"],
+                                    results["flash_attention"],
                                     results["paged_decode_attention"]]})
         for arch in RECURRENT:
             serve_recurrent(torch, counters, arch)
+        flash_tc256_vs_plain(torch, counters)
         with large_allocations_on_the_heap():
             recurrent_vs_cpu(torch, counters)
         return 0
@@ -4450,6 +4607,7 @@ def main(argv) -> int:
     free_cuda(torch)
     flash_tc_vs_plain(torch, counters)
     free_cuda(torch)
+    flash_tc256_vs_plain(torch, counters)
     run, train_line = train(torch, counters)
     train_breakdown(torch, run)
     dispatch_breakdown(torch, run, "train")
@@ -4488,13 +4646,16 @@ def main(argv) -> int:
         n = launches.get(name, 0)
         if name in CUDA_CORE_FLASH:  # the counter counts both routes
             n -= launches.get(name + "_tc", 0)
+        if name == "flash_attention_tc":  # and both tensor-core forward kernels
+            n -= launches.get("flash_attention_tc256", 0)
         return n
 
     def dist_launches(line, name):  # every rank's count
         return sum(count(ln, name) for ln in line["launches_per_rank"])
 
     kernels = []
-    for name in ("flash_attention_tc", "flash_attention_bwd_tc", "paged_decode_attention",
+    for name in ("flash_attention_tc", "flash_attention_tc256", "flash_attention_bwd_tc",
+                 "paged_decode_attention",
                  "quantize_blockwise", "pier_update", "dequantize_blockwise",
                  "ring_allgather", "shard_scatter", "rmsnorm", "rmsnorm_bwd",
                  *CUDA_CORE_FLASH):
@@ -4502,10 +4663,12 @@ def main(argv) -> int:
         single = sum(count(r["launches"], name) for r in runs + [handoff_line])
         main_path = single + sum(dist_launches(d, name) for d in dists)
         fp32 = sum(count(ln, name) for ln in fp32_runs)
-        # the bf16 main paths run the tensor-core flash kernels, but for
-        # RecurrentGemma's prefill at hd 256 (the CUDA-core forward); the
-        # CUDA-core backward runs in the fp32 card-vs-CPU phases only
-        entry["launches"] = fp32 if name == "flash_attention_bwd" else main_path
+        # the bf16 main paths run the tensor-core flash kernels (at hd 256,
+        # RecurrentGemma's prefill, the forward of flash_attention_tc256.cu,
+        # counted in serve_recurrent's line); the CUDA-core forward and
+        # backward run in the fp32 card-vs-CPU phases and the Trainer's fp32
+        # cases only
+        entry["launches"] = fp32 if name in CUDA_CORE_FLASH else main_path
         entry["launches_by_path"] = {
             "serve": sum(count(r["launches"], name) for r in serves),
             "serve_by_run": {r["run"] if "run" in r else f"{r['phase']}_{r['kv']}":

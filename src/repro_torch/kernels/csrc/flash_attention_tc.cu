@@ -1,5 +1,6 @@
 // Flash-attention forward on Hopper's tensor cores (bf16, head_dim 64 or
-// 128), written by hand.
+// 128), written by hand. Its entry point also takes head_dim 256, which
+// flash_attention_tc256.cu computes with its own design.
 //
 // Replaces: src/repro/kernels/flash_attention.py:_attn_kernel (launched by
 // _flash_attention_pallas at :187), the TPU kernel of the prefill's and the
@@ -248,8 +249,9 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
 
 }  // namespace
 
-// bf16 q (B,S,H,hd), k/v (B,S,Hkv,hd), hd 64 or 128, 16-byte aligned
-// pointers on card `device`; o like q; lse fp32 (B,H,S) or null.
+// bf16 q (B,S,H,hd), k/v (B,S,Hkv,hd), hd 64, 128 or 256 (the last in
+// flash_attention_tc256.cu), 16-byte aligned pointers on card `device`; o
+// like q; lse fp32 (B,H,S) or null.
 extern "C" int flash_attention_fwd_tc_launch(const void* q, const void* k, const void* v,
                                              void* o, void* lse, int B, int S, int H, int Hkv,
                                              int hd, int causal, int window, float softcap,
@@ -265,5 +267,7 @@ extern "C" int flash_attention_fwd_tc_launch(const void* q, const void* k, const
     return launch<64, 128>(q, k, v, o, l, B, S, H, Hkv, causal, window, softcap, scale, s);
   if (hd == 128)
     return launch<128, 64>(q, k, v, o, l, B, S, H, Hkv, causal, window, softcap, scale, s);
+  if (hd == 256)
+    return flash_tc::fwd_hd256(q, k, v, o, l, B, S, H, Hkv, causal, window, softcap, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

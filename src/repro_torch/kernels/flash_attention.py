@@ -10,11 +10,19 @@ has no Pallas backward (its training attention is XLA's), so the backward
 has no TPU kernel to mirror.
 
 Two routes, chosen from dtype and head_dim alone before the launch (not a
-fallback: each raises on its own failure): bf16 at head_dim 64 or 128, the
-shapes of the models' main paths, runs the tensor-core kernels
-(``csrc/flash_attention_tc.cu``, ``csrc/flash_attention_bwd_tc.cu``:
-wgmma fed by TMA); every other dtype and head_dim the CUDA-core kernels
-(``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``).
+fallback: each raises on its own failure), by one rule for the forward and
+one for the backward:
+
+- the forward of bf16 at head_dim 64, 128 or 256, the shapes of the
+  models' main paths, runs the tensor-core kernels (wgmma fed by TMA),
+  through one C entry point: ``csrc/flash_attention_tc.cu`` at 64 and
+  128, ``csrc/flash_attention_tc256.cu`` at 256 (RecurrentGemma-9B's
+  prefill);
+- the backward of bf16 at head_dim 64 or 128 runs
+  ``csrc/flash_attention_bwd_tc.cu``;
+- every other dtype and head_dim, and the bf16 backward at 256, run the
+  CUDA-core kernels (``csrc/flash_attention.cu``,
+  ``csrc/flash_attention_bwd.cu``).
 """
 
 from __future__ import annotations
@@ -30,19 +38,29 @@ from repro_torch.kernels.ref import flash_attention_ref
 # ``bwd_launches`` the backward (one per backward pass, which runs the D,
 # dK/dV and dQ kernels on the CUDA cores, the dQ and dK/dV kernels on the
 # tensor cores), on either route; ``tc_launches`` and ``tc_bwd_launches``
-# count those of them that took the tensor-core route. Each wrapper adds one
-# where it launches and nowhere else; a caller may reset them to 0.
+# count those of them that took the tensor-core route, and
+# ``tc256_launches`` those of the forward's that ran the head_dim-256
+# kernel. Each wrapper adds one where it launches and nowhere else; a
+# caller may reset them to 0.
 launches = 0
 bwd_launches = 0
 tc_launches = 0
 tc_bwd_launches = 0
+tc256_launches = 0
 
-TC_HEAD_DIMS = (64, 128)
+# bf16 head_dims on the tensor cores: the forward's, the backward's
+TC_HEAD_DIMS = (64, 128, 256)
+TC_BWD_HEAD_DIMS = (64, 128)
 
 
 def tensor_core_route(q) -> bool:
-    """Whether ``q``'s dtype and head_dim take the tensor-core kernels."""
+    """Whether ``q``'s dtype and head_dim take the tensor-core forward."""
     return q.dtype == torch.bfloat16 and q.shape[-1] in TC_HEAD_DIMS
+
+
+def tensor_core_bwd_route(q) -> bool:
+    """Whether ``q``'s dtype and head_dim take the tensor-core backward."""
+    return q.dtype == torch.bfloat16 and q.shape[-1] in TC_BWD_HEAD_DIMS
 
 
 def check_shapes(q, k, v) -> None:
@@ -83,7 +101,7 @@ def _check_aligned(*ts) -> None:
 
 def _launch_fwd(q, k, v, causal, window, softcap, want_lse):
     """Forward kernel -> (out in q.dtype, lse fp32 (B,H,S) or None)."""
-    global launches, tc_launches
+    global launches, tc_launches, tc256_launches
     _check_cuda(q, k, v)
     B, S, H, hd = q.shape
     out = torch.empty_like(q)
@@ -105,6 +123,7 @@ def _launch_fwd(q, k, v, causal, window, softcap, want_lse):
     _build.check(err, "flash_attention")
     launches += 1
     tc_launches += tc
+    tc256_launches += tc and hd == 256
     return out, lse
 
 
@@ -122,7 +141,7 @@ def _launch_bwd(q, k, v, out, lse, dout, causal, window, softcap):
             dv.data_ptr())
     flags = (int(bool(causal)), int(window), float(softcap), 1.0 / math.sqrt(hd))
     stream = _build.stream_ptr(q.device)
-    tc = tensor_core_route(q)
+    tc = tensor_core_bwd_route(q)
     if tc:  # recomputes D from P and dP, so the output is not read
         _check_aligned(q, k, v, dout, dq, dk, dv)
         err = _build.lib().flash_attention_bwd_tc_launch(

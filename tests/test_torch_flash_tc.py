@@ -1,14 +1,16 @@
 """The tensor-core route of the port's flash attention, on the CPU.
 
 The tensor-core kernels (``csrc/flash_attention_tc.cu``,
-``csrc/flash_attention_bwd_tc.cu``) run only on the card, where
-``chip_smoke.py`` holds them against their plain versions. Here: which
-entry point a CUDA launch takes for each dtype and head_dim (the library
-replaced by a recorder), that every C entry point has a ``ctypes``
-signature row with its arguments' types, and that the tensor-core
-forward's arithmetic, P entering P V as three bf16 terms, keeps its output
-within the card's bf16 bounds of the reference's Pallas kernel (and closer
-to it than P rounded once to bf16, as FlashAttention-style kernels do).
+``csrc/flash_attention_tc256.cu``, ``csrc/flash_attention_bwd_tc.cu``) run
+only on the card, where ``chip_smoke.py`` holds them against their plain
+versions. Here: which entry point a CUDA forward and backward take for
+each dtype and head_dim (the library replaced by a recorder), that every C
+entry point has a ``ctypes`` signature row with its arguments' types, and
+that the tensor-core forwards' arithmetic keeps the output within the
+card's bf16 bounds of the reference's Pallas kernel: at head_dim 64 and
+128 P enters P V as three bf16 terms (closer to the reference than P
+rounded once to bf16, as FlashAttention-style kernels do); at head_dim 256
+P is rounded once and O rescaled, then accumulated.
 """
 
 import ctypes
@@ -49,49 +51,53 @@ class _Recorder:
         return entry
 
 
-@pytest.mark.parametrize("dtype,hd,tc", [
-    ("bfloat16", 64, True),     # GPT-2
-    ("bfloat16", 128, True),    # Qwen3
-    ("float32", 64, False),
-    ("float32", 128, False),
-    ("bfloat16", 40, False),
-    ("bfloat16", 256, False),
+@pytest.mark.parametrize("dtype,hd,tc,tc_bwd", [
+    pytest.param("bfloat16", 64, True, True, id="bfloat16-64-True"),     # GPT-2
+    pytest.param("bfloat16", 128, True, True, id="bfloat16-128-True"),   # Qwen3
+    pytest.param("float32", 64, False, False, id="float32-64-False"),
+    pytest.param("float32", 128, False, False, id="float32-128-False"),
+    pytest.param("bfloat16", 40, False, False, id="bfloat16-40-False"),
+    # RecurrentGemma-9B: the forward on the tensor cores, the backward not
+    pytest.param("bfloat16", 256, True, False, id="bfloat16-256-fwd-True-bwd-False"),
 ])
-def test_route_follows_dtype_and_head_dim(monkeypatch, dtype, hd, tc):
-    """bf16 at hd 64 or 128 launches the tensor-core entry points, anything
-    else the CUDA-core ones, with the argument count of their signature
-    rows; every launch moves ``launches`` / ``bwd_launches``, tensor-core
-    ones ``tc_launches`` / ``tc_bwd_launches`` too."""
+def test_route_follows_dtype_and_head_dim(monkeypatch, dtype, hd, tc, tc_bwd):
+    """The forward of bf16 at hd 64, 128 or 256 launches the tensor-core
+    entry point, the backward of bf16 at hd 64 or 128 the tensor-core one;
+    anything else the CUDA-core ones, with the argument count of their
+    signature rows. Every launch moves ``launches`` / ``bwd_launches``,
+    tensor-core ones ``tc_launches`` / ``tc_bwd_launches`` too, and the
+    hd-256 forward ``tc256_launches``."""
     rec = _Recorder()
     monkeypatch.setattr(_build, "lib", lambda: rec)
     monkeypatch.setattr(_build, "stream_ptr", lambda device: 0)
-    for name in ("launches", "bwd_launches", "tc_launches", "tc_bwd_launches"):
+    for name in ("launches", "bwd_launches", "tc_launches", "tc_bwd_launches",
+                 "tc256_launches"):
         monkeypatch.setattr(FK, name, 0)
     dt = getattr(torch, dtype)
     B, S, H, Hkv = 2, 33, 4, 2
     q = torch.zeros((B, S, H, hd), dtype=dt)
     k, v = torch.zeros((B, S, Hkv, hd), dtype=dt), torch.zeros((B, S, Hkv, hd), dtype=dt)
-    assert FK.tensor_core_route(q) is tc
+    assert FK.tensor_core_route(q) is tc and FK.tensor_core_bwd_route(q) is tc_bwd
     out, lse = FK._launch_fwd(q, k, v, True, 0, 0.0, want_lse=True)
     FK._launch_bwd(q, k, v, out, lse, torch.zeros_like(q), True, 0, 0.0)
 
-    suffix = "_tc_launch" if tc else "_launch"
-    assert [c[0] for c in rec.calls] == [f"flash_attention_fwd{suffix}",
-                                         f"flash_attention_bwd{suffix}"]
+    assert [c[0] for c in rec.calls] == [
+        "flash_attention_fwd" + ("_tc_launch" if tc else "_launch"),
+        "flash_attention_bwd" + ("_tc_launch" if tc_bwd else "_launch")]
     for name, args in rec.calls:
         assert len(args) == len(_build.SIGNATURES[name])
     (_, fwd), (_, bwd) = rec.calls
     shape = [B, S, H, Hkv, hd]
-    if tc:  # bf16 only, so no dtype code; the backward does not read the output
-        assert list(fwd[5:10]) == shape and list(bwd[9:14]) == shape
-    else:
-        code = _build.DTYPE_CODES[dt]
-        assert list(fwd[5:11]) == [code, *shape] and list(bwd[10:16]) == [code, *shape]
+    code = _build.DTYPE_CODES[dt]
+    # the tensor-core entry points take bf16 only, so no dtype code; their
+    # backward does not read the output
+    assert list(fwd[5:10] if tc else fwd[5:11]) == (shape if tc else [code, *shape])
+    assert list(bwd[9:14] if tc_bwd else bwd[10:16]) == (shape if tc_bwd else [code, *shape])
     # scale, then the card's index and the stream
     assert fwd[-3] == bwd[-3] == pytest.approx(1.0 / math.sqrt(hd))
     assert fwd[-2] == bwd[-2] == 0
-    assert (FK.launches, FK.bwd_launches, FK.tc_launches, FK.tc_bwd_launches) == (
-        1, 1, int(tc), int(tc))
+    assert (FK.launches, FK.bwd_launches, FK.tc_launches, FK.tc_bwd_launches,
+            FK.tc256_launches) == (1, 1, int(tc), int(tc_bwd), int(tc and hd == 256))
 
 
 def _c_entries():
@@ -147,12 +153,15 @@ def _bf16(x):
     return x.to(torch.bfloat16).float()
 
 
-def _tc_forward(q, k, v, *, causal, block_k, split=True):
-    """The tensor-core forward's arithmetic in plain PyTorch: fp32 scores of
-    the bf16 inputs; an online softmax over ``block_k``-key tiles in the
-    log2 domain; P into P V as hi = bf16(P), mid = bf16(P - hi) and lo =
-    bf16(P - hi - mid) (with ``split``; else rounded once to bf16), each
-    tile's P V added to O in fp32; O / l rounded to bf16, l and the
+def _tc_forward(q, k, v, *, causal, block_k, window=0, split=True):
+    """The tensor-core forwards' arithmetic in plain PyTorch: fp32 scores of
+    the bf16 inputs, masked causally and to ``window``; an online softmax
+    over ``block_k``-key tiles in the log2 domain. With ``split`` (hd 64 and
+    128, ``flash_attention_tc.cu``) P enters P V as hi = bf16(P), mid =
+    bf16(P - hi) and lo = bf16(P - hi - mid), and each tile's P V, summed
+    apart, is added to the rescaled O in fp32; without it (hd 256,
+    ``flash_attention_tc256.cu``) P is rounded once to bf16, O is rescaled
+    and then P V accumulated onto it. O / l rounded to bf16, l and the
     log-sum-exp from the fp32 P. -> (out bf16, lse fp32 (B,H,S))."""
     B, S, H, hd = q.shape
     G = H // k.shape[2]
@@ -167,48 +176,63 @@ def _tc_forward(q, k, v, *, causal, block_k, split=True):
     for k0 in range(0, S, block_k):
         kt, vt = kf[:, k0:k0 + block_k], vf[:, k0:k0 + block_k]
         x = torch.einsum("bqhd,bkhd->bhqk", qf, kt) * (1.0 / math.sqrt(hd) * math.log2(math.e))
-        if causal:
-            kpos = torch.arange(k0, k0 + kt.shape[1])[None, :]
-            x = torch.where(kpos <= qpos, x, torch.full_like(x, neg))
+        kpos = torch.arange(k0, k0 + kt.shape[1])[None, :]
+        visible = (kpos <= qpos) | (not causal)
+        if window > 0:
+            visible = visible & (qpos - kpos < window)
+        x = torch.where(visible, x, torch.full_like(x, neg))
         mx = torch.maximum(m, x.amax(-1))
         base = torch.where(mx == neg, torch.zeros_like(mx), mx)
         alpha = torch.exp2(m - base)
         p = torch.exp2(x - base[..., None])
         l_sum = l_sum * alpha + p.sum(-1)
-        terms = [_bf16(p)]
         if split:
+            terms = [_bf16(p)]
             terms.append(_bf16(p - terms[0]))
             terms.append(_bf16(p - terms[0] - terms[1]))
-        pv = sum(torch.einsum("bhqk,bkhd->bhqd", t, vt) for t in terms)
-        acc = acc * alpha[..., None] + pv
+            pv = sum(torch.einsum("bhqk,bkhd->bhqd", t, vt) for t in terms)
+            acc = acc * alpha[..., None] + pv
+        else:
+            acc = acc * alpha[..., None]
+            acc += torch.einsum("bhqk,bkhd->bhqd", _bf16(p), vt)
         m = mx
     l_sum = l_sum.clamp_min(1e-30)
     out = (acc / l_sum[..., None]).transpose(1, 2).to(torch.bfloat16)
     return out, (m + torch.log2(l_sum)) * math.log(2.0)
 
 
-@pytest.mark.parametrize("H,Hkv,hd,block_k", [
-    (25, 25, 64, 128),   # GPT-2 XL's heads; the kernel's key tile at hd 64
-    (16, 8, 128, 64),    # Qwen3-1.7B's; at hd 128
+@pytest.mark.parametrize("H,Hkv,hd,block_k,S,window", [
+    # GPT-2 XL's heads; the kernel's key tile at hd 64
+    pytest.param(25, 25, 64, 128, 128, 0, id="25-25-64-128"),
+    # Qwen3-1.7B's; at hd 128
+    pytest.param(16, 8, 128, 64, 128, 0, id="16-8-128-64"),
+    # hd 256 (flash_attention_tc256.cu, key tile 64): RecurrentGemma-9B's
+    # MQA 16:1; a window of 64 keys across tiles; GQA 2:1 at a ragged S
+    pytest.param(16, 1, 256, 64, 128, 0, id="mqa16-hd256-s128"),
+    pytest.param(4, 1, 256, 64, 200, 64, id="window64-hd256-s200"),
+    pytest.param(4, 2, 256, 64, 77, 0, id="gqa2-hd256-s77"),
 ])
-def test_bf16_p_rounding_fits_the_card_bounds(H, Hkv, hd, block_k):
-    """On the same numpy-seeded bf16 inputs (B 1, S 128, causal), the
-    tensor-core forward's arithmetic stays within chip_smoke.py's bf16
-    bounds of the reference's Pallas kernel (interpret mode, fp32), closer
-    to it than with P rounded once, and its log-sum-exp within LSE_TOL of
-    the port's plain version."""
+def test_bf16_p_rounding_fits_the_card_bounds(H, Hkv, hd, block_k, S, window):
+    """On the same numpy-seeded bf16 inputs (B 1, causal), the tensor-core
+    forward's arithmetic at ``hd`` stays within chip_smoke.py's bf16 bounds
+    of the reference's Pallas kernel (interpret mode, fp32), and its
+    log-sum-exp within LSE_TOL of the port's plain version. At hd 64 and
+    128 its three-term P is also closer to the reference than P rounded
+    once, which is the hd-256 kernel's arithmetic."""
     rng = np.random.default_rng(hd + H)
-    S = 128
     q, k, v = (torch.from_numpy(rng.standard_normal((1, S, h, hd)).astype(np.float32))
                .to(torch.bfloat16) for h in (H, Hkv, Hkv))
     ref = np.asarray(jax_flash(*(jnp.asarray(t.float().numpy()) for t in (q, k, v)),
-                               causal=True, interpret=True))
-    out, lse = _tc_forward(q, k, v, causal=True, block_k=block_k)
-    once, _ = _tc_forward(q, k, v, causal=True, block_k=block_k, split=False)
+                               causal=True, window=window, interpret=True))
+    split = hd != 256
+    out, lse = _tc_forward(q, k, v, causal=True, block_k=block_k, window=window, split=split)
     err = np.abs(out.float().numpy() - ref)
     rms = np.linalg.norm(out.float().numpy() - ref) / np.linalg.norm(ref)
     assert err.max() <= BF16_FWD_MAX_ABS and rms <= BF16_RMS_REL
-    rms_once = np.linalg.norm(once.float().numpy() - ref) / np.linalg.norm(ref)
-    assert rms < rms_once
-    _, lse_ref = R.flash_attention_fwd_ref(q.float(), k.float(), v.float(), causal=True)
+    if split:
+        once, _ = _tc_forward(q, k, v, causal=True, block_k=block_k, split=False)
+        rms_once = np.linalg.norm(once.float().numpy() - ref) / np.linalg.norm(ref)
+        assert rms < rms_once
+    _, lse_ref = R.flash_attention_fwd_ref(q.float(), k.float(), v.float(), causal=True,
+                                           window=window)
     assert float((lse - lse_ref).abs().max()) <= LSE_TOL
