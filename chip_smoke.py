@@ -31,7 +31,13 @@ and no result line:
    window 64, softcap 30, non-causal, MHA, GQA 2:1) and its backward on
    the CUDA cores through ``FlashAttentionFn``, and
    decode over its dense cache viewed as a pool (4 slots at contexts
-   513-544, a full ring of 2048), repeated to the bit and timed;
+   513-544, a full ring of 2048), repeated to the bit and timed; at
+   Kimi-K2's GQA 8:1, hd 112, bf16 (the CUDA-core forward: 224-byte rows
+   are not a multiple of the 128-byte TMA swizzle): the forward at S 512
+   and a ragged 333, each run twice to the same bits, timed at one
+   prompt of 512 and at 4 beside SDPA, and decode at 4 slots over contexts
+   513-544 with bf16 and int8 pools; quantize at its KV rows (block 112,
+   14 vectors: the scalar kernel), bit for bit and timed;
    quantize at its KV rows (block 128, a prefill layer's
    and a decode step's, bit for bit, the prefill one timed) and at n ending
    mid-vector at each block size, bf16 at block 256, an unaligned view and
@@ -117,27 +123,42 @@ and no result line:
    steps) with int8 KV blocks: at 4 layers in fp32 against the fp32-KV
    rollout, every logit within 2% of max |logit|; at full depth in bf16
    against the bf16-KV rollout, reported.
-4c. ``serve_families``: the same traffic with bf16 KV through full
-   MiniCPM-2B (40 layers, MHA, a tied table of 122 753 rows), and
-   Granite-8B (GQA 4:1, untied) and Qwen3-14B (GQA 5:1, qk-norm, untied)
-   at full width with 8 layers each (for the time limit), each made on the
-   card in serving storage and freed before the next: launches exact at
-   each depth (``--families`` runs all three at full depth, 36 and 40
-   layers, with bf16 and int8 KV).
+4c. ``serve_families``: the same traffic with bf16 KV through MiniCPM-2B
+   (MHA, a tied table of 122 753 rows), Granite-8B (GQA 4:1, untied) and
+   Qwen3-14B (GQA 5:1, qk-norm, untied) at full width with 8 layers each
+   (for the time limit), each made on the card in serving storage and
+   freed before the next: launches exact at each depth (``--families``
+   runs all three at full depth, 40, 36 and 40 layers, with bf16 and int8
+   KV).
 4d. ``serve_recurrent``: full RecurrentGemma-9B (38 layers: RG-LRU and
-   local MQA attention, 16 heads over 1 at hd 256, window 2048) and full
-   xLSTM-1.3B (48 layers, mLSTM and sLSTM at 7:1), bf16, random seeded
+   local MQA attention, 16 heads over 1 at hd 256, window 2048) and
+   xLSTM-1.3B at full width with one 7:1 cycle of 8 layers (mLSTM and
+   sLSTM; all 48 in ``--recurrent``, for the time limit), bf16, random seeded
    weights made on the card in serving storage, one model freed before
    the next: 4 prompts of 512 tokens, 32 new tokens, greedy, through
    ``generate``'s dense path (``build_serve_steps``: one prefill, 31 decode
    steps, the local-attention caches viewed as pools for the paged decode
    kernel). Tokens/s, TTFT, decode-step p50/p99, peak memory; launches
-   exact: rmsnorm 77 (49) x 32 forwards, flash 12 (the hd-256 tensor-core
+   exact: rmsnorm 77 (9 at 8 layers, 49 at 48) x 32 forwards, flash 12 (the hd-256 tensor-core
    kernel, ``flash_attention_tc256``), decode 12 x 31. Then one decode step's device time beside
    its wall time (``torch.profiler``), RecurrentGemma's prefill too (not
    xLSTM's: its 90 000 kernels take the profiler longer than the run), and
    one layer's RG-LRU scan and prefill, or one sLSTM and one mLSTM
    layer's prefill, the same way.
+4e. ``serve_moe``: DeepSeek-V2-236B through ``generate``'s dense path
+   (MLA's latent cache; 6 of its 60 layers: 1 dense + 5 MoE, 44.8 GB) and
+   Kimi-K2 through its paged path (GQA 8:1 at hd 112; 2 of 61 layers: 1
+   dense + 1 MoE, 44.6 GB), each at full width, bf16, random seeded
+   weights made on the card in serving storage (the experts a slab at a
+   time), one freed before the next: 4 prompts of 512, 32 new tokens,
+   greedy. Tokens/s, TTFT, decode-step p50/p99, peak memory, parameter and
+   expert bytes; a prefill's and a decode step's device vs wall time
+   (``torch.profiler``), the step beside the bytes of the expert weights
+   it reads (the capacity formulation runs every expert). Launches exact:
+   rmsnorm 4 x layers + 1 a forward (DeepSeek: norm1, norm2, q_norm,
+   kv_norm) and no attention kernel; Kimi: flash layers a prefill (the
+   CUDA-core forward), paged decode layers x 31, rmsnorm 2 x layers + 1 a
+   forward.
 5. ``breakdown``: device time by kernel group (``torch.profiler``) beside
    the host's wall time, for one 512-token prefill and for decode steps
    over 4 slots of the bf16 serve path, and the same decode steps with
@@ -196,6 +217,15 @@ and no result line:
    1.3B at full width with 8 layers (one 7:1 cycle), a prompt of 192 (the
    chunkwise form) and one of 50 (the parallel form). Every logit within
    1e-3; every launch count exact.
+6g. ``moe_vs_cpu``: DeepSeek-V2-236B and Kimi-K2 at full width with 2
+   layers (the dense one and one MoE layer), fp32, ``num_experts`` cut to
+   32 (top-k 6 and 8 kept: 384 fp32 experts would be 67.6 GB of host
+   memory, and at 32 experts the router's near-ties round the same way on
+   both devices), the same seeded weights on the card and on the CPU: 2
+   prompts of 64 and 8 teacher-forced decode steps, each model through its
+   own path (dense / paged). Every logit within 1e-3; the share of top-k
+   assignments the same on both sides (``routing_agree``) reported; every
+   launch count exact.
 7. ``train``: full GPT-2 XL (bf16 compute, fp32 parameters and state),
    G = 2, sync_delay 0, per-group batch 2 x 1024 tokens, 10 steps of the
    same schedule shape (inner LR 5e-5, warmed up over the lazy start).
@@ -286,12 +316,13 @@ and no result line:
    fresh engine's greedy tokens, logits within 1e-3 of max |logit|; the
    pool drained; launches exact.
 9. a ``{"kernels": [...]}`` line: per kernel its launches on the main-path
-   runs (serve, serve_qwen3, serve_families, serve_recurrent and handoff, train,
+   runs (serve, serve_qwen3, serve_families, serve_recurrent, serve_moe and handoff, train,
    train_compressed, train_qwen3, train_minicpm,
    train_elastic and, summed over ranks, train_dist and train_dist_auto;
-   for the CUDA-core attention forward and backward,
-   which those bf16 runs no longer take, their launches in the fp32
-   card-vs-CPU phases and the Trainer's fp32 cases; the hd-256 tensor-core
+   for the CUDA-core attention forward and backward, which those bf16
+   runs take only at Kimi-K2's hd 112 (serve_moe's prefills), those and
+   their launches in the fp32 card-vs-CPU phases and the Trainer's fp32
+   cases; the hd-256 tensor-core
    forward's are RecurrentGemma's prefills in serve_recurrent), max error,
    kernel / plain / library times and
    the bound at the main path's shape (bytes over 3.35 TB/s and operations
@@ -299,7 +330,7 @@ and no result line:
    data sheet). A kernel with no launch fails the run.
 10. the last line, ``{"ok": true, "device": {...}}``.
 
-Nine studies run instead of the phases above when asked for, each after
+Ten studies run instead of the phases above when asked for, each after
 the build, and print their own JSON lines:
 
     python3 chip_smoke.py --witness-lr     # the train run at Table I's LR,
@@ -316,6 +347,11 @@ the build, and print their own JSON lines:
     python3 chip_smoke.py --families       # phase 4c at full depth, bf16 and int8 KV
     python3 chip_smoke.py --recurrent      # phase 2's attention and decode
                                            # checks, phases 4d, 6d' and 6f alone
+    python3 chip_smoke.py --moe            # phase 2's quantize, attention and
+                                           # decode checks; 4e with DeepSeek-V2
+                                           # at 8 layers (60.7 GB) and Kimi-K2
+                                           # with bf16 and int8 KV (the scalar
+                                           # quantize route); 6g
 """
 
 from __future__ import annotations
@@ -503,6 +539,10 @@ def check_quantize(torch, timer, results):
         ("mid_vector_block256_f32", 256 * 40 + 6, f32, 8, 256, "vec"),
         ("unaligned_view_block64_bf16", 64 * 300, bf16, 8, 64, "scalar"),
         ("block96_bf16_scalar_path", 96 * 200 + 7, bf16, 8, 96, "scalar"),
+        # Kimi-K2's KV rows (8 KV heads, hd 112: 14 vectors a block, the scalar
+        # kernel): a decode step's at 4 slots and a prefill layer's
+        ("kimi_k2_decode_kv_rows_block112_bf16", 4 * 8 * 112, bf16, 8, 112, "scalar"),
+        ("kimi_k2_prefill_kv_rows_block112_bf16", 512 * 8 * 112, bf16, 8, 112, "scalar"),
     ]
     worst = 0.0
     for name, n, dt, bits, block, want in cases:
@@ -554,6 +594,8 @@ def check_quantize(torch, timer, results):
     # one decode step's K rows, GPT-2 XL's and Qwen3-1.7B's (4 slots)
     dec = {name: yardsticks(torch.randn(n, generator=g, device="cuda").to(bf16), block)
            for name, n, block in (("gpt2_xl", 4 * 25 * 64, 64), ("qwen3", 4 * 8 * 128, 128))}
+    # Kimi-K2's: one prefill layer's K rows (S=512, 8 KV heads, hd 112)
+    kimi = yardsticks(torch.randn(512 * 8 * 112, generator=g, device="cuda").to(bf16), 112)
     # the training path's shape: one outer sync's largest leaf, fp32, block 256
     xt = torch.randn(XL_LEAF, generator=g, device="cuda") * 1e-3
     tr = yardsticks(xt, 256)
@@ -578,6 +620,8 @@ def check_quantize(torch, timer, results):
                               "64 (GPT-2 XL), (4*8*128,) block 128 (Qwen3-1.7B)",
         "decode_shapes": {k: {m: v[m] for m in ("ms", "scalar_kernel_ms", "bound_ms")}
                           for k, v in dec.items()},
+        "kimi_k2_shape": {"shape": "bf16 (512*8*112,) block 112 (one Kimi-K2 prefill layer's "
+                                   "K rows with int8 KV; the scalar kernel)", **kimi},
         "train_shape": "fp32 (50304*1600,) block 256 (GPT-2 XL token table)",
         **{f"train_shape_{k}": v for k, v in tr.items()},
         "train_shape_share_of_bound": tr["bound_ms"] / tr["ms"]}
@@ -734,7 +778,11 @@ FIVE_TO_ONE = ("qwen3_14b_gqa5_s512_bf16", "qwen3_14b_gqa5_s333_bf16")
 # prompt of 512 (the window as causal) and of 2304 (the window active)
 RECURRENT_FLASH = ("recurrentgemma_mqa16_hd256_s512_w2048_bf16",
                    "recurrentgemma_mqa16_hd256_s2304_w2048_bf16")
-REPEATED_FLASH = FIVE_TO_ONE + RECURRENT_FLASH  # each must give the same bits twice
+# Kimi-K2's attention: GQA 8:1 at hd 112 in bf16 (the CUDA-core forward:
+# 224-byte rows are not a multiple of the 128-byte TMA swizzle), at a
+# prompt of 512 and a ragged one
+KIMI_FLASH = ("kimi_k2_gqa8_hd112_s512_bf16", "kimi_k2_gqa8_hd112_s333_bf16")
+REPEATED_FLASH = FIVE_TO_ONE + RECURRENT_FLASH + KIMI_FLASH  # the same bits twice
 
 
 def _flash_cases(torch):
@@ -769,6 +817,10 @@ def _flash_cases(torch):
         "recurrent": [
             (RECURRENT_FLASH[0], 1, 512, 16, 1, 256, bf, True, 2048, 0.0),
             (RECURRENT_FLASH[1], 1, 2304, 16, 1, 256, bf, True, 2048, 0.0),
+        ],
+        "kimi": [
+            (KIMI_FLASH[0], 1, 512, 64, 8, 112, bf, True, 0, 0.0),
+            (KIMI_FLASH[1], 1, 333, 64, 8, 112, bf, True, 0, 0.0),
         ],
         "hd256_bwd": hd256_bwd,
         # the hd-256 forward's edges: two heads a block where H / Hkv is
@@ -820,6 +872,7 @@ def check_flash(torch, timer, results):
         *groups["gqa5"],
         *groups["recurrent"],
         *groups["tc256"],
+        *groups["kimi"],
         ("xl_s512_f32", 1, 512, 25, 25, 64, f32, True, 0, 0.0),
         ("hd256_f32", 1, 77, 2, 1, 256, f32, True, 0, 0.0),
         ("hd40_f32", 1, 45, 4, 2, 40, f32, True, 16, 10.0),
@@ -865,18 +918,20 @@ def check_flash(torch, timer, results):
         key = route + ("_hd256" if hd256 else "")
         worst[key] = max(worst[key], err)
 
-    def timed(B, S, H, Hkv, hd, want_lse):
+    def timed(B, S, H, Hkv, hd, want_lse, core=True):
         """Tensor-core, CUDA-core, plain and SDPA times of the causal forward
         at one shape, and its bound (inputs read and outputs written once;
-        QK^T and PV over the unmasked pairs)."""
+        QK^T and PV over the unmasked pairs). ``ms`` is the wrapper's route;
+        ``core=False`` where that route is the CUDA-core kernel already."""
         q = rand((B, S, H, hd), bf)
         k, v = (rand((B, S, Hkv, hd), bf) for _ in range(2))
         lse = torch.empty((B, H, S), dtype=torch.float32, device="cuda") if want_lse else None
         out = {
             "ms": timer.ms(lambda: FK._launch_fwd(q, k, v, True, 0, 0.0, want_lse=want_lse)),
-            "cuda_cores_ms": timer.ms(lambda: _core_fwd(torch, q, k, v, lse)),
             "plain_ms": timer.ms(lambda: (flash_attention_fwd_ref if want_lse else
                                           flash_attention_ref)(q, k, v, causal=True))}
+        if core:
+            out["cuda_cores_ms"] = timer.ms(lambda: _core_fwd(torch, q, k, v, lse))
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         out["library_ms"] = timer.ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=Hkv != H))
@@ -894,6 +949,16 @@ def check_flash(torch, timer, results):
                                **timed(1, 512, 32, 8, 128, False)},
            "qwen3_14b_gqa5": {"shape": "bf16 B=1 S=512 H=40 Hkv=8 hd=128 causal",
                               **timed(1, 512, 40, 8, 128, False)}}
+    # Kimi-K2's prefill layer (GQA 8:1, hd 112, the CUDA-core route): one
+    # prompt as the paged engine prefills it, and 4 prompts at once
+    kimi = {"shape": "bf16 B=4 S=512 H=64 Hkv=8 hd=112 causal (the CUDA-core kernel)",
+            **timed(4, 512, 64, 8, 112, False, core=False),
+            "serve_prefill_b1": {"shape": "bf16 B=1 S=512 H=64 Hkv=8 hd=112 causal (one "
+                                          "prefill layer of serve_moe)",
+                                 **timed(1, 512, 64, 8, 112, False, core=False)}}
+    for t in (kimi, kimi["serve_prefill_b1"]):
+        t["bound_share"] = t["bound_ms"] / t["ms"]
+        t["over_library"] = t["ms"] / t["library_ms"]
     def timed_window(B, S, H, Hkv, hd, window):
         """The windowed causal forward through the wrapper (the tensor-core
         route at hd 256), the CUDA-core kernel through its C entry point, the
@@ -995,7 +1060,8 @@ def check_flash(torch, timer, results):
         "qwen3": {"shape": "bf16 B=1 S=512 H=16 Hkv=8 hd=128 causal (one prefill layer)",
                   "ms": q3["cuda_cores_ms"], "plain_ms": q3["plain_ms"],
                   "bound_ms": q3["bound_ms"], "bound_by": q3["bound_by"],
-                  "library_ms": q3["library_ms"]}}
+                  "library_ms": q3["library_ms"]},
+        "kimi_k2_hd112": kimi}
 
 
 def _paged_inputs(torch, g, *, B, H, Hkv, hd, bs, cls, dt, quantized, T=None):
@@ -1073,6 +1139,7 @@ DECODE_STAGES = {"paged_decode_split": "split", "paged_decode_combine": "merge"}
 
 
 FAMILY_CLS = [128, 256, 384, 512]  # the serve phase's prompt lengths
+KIMI_CLS = [513, 522, 533, 544]      # serve_moe's decode contexts (4 x 512 + 32)
 
 
 def check_decode(torch, timer, results):
@@ -1118,6 +1185,10 @@ def check_decode(torch, timer, results):
         # Qwen3-14B's GQA 5:1 at hd 128, 4 slots over the serve phase's contexts
         ("qwen3_14b_gqa5_4slots_bf16", 4, 40, 8, 128, 16, FAMILY_CLS, bf16, False, 0, 0.0),
         ("qwen3_14b_gqa5_4slots_int8", 4, 40, 8, 128, 16, FAMILY_CLS, bf16, True, 0, 0.0),
+        # Kimi-K2's GQA 8:1 at hd 112 (14 vectors a row: 2 of 16 lanes idle),
+        # bf16 and int8 pools (scales at block 112), at serve_moe's contexts
+        ("kimi_k2_gqa8_hd112_4slots_bf16", 4, 64, 8, 112, 16, KIMI_CLS, bf16, False, 0, 0.0),
+        ("kimi_k2_gqa8_hd112_4slots_int8", 4, 64, 8, 112, 16, KIMI_CLS, bf16, True, 0, 0.0),
     ]
     worst = 0.0
     for name, B, H, Hkv, hd, bs, cls, dt, quant, window, softcap in cases:
@@ -1231,6 +1302,10 @@ def check_decode(torch, timer, results):
            for name, H, Hkv, hd in (("minicpm_2b_mha", 36, 36, 64),
                                     ("granite_8b_gqa4", 32, 8, 128),
                                     ("qwen3_14b_gqa5", 40, 8, 128))}
+    fam["kimi_k2_gqa8_hd112"] = {
+        "shape": "bf16 4 slots, contexts 513-544, bs 16, H=64 Hkv=8 hd 112 (one decode layer "
+                 "of serve_moe)", **timed(KIMI_CLS, 64, 8, 112, 34),
+        "int8_pools_ms": timed(KIMI_CLS, 64, 8, 112, 34, quantized=True)["ms"]}
     fam["recurrentgemma_dense_view"] = {
         "shape": "bf16 4 slots of a dense cache of 544 viewed as a pool, contexts 513-544, "
                  "bs 16, H=16 Hkv=1 hd 256 (one decode layer of serve_recurrent)",
@@ -1368,7 +1443,9 @@ def check_rmsnorm(torch, timer, results):
     """The RMSNorm forward and backward kernels against ``rmsnorm_ref`` and
     ``rmsnorm_bwd_ref`` at Qwen3-1.7B's shapes (block norms at d_model
     2048, qk-norm at head_dim 128 and eps 1e-6; training, prefill and
-    decode rows) and at edge shapes (D 40 and 41, one row, D 5000 with
+    decode rows), at the MoE families' widths (DeepSeek-V2's MLA latent
+    norms at 1536 and 512, eps 1e-6, block norms at 5120 and Kimi-K2's at
+    7168) and at edge shapes (D 40 and 41, one row, D 5000 with
     several vectors a thread, fp32, ragged sets of 32 vectors at D 1600 in
     bf16 and D 1000 in fp32, an unaligned view). The forward's route must
     be the rule's (``fwd_register_path``: aligned rows of at most 256
@@ -1407,6 +1484,13 @@ def check_rmsnorm(torch, timer, results):
         ("d1600_ragged_sets_1100rows_bf16", 1100, 1600, bf16, 1e-5),  # 200 vectors
         ("d1000_ragged_sets_1100rows_f32", 1100, 1000, f32, 1e-5),  # 250 vectors
         ("unaligned_view_64x2048_bf16", 64, 2048, bf16, 1e-5),
+        # the MoE families' widths: DeepSeek-V2's MLA q_norm (1536) over a
+        # prefill's rows and kv_norm (512) over a decode step's, its block
+        # norm (5120) and Kimi-K2's (7168)
+        ("deepseek_q_norm_prefill_2048x1536_bf16", 2048, 1536, bf16, 1e-6),
+        ("deepseek_kv_norm_decode_4x512_bf16", 4, 512, bf16, 1e-6),
+        ("deepseek_block_norm_decode_4x5120_bf16", 4, 5120, bf16, 1e-5),
+        ("kimi_block_norm_prefill_512x7168_bf16", 512, 7168, bf16, 1e-5),
     ]
     worst_fwd = worst_bwd = 0.0
     for name, rows, D, dt, eps in cases:
@@ -1488,7 +1572,10 @@ def check_rmsnorm(torch, timer, results):
     for key, rows, D, eps, train in (("train_block", 2048, 2048, 1e-5, True),
                                      ("train_qk", 32768, 128, 1e-6, True),
                                      ("prefill", 512, 2048, 1e-5, False),
-                                     ("decode", 4, 2048, 1e-5, False)):
+                                     ("decode", 4, 2048, 1e-5, False),
+                                     ("deepseek_q_norm_prefill", 2048, 1536, 1e-6, False),
+                                     ("deepseek_kv_norm_decode", 4, 512, 1e-6, False),
+                                     ("kimi_block_norm_decode", 4, 7168, 1e-5, False)):
         x, s, dy = inputs(rows, D, bf16)
         b, by = bound_ms(fwd_bytes(rows, D, train), 4 * rows * D, "float32")
         y = torch.empty_like(x)
@@ -1497,9 +1584,10 @@ def check_rmsnorm(torch, timer, results):
                     "route": "register" if RK.fwd_register_path(x) else "block_a_row",
                     "block_a_row_ms": timer.ms(
                         lambda: _fwd_entry(torch, x, s, eps, train, register=False)),
-                    "register_path_ms": timer.ms(
-                        lambda: _fwd_entry(torch, x, s, eps, train, register=True)),
                     "same_bytes_copy_ms": timer.ms(lambda: y.copy_(x))}
+        if D // 8 <= 256:  # rows the register path's entry point takes (bf16)
+            fwd[key]["register_path_ms"] = timer.ms(
+                lambda: _fwd_entry(torch, x, s, eps, train, register=True))
         fwd[key]["ratio_to_copy"] = fwd[key]["ms"] / fwd[key]["same_bytes_copy_ms"]
         if train:
             _, rstd = RK._launch_fwd(x, s, eps, want_rstd=True)
@@ -1797,11 +1885,13 @@ def e2e_vs_cpu(torch, counters):
 
 def norm_launches(cfg) -> int:
     """RMSNorm kernel launches of one forward (a prefill, a decode step or
-    a training forward): norm1 and norm2 of every layer, q- and k-norm with
-    qk-norm, and the final norm; 0 for a LayerNorm model."""
+    a training forward): norm1 and norm2 of every layer (an MoE layer's
+    too), q- and k-norm with qk-norm, MLA's ``q_norm`` (with a low-rank
+    query) and ``kv_norm``, and the final norm; 0 for a LayerNorm model."""
     if cfg.norm != "rmsnorm":
         return 0
-    return (2 + 2 * int(cfg.use_qk_norm)) * cfg.num_layers + 1
+    mla = (cfg.q_lora_rank > 0) + 1 if cfg.attention_kind == "mla" else 0
+    return (2 + 2 * int(cfg.use_qk_norm) + mla) * cfg.num_layers + 1
 
 
 def serve(torch, params, cfg, counters, *, quantized: bool, phase: str = "serve"):
@@ -1974,10 +2064,10 @@ def int8_kv_depth(torch):
 FAMILIES = ("minicpm-2b", "granite-8b", "qwen3-14b")
 
 
-# the whole script's depths for serve_families, for its time limit:
-# MiniCPM-2B at its full 40 layers, Granite-8B and Qwen3-14B at their full
-# width with 8 layers each (``--families`` serves all three at full depth)
-FAMILY_SCRIPT_LAYERS = {"granite-8b": 8, "qwen3-14b": 8}
+# the whole script's depths for serve_families, for its time limit: each
+# family at its full width with 8 layers (``--families`` serves all three
+# at full depth)
+FAMILY_SCRIPT_LAYERS = {"minicpm-2b": 8, "granite-8b": 8, "qwen3-14b": 8}
 
 
 def serve_families(torch, counters, *, kvs=(False, True), layers=None):
@@ -2076,6 +2166,11 @@ def families_vs_cpu(torch, counters):
 # ---------------------------------------------------------------------------
 
 RECURRENT = ("recurrentgemma-9b", "xlstm-1.3b")
+# the whole script's depths for serve_recurrent, for its time limit:
+# xLSTM-1.3B at full width with one 7:1 cycle of 8 layers (its prefill's
+# sLSTM loop is host-bound); RecurrentGemma-9B at its full 38 layers
+# (``--recurrent`` serves both at full depth)
+RECURRENT_SCRIPT_LAYERS = {"xlstm-1.3b": 8}
 
 
 def dense_norm_launches(cfg) -> int:
@@ -2209,9 +2304,10 @@ def _profiled(torch, fn):
             "kernels": n, "device_ms_by_group": groups}
 
 
-def serve_recurrent(torch, counters, arch: str):
-    """Full RecurrentGemma-9B (38 layers) or xLSTM-1.3B (48), bf16, random
-    seeded weights made on the card in serving storage: 4 prompts of 512
+def serve_recurrent(torch, counters, arch: str, layers=None):
+    """RecurrentGemma-9B (38 layers) or xLSTM-1.3B (48) at full width and
+    full depth or ``layers`` layers, bf16, random seeded weights made on the
+    card in serving storage: 4 prompts of 512
     tokens and 32 new tokens, greedy, through ``generate`` (the dense path:
     ``build_serve_steps``, one prefill, 31 decode steps). Tokens/s, TTFT,
     decode-step p50 / p99, peak memory; every launch count exact, and
@@ -2233,6 +2329,8 @@ def serve_recurrent(torch, counters, arch: str):
 
     B, S, N = 4, 512, 32
     cfg = get_config(arch)
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
     t0 = time.perf_counter()
     params = R.init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
@@ -2318,6 +2416,273 @@ def serve_recurrent(torch, counters, arch: str):
     del params, bundle, state, info
     free_cuda(torch)
     return line
+
+
+# ---------------------------------------------------------------------------
+# phases 4e and 6g: the MoE families, DeepSeek-V2-236B (MLA, the dense path)
+# and Kimi-K2 (GQA 8:1 at hd 112, the paged path)
+# ---------------------------------------------------------------------------
+
+MOE_ARCHS = ("deepseek-v2-236b", "kimi-k2-1t-a32b")
+
+# full width at reduced depth (neither model fits one card at full depth;
+# serving storage): DeepSeek-V2 1 dense + 5 MoE layers, 44.8 GB (8 layers,
+# 60.7 GB, in ``--moe``); Kimi-K2 1 dense + 1 MoE layer, 44.6 GB (a second
+# MoE layer would need 78 GB)
+MOE_SCRIPT_LAYERS = {"deepseek-v2-236b": 6, "kimi-k2-1t-a32b": 2}
+MOE_STUDY_LAYERS = {"deepseek-v2-236b": 8, "kimi-k2-1t-a32b": 2}
+EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
+
+
+def _expert_bytes(params) -> int:
+    """Bytes of the routed experts' weights ((E, a, b) tensors)."""
+    from repro_torch.models.transformer import param_leaves
+
+    return sum(t.numel() * t.element_size() for n, t in param_leaves(params)
+               if n.rsplit(".", 1)[-1] in EXPERT_LEAVES and t.dim() == 3)
+
+
+def serve_moe(torch, counters, arch: str, layers: int, *, int8_kv: bool = False):
+    """DeepSeek-V2-236B (through ``generate``'s dense path: MLA's latent
+    cache) or Kimi-K2 (its paged path) at full width and ``layers`` layers,
+    bf16, random seeded weights made on the card in serving storage (the
+    experts a slab at a time): 4 prompts of 512 tokens and 32 new tokens,
+    greedy. Tokens/s, TTFT, decode-step p50 / p99, peak memory; every launch
+    count exact. Then one prefill's and one decode step's device time
+    beside their wall time (``torch.profiler``), and the decode step beside
+    the bytes of the expert weights it reads: at 4 tokens the capacity
+    formulation runs every expert (capacity 8), though at most 4 x top-k are
+    routed."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry as R
+    from repro_torch.serve import PagedCacheConfig, generate, paged_supported
+
+    B, S, N, bs = 4, 512, 32, 16
+    cfg = get_config(arch).replace(num_layers=layers)
+    paged = paged_supported(cfg)[0]
+    if int8_kv and not paged:
+        raise ValueError(f"{arch}: int8 KV is an option of the paged path")
+
+    def pcfg(prompt: int, new: int):
+        if not paged:
+            return None
+        need = -(-(-(-prompt // bs) * bs + new) // bs)
+        return PagedCacheConfig(num_blocks=need * B + 1, block_size=bs, quantized=int8_kv)
+
+    t0 = time.perf_counter()
+    params = R.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in params.parameters())
+    n_bytes = sum(t.numel() * t.element_size() for t in params.parameters())
+    expert_bytes = _expert_bytes(params)
+    prompts = np.random.default_rng(25).integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    generate(params, cfg, prompts[:, :16], 2, pcfg=pcfg(16, 2))  # warm-up
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out, info = generate(params, cfg, prompts, N, pcfg=pcfg(S, N))
+    t_end = time.perf_counter()
+    launches = {k: c.launches for k, c in counters.items()}
+    L = cfg.num_layers
+    if paged:
+        eng = info["engine"]
+        res = sorted(eng.finished, key=lambda r: r.uid)
+        ttft = sorted(1e3 * (r.first_token_at - t0) for r in res)
+        last = res[-1].token_times  # the last prompt's prefill, then every decode step
+        dec = sorted(1e3 * (b - a) for a, b in zip(last, last[1:]))
+        prefills, steps = eng.stats["prefills"], eng.stats["decode_steps"]
+        forwards = prefills + steps
+        expect = {"flash_attention": prefills * L, "paged_decode_attention": steps * L,
+                  "quantize_blockwise": 2 * L * forwards if int8_kv else 0}
+        ttft_line = {"ttft_ms": ttft[-1], "ttft_ms_first": ttft[0]}
+    else:
+        times = info["token_times"]
+        dec = sorted(1e3 * (b - a) for a, b in zip(times[1:], times[2:]))
+        prefills, steps, forwards = 1, len(dec), N
+        expect = {"flash_attention": 0, "paged_decode_attention": 0, "quantize_blockwise": 0}
+        ttft_line = {"ttft_ms": 1e3 * (times[1] - times[0])}
+    expect.update({"flash_attention_bwd": 0, "flash_attention_tc": 0,
+                   "flash_attention_bwd_tc": 0, "dequantize_blockwise": 0, "pier_update": 0,
+                   "rmsnorm": forwards * norm_launches(cfg), "rmsnorm_bwd": 0})
+    expect = {k: expect[k] for k in launches}
+    line = {"phase": "serve_moe", "run": f"serve_moe_{arch}" + ("_int8kv" if int8_kv else ""),
+            "path": info["path"], "kv": "int8" if int8_kv else "bf16",
+            "config": f"{cfg.name} full width, {L} of {get_config(arch).num_layers} layers, "
+                      f"bf16", "experts": cfg.num_experts, "top_k": cfg.num_experts_per_tok,
+            "params": n_params, "param_bytes_serving_storage": n_bytes,
+            "expert_bytes": expert_bytes, "init_s": t_init, "batch": B, "prompt_len": S,
+            "new_tokens": N, "wall_s": t_end - t0, "tokens_out": int(out.size),
+            "tokens_per_s": out.size / (t_end - t0), **ttft_line,
+            "decode_step_ms_p50": statistics.median(dec),
+            "decode_step_ms_p99": dec[min(len(dec) - 1, math.ceil(0.99 * len(dec)) - 1)],
+            "prefills": prefills, "decode_steps": steps,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "launches": launches, "expected_launches": expect}
+
+    # where the time goes: one prefill and one decode step of the same bundle
+    tok = torch.from_numpy(prompts).cuda()
+    state = {}
+    if paged:
+        bundle, pools = eng.bundle, eng.pools
+        need = pcfg(S, N).blocks_for(S + N)
+        tables = (1 + torch.arange(B * need, dtype=torch.int32, device="cuda")).view(B, need)
+        pos = torch.full((B,), S + N - 1, dtype=torch.int32, device="cuda")
+
+        def prefill():  # one prompt (the engine prefills them one at a time)
+            state["logits"] = bundle.prefill_step(params, tok[:1], pools,
+                                                  tables[0, :S // bs], S - 1)[0]
+
+        def decode():
+            state["step_logits"] = bundle.decode_step(params, pools, tok[:, 0], pos, tables,
+                                                      pos + 1)[0]
+    else:
+        bundle = info["bundle"]
+
+        def prefill():
+            state["logits"], state["s"] = bundle.prefill_step(params, {"tokens": tok})
+
+        def decode():
+            state["step_logits"] = bundle.serve_step(params, state["s"],
+                                                     tok[:, :1].contiguous())[0]
+
+    line["prefill_profile"] = _profiled(torch, prefill)
+    line["decode_step_profile"] = prof = _profiled(torch, decode)
+    b_ms = expert_bytes / HBM_BYTES_PER_S * 1e3
+    line["decode_expert_bytes_bound_ms"] = b_ms
+    line["decode_device_over_expert_bound"] = (prof["device_ms"] / b_ms
+                                               if prof["kernels"] else "not measured")
+    line["experts_routed_at_most"] = min(cfg.num_experts, B * cfg.num_experts_per_tok)
+    finite = all(bool(torch.isfinite(state[k]).all()) for k in ("logits", "step_logits"))
+    emit(line)
+    want_path = "paged" if paged else "dense"
+    if info["path"] != want_path or out.shape != (B, N) or steps != N - 1:
+        raise AssertionError(f"serve_moe {arch}: path {info['path']}, shape {out.shape}, "
+                             f"{steps} decode steps")
+    if not finite or not ((out >= 0) & (out < cfg.vocab_size)).all():
+        raise AssertionError(f"serve_moe {arch}: non-finite logits or token ids out of range")
+    if launches != expect:
+        raise AssertionError(f"serve_moe {arch}: launches {launches} != {expect}")
+    del params, bundle, state, info
+    free_cuda(torch)
+    return line
+
+
+@contextlib.contextmanager
+def recorded_routes(sink: list):
+    """Record the top-k expert ids of every ``moe.route`` call (on the
+    host) into ``sink``."""
+    from repro_torch.models import moe as MOE
+
+    route = MOE.route
+
+    def recording(logits, k):
+        out = route(logits, k)
+        sink.append(out[2].cpu())
+        return out
+
+    MOE.route = recording
+    try:
+        yield
+    finally:
+        MOE.route = route
+
+
+def routing_agree(card, cpu) -> float:
+    """The share of the card's top-k assignments that the CPU made too
+    (per token, as sets)."""
+    same = total = 0
+    for a, b in zip(card, cpu, strict=True):
+        same += int((a[:, :, None] == b[:, None, :]).any(-1).sum())
+        total += a.numel()
+    return same / total
+
+
+# the moe_vs_cpu cut: host memory (384 fp32 Kimi experts are 67.6 GB) and
+# router near-ties (the gap between the k-th and the next logit shrinks
+# with the expert count; at 32 experts about 1 token in 50 000 would route
+# differently under fp32 rounding)
+MOE_VS_CPU_EXPERTS = 32
+
+
+def moe_vs_cpu(torch, counters):
+    """DeepSeek-V2-236B and Kimi-K2 at full width with 2 layers (the dense
+    layer and one MoE layer), fp32, ``num_experts`` cut to 32 (top-k kept),
+    the same seeded weights on the card (kernels) and on the CPU (plain
+    versions): 2 prompts of 64 tokens, then 8 teacher-forced decode steps,
+    each model through its own path (DeepSeek's dense ``registry.prefill``
+    / ``decode_step``, Kimi's paged prefill and decode). Every logit within
+    1e-3; every launch count exact; the share of top-k assignments the same
+    on both sides reported."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry as R
+    from repro_torch.models.transformer import param_leaves, with_leaves
+    from repro_torch.serve import PagedCacheConfig, paged_supported
+
+    P, S, D = 2, 64, 8
+    fp32_runs = []
+    for arch in MOE_ARCHS:
+        full = get_config(arch)
+        cfg = full.replace(num_layers=2, dtype="float32", num_experts=MOE_VS_CPU_EXPERTS)
+        t0 = time.perf_counter()
+        params_gpu = R.init_params(cfg, seed=0, device="cuda")
+        params_cpu = with_leaves(params_gpu, {n: t.cpu() for n, t in param_leaves(params_gpu)})
+        toks = torch.randint(0, cfg.vocab_size, (P, S + D), dtype=torch.int32,
+                             generator=torch.Generator().manual_seed(26))
+        paged = paged_supported(cfg)[0]
+        pcfg = PagedCacheConfig(num_blocks=P * 5 + 1, block_size=16, dtype="float32")
+
+        def rollout(params, device):
+            if paged:
+                return rollouts(torch, params, cfg, toks, S, D, pcfg, device)
+            return dense_rollout(torch, params, cfg, toks, S, device)
+
+        routes_card, routes_cpu = [], []
+        for c in counters.values():
+            c.launches = 0
+        with recorded_routes(routes_card):
+            card = rollout(params_gpu, "cuda")
+        launches = {k: c.launches for k, c in counters.items()}
+        t_card = time.perf_counter() - t0
+        with recorded_routes(routes_cpu):
+            cpu = rollout(params_cpu, "cpu")
+        err = float((card - cpu).abs().max())
+        L = cfg.num_layers
+        forwards = P + D if paged else 1 + D
+        expect = {"flash_attention": P * L if paged else 0, "flash_attention_bwd": 0,
+                  "flash_attention_tc": 0, "flash_attention_bwd_tc": 0,
+                  "paged_decode_attention": D * L if paged else 0, "quantize_blockwise": 0,
+                  "dequantize_blockwise": 0, "pier_update": 0,
+                  "rmsnorm": forwards * norm_launches(cfg), "rmsnorm_bwd": 0}
+        agree = routing_agree(routes_card, routes_cpu)
+        emit({"phase": "moe_vs_cpu", "arch": arch, "path": "paged" if paged else "dense",
+              "config": f"{arch} width, {L} layers (1 dense, 1 MoE), float32",
+              "cut": f"num_experts {full.num_experts} -> {cfg.num_experts}, top-k "
+                     f"{cfg.num_experts_per_tok} kept (host memory; router near-ties)",
+              "prompts": P, "prompt": S, "decode_steps": D,
+              "max_abs_logit_err_card_vs_cpu": err, "tol": 1e-3,
+              "max_abs_logit": float(card.abs().max()),
+              "greedy_agree_card_vs_cpu": float(
+                  (card.argmax(-1) == cpu.argmax(-1)).float().mean()),
+              "routing_agree": agree, "route_calls": len(routes_card),
+              "routed_tokens": sum(r.shape[0] for r in routes_card),
+              "card_launches": launches, "expected_launches": expect,
+              "card_seconds": t_card, "seconds": time.perf_counter() - t0})
+        if not (bool(torch.isfinite(card).all()) and card.shape == (P, D + 1, cfg.vocab_size)):
+            raise AssertionError(f"moe_vs_cpu {arch}: non-finite logits or wrong shape")
+        if err > 1e-3:
+            raise AssertionError(f"moe_vs_cpu {arch}: card vs cpu logits differ by {err} "
+                                 f"(routing agree {agree})")
+        if launches != expect:
+            raise AssertionError(f"moe_vs_cpu {arch}: launches {launches} != {expect}")
+        fp32_runs.append(launches)
+        del params_gpu, params_cpu
+        free_cuda(torch)
+    return fp32_runs
 
 
 # ---------------------------------------------------------------------------
@@ -4472,7 +4837,8 @@ CUDA_CORE_FLASH = ("flash_attention", "flash_attention_bwd")
 
 def main(argv) -> int:
     studies = {"--witness-lr", "--build-times", "--int8-kv-depth", "--flash-precision",
-               "--norm-quant", "--elastic", "--ckpt-depth", "--families", "--recurrent"}
+               "--norm-quant", "--elastic", "--ckpt-depth", "--families", "--recurrent",
+               "--moe"}
     if len(argv) > 1 or not set(argv) <= studies:
         print(f"usage: chip_smoke.py [{' | '.join(sorted(studies))}]", file=sys.stderr)
         return 2
@@ -4555,6 +4921,23 @@ def main(argv) -> int:
         with large_allocations_on_the_heap():
             recurrent_vs_cpu(torch, counters)
         return 0
+    if argv == ["--moe"]:
+        check_quantize(torch, timer, results)
+        check_flash(torch, timer, results)
+        check_decode(torch, timer, results)
+        del timer
+        emit({"moe_kernels": {
+            "flash_attention": results["flash_attention"]["kimi_k2_hd112"],
+            "paged_decode_attention":
+                results["paged_decode_attention"]["families"]["kimi_k2_gqa8_hd112"],
+            "quantize_blockwise": results["quantize_blockwise"]["kimi_k2_shape"]}})
+        for arch in MOE_ARCHS:
+            serve_moe(torch, counters, arch, MOE_STUDY_LAYERS[arch])
+        serve_moe(torch, counters, "kimi-k2-1t-a32b", MOE_STUDY_LAYERS["kimi-k2-1t-a32b"],
+                  int8_kv=True)
+        with large_allocations_on_the_heap():
+            moe_vs_cpu(torch, counters)
+        return 0
     if argv == ["--norm-quant"]:
         check_quantize(torch, timer, results)
         check_dequantize(torch, timer, results)
@@ -4593,7 +4976,9 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     # int8 KV and full depth: --families
     serves += serve_families(torch, counters, kvs=(False,), layers=FAMILY_SCRIPT_LAYERS)
-    serves += [serve_recurrent(torch, counters, arch) for arch in RECURRENT]
+    serves += [serve_recurrent(torch, counters, arch, RECURRENT_SCRIPT_LAYERS.get(arch))
+               for arch in RECURRENT]
+    serves += [serve_moe(torch, counters, arch, MOE_SCRIPT_LAYERS[arch]) for arch in MOE_ARCHS]
 
     with large_allocations_on_the_heap() as raised:
         emit({"phase": "host_malloc", "thresholds_raised": raised})
@@ -4604,6 +4989,7 @@ def main(argv) -> int:
         free_cuda(torch)
         fp32_runs += families_vs_cpu(torch, counters)
         fp32_runs += recurrent_vs_cpu(torch, counters)
+        fp32_runs += moe_vs_cpu(torch, counters)
     free_cuda(torch)
     flash_tc_vs_plain(torch, counters)
     free_cuda(torch)
@@ -4665,10 +5051,11 @@ def main(argv) -> int:
         fp32 = sum(count(ln, name) for ln in fp32_runs)
         # the bf16 main paths run the tensor-core flash kernels (at hd 256,
         # RecurrentGemma's prefill, the forward of flash_attention_tc256.cu,
-        # counted in serve_recurrent's line); the CUDA-core forward and
-        # backward run in the fp32 card-vs-CPU phases and the Trainer's fp32
-        # cases only
-        entry["launches"] = fp32 if name in CUDA_CORE_FLASH else main_path
+        # counted in serve_recurrent's line) but for Kimi-K2's prefill at hd
+        # 112 (serve_moe), which runs the CUDA-core forward; the CUDA-core
+        # forward and backward also run in the fp32 card-vs-CPU phases and
+        # the Trainer's fp32 cases, counted with them
+        entry["launches"] = main_path + fp32 if name in CUDA_CORE_FLASH else main_path
         entry["launches_by_path"] = {
             "serve": sum(count(r["launches"], name) for r in serves),
             "serve_by_run": {r["run"] if "run" in r else f"{r['phase']}_{r['kv']}":

@@ -4,7 +4,9 @@ The port runs the paper's own GPT-2 family, the dense RMSNorm families
 (RoPE, SwiGLU, GQA): Qwen3-1.7B and Qwen3-14B (qk-norm), MiniCPM-2B (MHA,
 a tied table of 122 753 rows) and Granite-8B (an untied ``lm_head``), and,
 through the dense serve path, the recurrent families RecurrentGemma-9B
-(RG-LRU and local MQA attention) and xLSTM-1.3B (mLSTM and sLSTM). Each
+(RG-LRU and local MQA attention) and xLSTM-1.3B (mLSTM and sLSTM), and
+the MoE families for serving: DeepSeek-V2-236B (MLA attention, through
+the dense serve path) and Kimi-K2 (GQA, through the paged path). Each
 module is a copy of its counterpart in ``src/repro/configs/`` (the
 ``tests/test_torch_*`` files check the copies field by field). An architecture that the reference
 registers but the port does not run yet raises ``NotImplementedError``.
@@ -18,12 +20,11 @@ from typing import List
 from repro_torch.config import ModelConfig
 
 ARCH_MODULES = ["gpt2_small", "gpt2_medium", "gpt2_xl", "gpt2_7b", "qwen3_1_7b",
-                "minicpm_2b", "granite_8b", "qwen3_14b", "recurrentgemma_9b", "xlstm_1_3b"]
+                "minicpm_2b", "granite_8b", "qwen3_14b", "recurrentgemma_9b", "xlstm_1_3b",
+                "deepseek_v2_236b", "kimi_k2_1t_a32b"]
 
 # Registered by the reference package, not ported yet (ROADMAP.md queue 1).
-NOT_PORTED = (
-    "deepseek-v2-236b", "chameleon-34b", "whisper-large-v3", "kimi-k2-1t-a32b",
-)
+NOT_PORTED = ("chameleon-34b", "whisper-large-v3")
 
 # display names as the reference's registry spells them, and its aliases
 _DISPLAY = {"qwen3_1_7b": "qwen3-1.7b", "xlstm_1_3b": "xlstm-1.3b"}

@@ -6,9 +6,12 @@ the port's parameter module, so that both packages compute the same model.
 Key names and layouts carry over unchanged: the pytree path
 ``layers/3/mix/wq`` becomes the state-dict key ``layers.3.mix.wq``, the
 recurrent blocks' leaves included (mLSTM's (H, dh, dh) projections and
-(H, dh) ``out_norm``, the (W, C) conv kernels, RG-LRU's ``lambda``), each
-in the storage its name gives (``layers.stored_dtype``). This module
-imports no JAX: it only reads numpy arrays.
+(H, dh) ``out_norm``, the (W, C) conv kernels, RG-LRU's ``lambda``), and
+the MoE and MLA ones (an MoE layer's fp32 ``router``, its (E, D, F) /
+(E, F, D) experts and its ``shared`` MLP, ``layers.1.mlp.shared.w_up``;
+MLA's projections, with ``w_uk`` and ``w_uv`` kept in fp32), each in the
+storage its name gives (``layers.stored_dtype``). This module imports no
+JAX: it only reads numpy arrays.
 """
 
 from __future__ import annotations

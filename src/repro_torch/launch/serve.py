@@ -9,9 +9,12 @@ run. Weights are random, from ``--seed``. ``--ckpt-dir`` hot-swaps the
 parameters from the newest complete checkpoint there between engine steps
 (``serve/handoff.py``): a Trainer's (group 0's replica) or a plain
 ``params`` tree. Architectures with recurrent blocks (RecurrentGemma-9B,
-xLSTM-1.3B) serve through the dense path (``path=dense``: one static batch
-in lockstep); ``--ckpt-dir`` and ``--int8-kv``, which only the paged path
-has, raise there rather than being ignored.
+xLSTM-1.3B) or MLA attention (DeepSeek-V2-236B) serve through the dense
+path (``path=dense``: one static batch in lockstep); ``--ckpt-dir`` and
+``--int8-kv``, which only the paged path has, raise there rather than
+being ignored. Kimi-K2 (MoE with GQA attention) serves through the paged
+path. The full MoE models do not fit one card; ``--reduced`` runs their
+reduced configs.
 """
 
 from __future__ import annotations

@@ -34,10 +34,14 @@ from repro_torch.kernels import ops as kops
 # and biases (RG-LRU ``w_a``, ``b_a``, ``w_i``, ``b_i``, ``lambda``; mLSTM
 # ``w_igate``, ``b_igate``, ``w_fgate``, ``b_fgate``; sLSTM ``w_i``,
 # ``w_f``, ``w_z``, ``w_o``, ``b_*``, ``r_*``) and the per-head
-# ``out_norm`` are read in fp32 there, and stay in ``cfg.param_dtype``.
+# ``out_norm`` are read in fp32 there, and stay in ``cfg.param_dtype``. So
+# do MLA's ``w_uk`` and ``w_uv``: its absorbed decode reads them in fp32
+# (``repro/models/mla.py:136-148``), its prefill casts them at use. MoE's
+# ``router`` is read in fp32 too; its experts' ``w_gate`` / ``w_up`` /
+# ``w_down`` are cast at use, as MLA's down- and up-projections are.
 _COMPUTE_DTYPE_LEAVES = frozenset(
     {"wq", "wk", "wv", "wo", "w_up", "w_gate", "w_down", "positions",
-     "w_x", "w_y", "conv"})
+     "w_x", "w_y", "conv", "w_dq", "w_uq", "w_q", "w_dkv", "w_kr"})
 
 
 def torch_dtype(name: str) -> torch.dtype:

@@ -3,8 +3,8 @@
 ``init_params`` / ``forward`` / ``loss_fn`` for training;
 ``init_decode_state`` / ``prefill`` / ``decode_step`` for the dense serve
 path (a static batch in lockstep: every architecture the port runs, and the
-only one for models with recurrent blocks; attention models also serve
-through the paged path, ``repro_torch.serve``). The reference's
+only one for models with recurrent blocks or MLA; GQA attention models
+also serve through the paged path, ``repro_torch.serve``). The reference's
 scanned-layer and encoder-decoder branches are left out, as the port runs
 neither. ``count_params`` is not ported.
 """
@@ -19,6 +19,7 @@ from repro_torch import resolve_device
 from repro_torch.config import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import mla as MLA
 from repro_torch.models import rglru as RG
 from repro_torch.models import ssm as SSM
 from repro_torch.models import transformer as T
@@ -28,11 +29,13 @@ forward = T.forward
 
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
-    """Next-token cross-entropy. batch: {"tokens", "labels"}, both (B, S).
+    """Next-token cross-entropy (+ MoE aux losses). batch: {"tokens",
+    "labels"}, both (B, S).
 
-    Positions with label < 0 are masked out. Returns (loss, metrics) with
-    the reference's metric keys. MoE models raise (``T.check_ported``), so
-    the reference's router aux and z terms never apply here.
+    Positions with label < 0 are masked out. Returns (total, metrics) with
+    the reference's metric keys; an MoE model's total adds
+    ``router_aux_loss_coef * moe_aux + 1e-4 * moe_z``. (Training MoE models
+    is not ported, ``T.check_trainable``: its value is the forward's.)
     """
     logits, aux = forward(params, cfg, batch)
     labels = batch["labels"].long()
@@ -43,9 +46,12 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
     nll = (logz - gold) * mask
     denom = torch.clamp_min(mask.sum(), 1.0)
     loss = nll.sum() / denom
+    total = loss
+    if cfg.is_moe:
+        total = total + cfg.router_aux_loss_coef * aux["moe_aux"] + 1e-4 * aux["moe_z"]
     metrics = {"lm_loss": loss, "moe_aux": aux["moe_aux"], "moe_z": aux["moe_z"],
                "tokens": mask.sum()}
-    return loss, metrics
+    return total, metrics
 
 
 # ---------------------------------------------------------------------------
@@ -55,6 +61,8 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
 
 def _layer_state(cfg: ModelConfig, layer_idx: int, batch: int, max_len: int, device):
     kind = cfg.block_kind(layer_idx)
+    if T._is_mla(cfg, kind):
+        return MLA.init_mla_cache(cfg, batch, max_len, device=device)
     if kind in T.ATTENTION_KINDS:
         return A.init_cache(cfg, batch, max_len, window=T._layer_window(cfg, layer_idx),
                             device=device)
@@ -85,7 +93,7 @@ def decode_step(params, cfg: ModelConfig, state, tokens):
     x = L.embed_tokens(params["embed"], tokens, cfg, position_offset=pos)
     new_layers = []
     for i, lp in enumerate(params["layers"]):
-        x, extra = T._decoder_layer_fwd(lp, x, cfg, i, state=state["layers"][i])
+        x, extra, _ = T._decoder_layer_fwd(lp, x, cfg, i, state=state["layers"][i])
         new_layers.append(extra)
     x = L.apply_norm(params["final_norm"], x, cfg)
     logits = L.lm_logits(params["embed"], x, cfg)
@@ -95,8 +103,9 @@ def decode_step(params, cfg: ModelConfig, state, tokens):
 def prefill(params, cfg: ModelConfig, batch, *, max_len: int, last_only: bool = False):
     """Process whole prompts, returning (logits, decode_state).
 
-    Attention layers hand their (k, v) streams to a cache; recurrent layers
-    their final state. ``last_only``: logits of the last position alone.
+    Attention layers hand their (k, v) streams to a cache, MLA layers their
+    latents to a latent cache; recurrent layers their final state.
+    ``last_only``: logits of the last position alone.
     """
     tokens = batch["tokens"]
     S = tokens.shape[1]
@@ -105,7 +114,10 @@ def prefill(params, cfg: ModelConfig, batch, *, max_len: int, last_only: bool = 
     logits, aux = forward(params, cfg, batch, collect_kv=True, last_only=last_only)
     layers = []
     for i, stream in enumerate(aux["kv"]):
-        if cfg.block_kind(i) in T.ATTENTION_KINDS:
+        if T._is_mla(cfg, cfg.block_kind(i)):
+            ckv, krope = stream
+            stream = MLA.mla_cache_from_kv(cfg, ckv, krope, max_len=max_len)
+        elif cfg.block_kind(i) in T.ATTENTION_KINDS:
             k, v = stream
             stream = A.cache_from_kv(cfg, k, v, max_len=max_len,
                                      window=T._layer_window(cfg, i))

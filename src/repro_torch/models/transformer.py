@@ -1,11 +1,13 @@
 """Decoder stack: parameters and the training / prefill / decode forward.
 
 Counterpart of ``repro/models/transformer.py`` for decoders with unscanned
-layers whose blocks are attention ("attn" / "local_attn", the gqa family),
-RG-LRU ("rglru", Griffin) or xLSTM ("mlstm" / "slstm"). MoE, MLA and
-encoder-decoder models are not ported yet and raise. Models with recurrent
-blocks serve through the dense path (``registry.prefill`` /
-``decode_step``); training them is not ported yet and raises
+layers whose blocks are attention ("attn" / "local_attn": GQA, or MLA with
+``attention_kind="mla"``), RG-LRU ("rglru", Griffin) or xLSTM ("mlstm" /
+"slstm"), each followed by an MLP or, from layer ``first_dense_layers`` of
+an MoE model on, the routed-experts layer. Encoder-decoder models are not
+ported yet and raise. Models with recurrent blocks or MLA serve through
+the dense path (``registry.prefill`` / ``decode_step``); training them,
+and training MoE models, is not ported yet and raises
 (:func:`check_trainable`).
 
 Parameters are an ``nn.ModuleDict`` tree with the reference's key names and
@@ -27,6 +29,8 @@ from repro_torch import resolve_device
 from repro_torch.config import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import mla as MLA
+from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as RG
 from repro_torch.models import ssm as SSM
 
@@ -40,9 +44,11 @@ def block_kinds(cfg: ModelConfig) -> set:
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise for a configuration the port cannot run yet."""
-    if cfg.is_moe or cfg.is_encoder_decoder or cfg.attention_kind not in ("gqa", "none"):
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(f"{cfg.name}: encoder-decoder models are not ported yet")
+    if cfg.attention_kind not in ("gqa", "mla", "none"):
         raise NotImplementedError(
-            f"{cfg.name}: MoE, MLA and encoder-decoder models are not ported yet")
+            f"{cfg.name}: attention_kind={cfg.attention_kind!r} is not ported")
     unknown = block_kinds(cfg) - set(ATTENTION_KINDS + RECURRENT_KINDS)
     if unknown:
         raise ValueError(f"{cfg.name}: unknown block kinds {sorted(unknown)}")
@@ -56,6 +62,11 @@ def check_ported(cfg: ModelConfig) -> None:
 def check_trainable(cfg: ModelConfig) -> None:
     """Raise for a configuration the port can serve but not train yet."""
     check_ported(cfg)
+    if cfg.is_moe or cfg.attention_kind == "mla":
+        raise NotImplementedError(
+            f"{cfg.name}: training MoE and MLA models is not ported yet (ROADMAP.md queue 1: "
+            f"the aux losses through SimulatedRun and the Trainer, the backward through the "
+            f"dispatch); they serve (MLA through the dense path)")
     recurrent = block_kinds(cfg) & set(RECURRENT_KINDS)
     if recurrent:
         raise NotImplementedError(
@@ -71,7 +82,16 @@ def _layer_window(cfg: ModelConfig, layer_idx: int) -> int:
 def _layer_has_mlp(cfg: ModelConfig, kind: str) -> bool:
     if kind in ("mlstm", "slstm"):
         return False
-    return cfg.d_ff > 0
+    return cfg.d_ff > 0 or cfg.is_moe
+
+
+def _layer_uses_moe(cfg: ModelConfig, layer_idx: int) -> bool:
+    return cfg.is_moe and layer_idx >= cfg.first_dense_layers
+
+
+def _is_mla(cfg: ModelConfig, kind: str) -> bool:
+    """Whether a block of ``kind`` is MLA attention (latent K/V and cache)."""
+    return kind in ATTENTION_KINDS and cfg.attention_kind == "mla"
 
 
 # ---------------------------------------------------------------------------
@@ -83,13 +103,18 @@ _INIT_MIX = {"attn": A.init_attention, "local_attn": A.init_attention,
              "mlstm": SSM.init_mlstm, "slstm": SSM.init_slstm, "rglru": RG.init_rglru}
 
 
-def init_decoder_layer(gen: torch.Generator, cfg: ModelConfig, layer_idx: int):
+def init_decoder_layer(gen: torch.Generator, cfg: ModelConfig, layer_idx: int, *,
+                       training: bool = False):
+    """One layer's parameters in fp32, but for the routed experts, which are
+    made in their storage (``moe.init_moe``; ``training`` picks it)."""
     kind = cfg.block_kind(layer_idx)
     p: Dict[str, Any] = {"norm1": L.init_norm(gen, cfg),
-                         "mix": _INIT_MIX[kind](gen, cfg)}
+                         "mix": (MLA.init_mla if _is_mla(cfg, kind) else _INIT_MIX[kind])(
+                             gen, cfg)}
     if _layer_has_mlp(cfg, kind):
         p["norm2"] = L.init_norm(gen, cfg)
-        p["mlp"] = L.init_mlp(gen, cfg)
+        p["mlp"] = (MOE.init_moe(gen, cfg, training=training)
+                    if _layer_uses_moe(cfg, layer_idx) else L.init_mlp(gen, cfg))
     return p
 
 
@@ -98,14 +123,19 @@ def as_module(tree, cfg: ModelConfig, device=None, *, training: bool = False) ->
 
     Each leaf is cast to :func:`layers.stored_dtype` of its key and moved to
     ``device`` (default: where it lies); it requires grad when ``training``.
+    A dict of leaves is an ``nn.ParameterDict``; one that also holds dicts
+    (an MoE layer's ``shared`` MLP beside its ``router`` and experts) is one
+    too, with those dicts as its submodules, so the state-dict keys stay
+    the reference's pytree paths (``layers.1.mlp.shared.w_up``).
     """
     def build(node, name):
         if isinstance(node, dict):
-            if all(isinstance(v, torch.Tensor) for v in node.values()):
+            if any(isinstance(v, torch.Tensor) for v in node.values()):
                 return nn.ParameterDict({
-                    k: nn.Parameter(v.to(device=device,
-                                         dtype=L.stored_dtype(k, cfg, training=training)),
-                                    requires_grad=training)
+                    k: (nn.Parameter(v.to(device=device,
+                                          dtype=L.stored_dtype(k, cfg, training=training)),
+                                     requires_grad=training)
+                        if isinstance(v, torch.Tensor) else build(v, k))
                     for k, v in node.items()})
             return nn.ModuleDict({k: build(v, k) for k, v in node.items()})
         if isinstance(node, (list, tuple)):
@@ -132,7 +162,8 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     # coexist: a 14.8 B model's 59 GB of them would not fit on an 80 GB card
     parts = {"embed": as_module(L.init_embeddings(gen, cfg), cfg, training=training),
              "final_norm": as_module(L.init_norm(gen, cfg), cfg, training=training)}
-    parts["layers"] = nn.ModuleList([as_module(init_decoder_layer(gen, cfg, i), cfg,
+    parts["layers"] = nn.ModuleList([as_module(init_decoder_layer(gen, cfg, i,
+                                                                  training=training), cfg,
                                                training=training)
                                      for i in range(cfg.num_layers)])
     return nn.ModuleDict(parts)
@@ -150,7 +181,10 @@ def param_leaves(params: nn.Module):
     def walk(node, prefix):
         if isinstance(node, nn.ParameterDict):
             for k in sorted(node.keys()):
-                out.append((prefix + k, node[k]))
+                if isinstance(node[k], nn.Module):
+                    walk(node[k], prefix + k + ".")
+                else:
+                    out.append((prefix + k, node[k]))
         elif isinstance(node, nn.ModuleDict):
             for k in sorted(node.keys()):
                 walk(node[k], prefix + k + ".")
@@ -169,8 +203,10 @@ def with_leaves(template: nn.Module, tensors: Dict[str, torch.Tensor]) -> nn.Mod
     ``tensors`` (keyed by :func:`param_leaves` name), requiring no grad."""
     def build(node, prefix):
         if isinstance(node, nn.ParameterDict):
-            return nn.ParameterDict({k: nn.Parameter(tensors[prefix + k], requires_grad=False)
-                                     for k in node.keys()})
+            return nn.ParameterDict({
+                k: (build(node[k], prefix + k + ".") if isinstance(node[k], nn.Module)
+                    else nn.Parameter(tensors[prefix + k], requires_grad=False))
+                for k in node.keys()})
         if isinstance(node, nn.ModuleDict):
             return nn.ModuleDict({k: build(node[k], prefix + k + ".") for k in node.keys()})
         if isinstance(node, nn.ModuleList):
@@ -187,6 +223,8 @@ def with_leaves(template: nn.Module, tensors: Dict[str, torch.Tensor]) -> nn.Mod
 
 def _apply_mix(lp, x, cfg: ModelConfig, kind: str, *, window: int, state=None,
                return_kv: bool = False):
+    if _is_mla(cfg, kind):
+        return MLA.apply_mla(lp, x, cfg, cache=state, return_kv=return_kv)
     if kind in ATTENTION_KINDS:
         return A.apply_self_attention(lp, x, cfg, window=window, cache=state,
                                       return_kv=return_kv)
@@ -199,18 +237,25 @@ def _apply_mix(lp, x, cfg: ModelConfig, kind: str, *, window: int, state=None,
 
 def _decoder_layer_fwd(lp, x, cfg: ModelConfig, layer_idx: int, *, state=None,
                        return_kv: bool = False):
-    """One decoder layer. Returns (x, extra): an attention layer's (k, v)
-    pair or a recurrent layer's final state (with ``return_kv``), the
-    layer's new state (with ``state``: decode), else None."""
+    """One decoder layer. Returns (x, extra, aux): extra is an attention
+    layer's (k, v) pair, an MLA layer's (ckv, krope) latents or a recurrent
+    layer's final state (with ``return_kv``), the layer's new state (with
+    ``state``: decode), else None; aux is an MoE layer's stats
+    (``moe.apply_moe``), else None."""
     h = L.apply_norm(lp["norm1"], x, cfg)
     mix_out, extra = _apply_mix(lp["mix"], h, cfg, cfg.block_kind(layer_idx),
                                 window=_layer_window(cfg, layer_idx), state=state,
                                 return_kv=return_kv)
     x = x + mix_out
+    aux = None
     if "mlp" in lp:
         h = L.apply_norm(lp["norm2"], x, cfg)
-        x = x + L.apply_mlp(lp["mlp"], h, cfg)
-    return x, extra
+        if _layer_uses_moe(cfg, layer_idx):
+            mlp_out, aux = MOE.apply_moe(lp["mlp"], h, cfg)
+        else:
+            mlp_out = L.apply_mlp(lp["mlp"], h, cfg)
+        x = x + mlp_out
+    return x, extra, aux
 
 
 def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
@@ -218,24 +263,28 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
     """Training/prefill forward. batch: {"tokens": (B, S) integer}.
 
     Returns (logits (B, S, V) fp32, aux) where aux = {"moe_aux", "moe_z"}
-    (zeros: no MoE layers) plus "kv" when ``collect_kv``: per layer, an
-    attention layer's (k, v) streams or a recurrent layer's final state.
+    (the MoE layers' load-balance and z losses summed over the layers; zeros
+    without MoE layers) plus "kv" when ``collect_kv``: per layer, an
+    attention layer's (k, v) streams, an MLA layer's latents or a recurrent
+    layer's final state.
     ``last_only``: the logits of the last position alone, (B, 1, V) (a
     serving prefill, whose other rows nobody reads).
     """
     check_ported(cfg)
     x = L.embed_tokens(params["embed"], batch["tokens"], cfg)
+    moe_aux = moe_z = torch.zeros((), device=x.device)
     kv_streams = []
     for i, lp in enumerate(params["layers"]):
-        x, extra = _decoder_layer_fwd(lp, x, cfg, i, return_kv=collect_kv)
+        x, extra, stats = _decoder_layer_fwd(lp, x, cfg, i, return_kv=collect_kv)
+        if stats is not None:
+            moe_aux, moe_z = moe_aux + stats["aux_loss"], moe_z + stats["z_loss"]
         if collect_kv:
             kv_streams.append(extra)
     if last_only:
         x = x[:, -1:].contiguous()
     x = L.apply_norm(params["final_norm"], x, cfg)
     logits = L.lm_logits(params["embed"], x, cfg)
-    zero = torch.zeros((), device=logits.device)
-    aux = {"moe_aux": zero, "moe_z": zero}
+    aux = {"moe_aux": moe_aux, "moe_z": moe_z}
     if collect_kv:
         aux["kv"] = kv_streams
     return logits, aux

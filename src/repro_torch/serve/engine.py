@@ -298,7 +298,8 @@ def generate(params, cfg: ModelConfig, prompts, num_tokens: int, *,
 
     Paged-supported architectures go through the continuous-batching engine
     (one request per prompt row; ``info["path"] == "paged"``). The others
-    (models with recurrent blocks) take the dense path of the reference
+    (models with recurrent blocks or MLA attention) take the dense path of
+    the reference
     (``repro/serve/engine.py:328-356``): a static batch with lockstep
     positions through ``build_serve_steps``, one prefill of all the rows,
     then a decode step a token, sampled on the host from a numpy

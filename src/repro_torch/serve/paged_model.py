@@ -9,7 +9,9 @@ Counterpart of ``repro/serve/paged_model.py``:
   ``context_lens``.
 - :func:`paged_decode_step` feeds one token per slot at per-sequence
   positions (RoPE at each slot's own position); its attention is the paged
-  decode kernel gathering through each sequence's block table.
+  decode kernel gathering through each sequence's block table. An MoE
+  layer routes every slot's token, an empty slot's too, as the reference
+  does, so the capacity is that of ``max_slots`` tokens.
 
 Matmul weights and the learned positions are cast to ``cfg.dtype`` at use
 (``layers.cast``), as the reference does, so either parameter storage
@@ -29,6 +31,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import transformer as T
 from repro_torch.serve import kv_cache as KC
 
@@ -107,7 +110,11 @@ def paged_decode_step(params, cfg: ModelConfig, pools, tokens, positions,
         x = x + (out.reshape(B, H * hd) @ wo)[:, None]
         if "mlp" in lp:
             h = L.apply_norm(lp["norm2"], x, cfg)
-            x = x + L.apply_mlp(lp["mlp"], h, cfg)
+            if T._layer_uses_moe(cfg, li):  # every slot routes, empty ones too
+                mlp_out, _ = MOE.apply_moe(lp["mlp"], h, cfg)
+            else:
+                mlp_out = L.apply_mlp(lp["mlp"], h, cfg)
+            x = x + mlp_out
 
     x = L.apply_norm(params["final_norm"], x, cfg)
     logits = L.lm_logits(params["embed"], x, cfg)[:, 0]  # (B, V)

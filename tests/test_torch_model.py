@@ -72,7 +72,8 @@ def test_gpt2_configs_equal_reference(name):
 def test_get_config_refuses_unported_architectures():
     ported = set(pt_configs.list_architectures())
     assert ported == set(GPT2) | {"qwen3-1.7b", "minicpm-2b", "granite-8b", "qwen3-14b",
-                                  "recurrentgemma-9b", "xlstm-1.3b"}
+                                  "recurrentgemma-9b", "xlstm-1.3b", "deepseek-v2-236b",
+                                  "kimi-k2-1t-a32b"}
     for name in set(jax_configs.list_architectures()) - ported:
         with pytest.raises(NotImplementedError):
             pt_configs.get_config(name)

@@ -290,8 +290,8 @@ def test_generate_greedy_and_unported_paths():
     mcfg = cfg.replace(block_pattern=("mlstm",))
     out_m, info_m = generate(PR.init_params(mcfg, seed=0, device="cpu"), mcfg, prompts, 2)
     assert info_m["path"] == "dense" and out_m.shape == (2, 2) and out_m.dtype == np.int32
-    with pytest.raises(NotImplementedError):  # MLA is not ported
-        PR.init_params(cfg.replace(attention_kind="mla"), device="cpu")
+    with pytest.raises(NotImplementedError):  # encoder-decoder is not ported
+        PR.init_params(cfg.replace(is_encoder_decoder=True, encoder_layers=1), device="cpu")
 
 
 # ===========================================================================
