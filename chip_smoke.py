@@ -32,10 +32,15 @@ and no result line:
    the CUDA cores through ``FlashAttentionFn``, and
    decode over its dense cache viewed as a pool (4 slots at contexts
    513-544, a full ring of 2048), repeated to the bit and timed; at
-   Kimi-K2's GQA 8:1, hd 112, bf16 (the CUDA-core forward: 224-byte rows
-   are not a multiple of the 128-byte TMA swizzle): the forward at S 512
-   and a ragged 333, each run twice to the same bits, timed at one
-   prompt of 512 and at 4 beside SDPA, and decode at 4 slots over contexts
+   Kimi-K2's GQA 8:1, hd 112, bf16 on the tensor-core route
+   (``flash_attention_tc.cu``'s hd-128 design on a tile padded to 128
+   columns): the forward at S 512 and a ragged 333, each run twice to the
+   same bits, its edges (S 1, ragged 77, window 64, softcap 30,
+   non-causal, MHA, GQA 2:1), the store's column limit (launched into a
+   sentinel-filled buffer one head row longer than the output: every
+   element written, nothing past the last head's column 111), timed at one
+   prompt of 512 and at 4 beside the CUDA-core kernel that ran it before
+   and SDPA, and decode at 4 slots over contexts
    513-544 with bf16 and int8 pools; quantize at its KV rows (block 112,
    14 vectors: the scalar kernel), bit for bit and timed;
    quantize at its KV rows (block 128, a prefill layer's
@@ -64,8 +69,8 @@ and no result line:
    of the same K/V; the two stages of the decode kernels and of the RMSNorm
    backward are timed apart once (``torch.profiler``), and the backward
    beside ``torch.add`` moving the same bytes.
-   Attention takes two routes: the forward of bf16 at head_dim 64, 128
-   and 256 the tensor-core kernels (``flash_attention_tc.cu``, at 256
+   Attention takes two routes: the forward of bf16 at head_dim 64, 112,
+   128 and 256 the tensor-core kernels (``flash_attention_tc.cu``, at 256
    ``flash_attention_tc256.cu``), the backward of bf16 at 64 and 128
    ``flash_attention_bwd_tc.cu``, every other case the CUDA-core ones;
    each case's line names the route its launches took (from the
@@ -157,8 +162,8 @@ and no result line:
    it reads (the capacity formulation runs every expert). Launches exact:
    rmsnorm 4 x layers + 1 a forward (DeepSeek: norm1, norm2, q_norm,
    kv_norm) and no attention kernel; Kimi: flash layers a prefill (the
-   CUDA-core forward), paged decode layers x 31, rmsnorm 2 x layers + 1 a
-   forward.
+   hd-112 tensor-core forward, ``flash_attention_tc112``), paged decode
+   layers x 31, rmsnorm 2 x layers + 1 a forward.
 5. ``breakdown``: device time by kernel group (``torch.profiler``) beside
    the host's wall time, for one 512-token prefill and for decode steps
    over 4 slots of the bf16 serve path, and the same decode steps with
@@ -204,6 +209,11 @@ and no result line:
    relative RMS; one flash launch a prefill, on that kernel, none in the
    plain run; the plain attention in another fp32 order reported as the
    floor.
+6d''. ``flash_tc112_vs_plain``: the same check of the hd-112 tensor-core
+   forward with Kimi-K2 at full width and 1 layer, its leading dense one
+   (GQA 64 / 8 at hd 112, the 18 432-wide SwiGLU; 2.86 B parameters), at
+   4 x 512 and 1 x 512. The MoE layer is left out: a bf16 near-tie in the
+   top-8 of 384 experts could route two correct attentions apart.
 6e. ``families_vs_cpu``: the three families at full width, 2 layers,
    fp32, the same seeded weights on the card and on the CPU: 4 prompts of
    64 tokens, their prefills and 8 decode steps over the 4 slots; every
@@ -320,10 +330,10 @@ and no result line:
    train_compressed, train_qwen3, train_minicpm,
    train_elastic and, summed over ranks, train_dist and train_dist_auto;
    for the CUDA-core attention forward and backward, which those bf16
-   runs take only at Kimi-K2's hd 112 (serve_moe's prefills), those and
-   their launches in the fp32 card-vs-CPU phases and the Trainer's fp32
-   cases; the hd-256 tensor-core
-   forward's are RecurrentGemma's prefills in serve_recurrent), max error,
+   runs no longer take, their launches in the fp32 card-vs-CPU phases and
+   the Trainer's fp32 cases; the hd-112 tensor-core forward's are Kimi-K2's
+   prefills in serve_moe, the hd-256 one's RecurrentGemma's prefills in
+   serve_recurrent), max error,
    kernel / plain / library times and
    the bound at the main path's shape (bytes over 3.35 TB/s and operations
    over the peak rate of the inputs' type, the larger of the two; H100 SXM
@@ -351,7 +361,7 @@ the build, and print their own JSON lines:
                                            # decode checks; 4e with DeepSeek-V2
                                            # at 8 layers (60.7 GB) and Kimi-K2
                                            # with bf16 and int8 KV (the scalar
-                                           # quantize route); 6g
+                                           # quantize route); 6d''; 6g
 """
 
 from __future__ import annotations
@@ -723,13 +733,13 @@ def _route_of(FK, tc_before: int, launches: int, what: str) -> str:
 def tc_rule(dtype: str, hd: int) -> bool:
     """The flash wrapper's forward routing rule, restated so that the launch
     expectations do not read it from the code they check: bf16 at head_dim
-    64, 128 or 256 takes the tensor-core forward."""
-    return dtype == "bfloat16" and hd in (64, 128, 256)
+    64, 112, 128 or 256 takes the tensor-core forward."""
+    return dtype == "bfloat16" and hd in (64, 112, 128, 256)
 
 
 def tc_bwd_rule(dtype: str, hd: int) -> bool:
     """The backward's rule, restated the same way: bf16 at head_dim 64 or
-    128 takes the tensor-core backward (at 256 the CUDA-core one)."""
+    128 takes the tensor-core backward (at 112 and 256 the CUDA-core one)."""
     return dtype == "bfloat16" and hd in (64, 128)
 
 
@@ -768,19 +778,20 @@ def _core_bwd(torch, q, k, v, out, lse, do):
 
 
 # Attention cases: name, B, S, H, Hkv, hd, dtype, causal, window, softcap.
-# bf16 at head_dim 64, 128 and 256 takes the tensor-core forward; those
-# cases run GQA 2:1, 4:1 and 5:1, MQA, MHA, window 64, softcap 30,
-# non-causal and ragged S (1, 77, 200, 257, 300, 333, 700) on it. The rest
-# take the CUDA-core route, as does the backward at head_dim 256.
+# bf16 at head_dim 64, 112, 128 and 256 takes the tensor-core forward;
+# those cases run GQA 2:1, 4:1, 5:1 and 8:1, MQA, MHA, window 64, softcap
+# 30, non-causal and ragged S (1, 77, 200, 257, 300, 333, 700) on it. The
+# rest take the CUDA-core route, as does the backward at head_dim 112 and
+# 256.
 FIVE_TO_ONE = ("qwen3_14b_gqa5_s512_bf16", "qwen3_14b_gqa5_s333_bf16")
 # RecurrentGemma-9B's local attention: MQA 16:1 at hd 256 in bf16 (the
 # tensor-core forward of flash_attention_tc256.cu), window 2048, at a
 # prompt of 512 (the window as causal) and of 2304 (the window active)
 RECURRENT_FLASH = ("recurrentgemma_mqa16_hd256_s512_w2048_bf16",
                    "recurrentgemma_mqa16_hd256_s2304_w2048_bf16")
-# Kimi-K2's attention: GQA 8:1 at hd 112 in bf16 (the CUDA-core forward:
-# 224-byte rows are not a multiple of the 128-byte TMA swizzle), at a
-# prompt of 512 and a ragged one
+# Kimi-K2's attention: GQA 8:1 at hd 112 in bf16 (the tensor-core forward
+# of flash_attention_tc.cu on a tile padded to 128 columns), at a prompt of
+# 512 and a ragged one
 KIMI_FLASH = ("kimi_k2_gqa8_hd112_s512_bf16", "kimi_k2_gqa8_hd112_s333_bf16")
 REPEATED_FLASH = FIVE_TO_ONE + RECURRENT_FLASH + KIMI_FLASH  # the same bits twice
 
@@ -822,7 +833,23 @@ def _flash_cases(torch):
             (KIMI_FLASH[0], 1, 512, 64, 8, 112, bf, True, 0, 0.0),
             (KIMI_FLASH[1], 1, 333, 64, 8, 112, bf, True, 0, 0.0),
         ],
+        # the hd-112 forward's edges (the padded tile): one query row, a
+        # ragged S, a window across key tiles, softcap, non-causal, MHA,
+        # GQA 2:1 at two prompts of 512
+        "tc112": [
+            ("tc112_s1", 2, 1, 4, 2, 112, bf, True, 0, 0.0),
+            ("tc112_gqa8_s77", 1, 77, 16, 2, 112, bf, True, 0, 0.0),
+            ("tc112_window64_s300", 1, 300, 8, 1, 112, bf, True, 64, 0.0),
+            ("tc112_softcap30_s257", 1, 257, 4, 2, 112, bf, True, 0, 30.0),
+            ("tc112_noncausal_s200", 2, 200, 4, 2, 112, bf, False, 0, 0.0),
+            ("tc112_mha_s200", 1, 200, 4, 4, 112, bf, True, 0, 0.0),
+            ("tc112_gqa2_s512", 2, 512, 8, 4, 112, bf, True, 0, 0.0),
+        ],
         "hd256_bwd": hd256_bwd,
+        # bf16 at hd 112 (Kimi-K2's GQA 8:1) through FlashAttentionFn: the
+        # forward and its log-sum-exp on the tensor cores, the backward on
+        # the CUDA cores
+        "hd112_bwd": [("hd112_gqa8_bf16", 1, 77, 16, 2, 112, bf, True, 0, 0.0)],
         # the hd-256 forward's edges: two heads a block where H / Hkv is
         # even, one where it is odd (MHA)
         "tc256": [
@@ -845,6 +872,46 @@ def _flash_cases(torch):
             ("hd40_s1_f32", 3, 1, 4, 4, 40, f32, True, 0, 0.0),
         ],
     }
+
+
+STORE_SENTINEL = 512.0  # no attention output of randn values reaches it
+
+
+def _check_padded_store(torch, FK, rand):
+    """The hd-112 store's column limit. The tensor-core forward, launched
+    through its C entry point into the front of a buffer one head row
+    longer than the (B, S, H, 112) output and filled with a sentinel, must
+    write every element of the output and nothing past it: head h + 1's
+    columns begin right after head h's column 111, and the last head of the
+    last row ends the tensor, so a store of the padded tile's columns
+    112-127 would land in the next head or past the end. Its output must be
+    the wrapper's bit for bit and within the bf16 bounds of the plain
+    version. Emits one line; returns it."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    B, S, H, Hkv, hd = 2, 77, 8, 1, 112
+    bf = torch.bfloat16
+    q, k, v = rand((B, S, H, hd), bf), rand((B, S, Hkv, hd), bf), rand((B, S, Hkv, hd), bf)
+    n = B * S * H * hd
+    buf = torch.full((n + hd,), STORE_SENTINEL, dtype=bf, device="cuda")
+    out = buf[:n].view(B, S, H, hd)
+    err = _build.lib().flash_attention_fwd_tc_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, B, S, H, Hkv, hd, 1, 0,
+        0.0, 1.0 / math.sqrt(hd), q.device.index, _build.stream_ptr(q.device))
+    _build.check(err, "flash_attention (tensor cores, hd 112)")
+    ref = flash_attention_ref(q, k, v, causal=True)
+    line = {"phase": "kernels", "kernel": "flash_attention", "case": "tc112_store_column_limit",
+            "B": B, "S": S, "H": H, "Hkv": Hkv, "hd": hd,
+            "tail_untouched": bool((buf[n:] == STORE_SENTINEL).all()),
+            "every_element_written": not bool((out == STORE_SENTINEL).any()),
+            "equal_to_wrapper": torch.equal(out, FK.flash_attention(q, k, v)),
+            "max_abs_err": max_err(out, ref), "tol": BF16_MAX_REL, "rel_rms_err": rel_rms(out, ref)}
+    emit(line)
+    if not (line["tail_untouched"] and line["every_element_written"] and line["equal_to_wrapper"]
+            and line["max_abs_err"] <= BF16_MAX_REL and line["rel_rms_err"] <= BF16_RMS_REL):
+        raise AssertionError(f"flash tc112 store: {line}")
+    return line
 
 
 def check_flash(torch, timer, results):
@@ -873,23 +940,25 @@ def check_flash(torch, timer, results):
         *groups["recurrent"],
         *groups["tc256"],
         *groups["kimi"],
+        *groups["tc112"],
         ("xl_s512_f32", 1, 512, 25, 25, 64, f32, True, 0, 0.0),
         ("hd256_f32", 1, 77, 2, 1, 256, f32, True, 0, 0.0),
         ("hd40_f32", 1, 45, 4, 2, 40, f32, True, 16, 10.0),
         *groups["core"],
     ]
     # the largest error of each kernel: tensor cores at hd 64 / 128, at hd
-    # 256, CUDA cores
-    worst = {"tensor_cores": 0.0, "tensor_cores_hd256": 0.0, "cuda_cores": 0.0}
+    # 112, at hd 256, CUDA cores
+    worst = {"tensor_cores": 0.0, "tensor_cores_hd112": 0.0, "tensor_cores_hd256": 0.0,
+             "cuda_cores": 0.0}
     for name, B, S, H, Hkv, hd, dt, causal, window, softcap in cases:
         opts = dict(causal=causal, window=window, softcap=softcap)
         q, k, v = rand((B, S, H, hd), dt), rand((B, S, Hkv, hd), dt), rand((B, S, Hkv, hd), dt)
-        tc0, tc256 = FK.tc_launches, FK.tc256_launches
+        tc0, tc112, tc256 = FK.tc_launches, FK.tc112_launches, FK.tc256_launches
         out = FK.flash_attention(q, k, v, **opts)
         # the training forward: the same kernel, writing the log-sum-exp too
         out_t, lse = FK._launch_fwd(q, k, v, causal, window, softcap, want_lse=True)
         route = _route_of(FK, tc0, 2, "tc_launches")
-        hd256 = FK.tc256_launches - tc256
+        hd112, hd256 = FK.tc112_launches - tc112, FK.tc256_launches - tc256
         ref, lse_ref = flash_attention_fwd_ref(q, k, v, **opts)
         torch.cuda.synchronize()
         err, rms = max_err(out, ref), rel_rms(out, ref)
@@ -909,20 +978,22 @@ def check_flash(torch, timer, results):
             ok = ok and rms <= BF16_RMS_REL
         if (route == "tensor_cores") != tc_rule(str(dt).replace("torch.", ""), hd):
             raise AssertionError(f"flash {name}: took the {route} route")
-        if hd256 != (2 if route == "tensor_cores" and hd == 256 else 0):
-            raise AssertionError(f"flash {name}: {hd256} launches of the hd-256 kernel")
+        for n, at in ((hd112, 112), (hd256, 256)):
+            if n != (2 if route == "tensor_cores" and hd == at else 0):
+                raise AssertionError(f"flash {name}: {n} launches counted at hd {at}")
         if not ok:
             raise AssertionError(f"flash {name}: max err {err} (limit {tol}), rel rms "
                                  f"{rms}, lse err {lse_err} (limit {LSE_TOL}), output "
                                  f"with lse equal: {same_out}")
-        key = route + ("_hd256" if hd256 else "")
+        key = route + ("_hd112" if hd112 else "_hd256" if hd256 else "")
         worst[key] = max(worst[key], err)
+    padded_store = _check_padded_store(torch, FK, rand)
 
-    def timed(B, S, H, Hkv, hd, want_lse, core=True):
+    def timed(B, S, H, Hkv, hd, want_lse):
         """Tensor-core, CUDA-core, plain and SDPA times of the causal forward
         at one shape, and its bound (inputs read and outputs written once;
-        QK^T and PV over the unmasked pairs). ``ms`` is the wrapper's route;
-        ``core=False`` where that route is the CUDA-core kernel already."""
+        QK^T and PV over the unmasked pairs). ``ms`` is the wrapper's route,
+        ``cuda_cores_ms`` the CUDA-core kernel through its C entry point."""
         q = rand((B, S, H, hd), bf)
         k, v = (rand((B, S, Hkv, hd), bf) for _ in range(2))
         lse = torch.empty((B, H, S), dtype=torch.float32, device="cuda") if want_lse else None
@@ -930,8 +1001,7 @@ def check_flash(torch, timer, results):
             "ms": timer.ms(lambda: FK._launch_fwd(q, k, v, True, 0, 0.0, want_lse=want_lse)),
             "plain_ms": timer.ms(lambda: (flash_attention_fwd_ref if want_lse else
                                           flash_attention_ref)(q, k, v, causal=True))}
-        if core:
-            out["cuda_cores_ms"] = timer.ms(lambda: _core_fwd(torch, q, k, v, lse))
+        out["cuda_cores_ms"] = timer.ms(lambda: _core_fwd(torch, q, k, v, lse))
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         out["library_ms"] = timer.ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=Hkv != H))
@@ -949,15 +1019,16 @@ def check_flash(torch, timer, results):
                                **timed(1, 512, 32, 8, 128, False)},
            "qwen3_14b_gqa5": {"shape": "bf16 B=1 S=512 H=40 Hkv=8 hd=128 causal",
                               **timed(1, 512, 40, 8, 128, False)}}
-    # Kimi-K2's prefill layer (GQA 8:1, hd 112, the CUDA-core route): one
-    # prompt as the paged engine prefills it, and 4 prompts at once
-    kimi = {"shape": "bf16 B=4 S=512 H=64 Hkv=8 hd=112 causal (the CUDA-core kernel)",
-            **timed(4, 512, 64, 8, 112, False, core=False),
-            "serve_prefill_b1": {"shape": "bf16 B=1 S=512 H=64 Hkv=8 hd=112 causal (one "
-                                          "prefill layer of serve_moe)",
-                                 **timed(1, 512, 64, 8, 112, False, core=False)}}
-    for t in (kimi, kimi["serve_prefill_b1"]):
+    # Kimi-K2's prefill layer (GQA 8:1, hd 112, the padded tile): one prompt
+    # as the paged engine prefills it, and 4 prompts at once; the bound
+    # counts the work at hd 112, not the padded 128
+    kimi = {"shape": "bf16 B=1 S=512 H=64 Hkv=8 hd=112 causal (one prefill layer of "
+                     "serve_moe)", **timed(1, 512, 64, 8, 112, False),
+            "batch_4": {"shape": "bf16 B=4 S=512 H=64 Hkv=8 hd=112 causal",
+                        **timed(4, 512, 64, 8, 112, False)}}
+    for t in (kimi, kimi["batch_4"]):
         t["bound_share"] = t["bound_ms"] / t["ms"]
+        t["cuda_cores_bound_share"] = t["bound_ms"] / t["cuda_cores_ms"]
         t["over_library"] = t["ms"] / t["library_ms"]
     def timed_window(B, S, H, Hkv, hd, window):
         """The windowed causal forward through the wrapper (the tensor-core
@@ -1019,6 +1090,21 @@ def check_flash(torch, timer, results):
         "qwen3_train_shape": {"shape": "bf16 B=2 S=1024 H=16 Hkv=8 hd=128 causal, with "
                                        "lse (one training layer)", **q3_t},
         "families": fam}
+    results["flash_attention_tc112"] = {
+        "name": "flash_attention_tc112", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:42",
+        "route_note": "the tensor-core forward at bf16 hd 112 (Kimi-K2's prefill): the hd-128 "
+                      "design on a tile padded to 128 columns, through "
+                      "flash_attention_fwd_tc_launch; cuda_cores_ms is the CUDA-core kernel "
+                      "that ran this shape before, timed in the same call",
+        "shape": kimi["shape"], "max_abs_err": worst["tensor_cores_hd112"],
+        "ms": kimi["ms"], "kernel_ms": kimi["ms"], "plain_ms": kimi["plain_ms"],
+        "bound_ms": kimi["bound_ms"], "bound_by": kimi["bound_by"],
+        "bound_share": kimi["bound_share"], "cuda_cores_ms": kimi["cuda_cores_ms"],
+        "library_ms": kimi["library_ms"], "library": library + " (is_causal, enable_gqa)",
+        "over_library": kimi["over_library"], "batch_4": kimi["batch_4"],
+        "store_column_limit": padded_store}
     main, act = rg["serve_prefill"], rg["window_active"]
     results["flash_attention_tc256"] = {
         "name": "flash_attention_tc256", "route": "cuda",
@@ -1039,12 +1125,13 @@ def check_flash(torch, timer, results):
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:42",
-        "route_note": "the CUDA-core kernel: fp32 and bf16 head_dims other than 64 / 128 / "
-                      "256, launched on the main path by the fp32 phases; the top-level "
-                      "numbers time it through its C entry point at RecurrentGemma-9B's "
-                      "hd-256 prefill, which it ran until the hd-256 tensor-core kernel, "
-                      "and the GPT-2 XL and Qwen3 entries at bf16 shapes the tensor-core "
-                      "kernel takes",
+        "route_note": "the CUDA-core kernel: fp32 and bf16 head_dims other than 64 / 112 / "
+                      "128 / 256, launched on the main path by the fp32 phases and no bf16 "
+                      "run; the top-level numbers time it through its C entry point at "
+                      "RecurrentGemma-9B's hd-256 prefill, which it ran until the hd-256 "
+                      "tensor-core kernel, kimi_k2_hd112 at Kimi-K2's prefill, which it ran "
+                      "until the hd-112 one, and the GPT-2 XL and Qwen3 entries at bf16 "
+                      "shapes the tensor-core kernel takes",
         "shape": main["shape"], "max_abs_err": worst["cuda_cores"], "ms": main["cuda_cores_ms"],
         "kernel_ms": main["cuda_cores_ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
@@ -1061,7 +1148,11 @@ def check_flash(torch, timer, results):
                   "ms": q3["cuda_cores_ms"], "plain_ms": q3["plain_ms"],
                   "bound_ms": q3["bound_ms"], "bound_by": q3["bound_by"],
                   "library_ms": q3["library_ms"]},
-        "kimi_k2_hd112": kimi}
+        "kimi_k2_hd112": {
+            k: {"shape": t["shape"], "ms": t["cuda_cores_ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "bound_share": t["cuda_cores_bound_share"], "library_ms": t["library_ms"]}
+            for k, t in (("serve_prefill_b1", kimi), ("batch_4", kimi["batch_4"]))}}
 
 
 def _paged_inputs(torch, g, *, B, H, Hkv, hd, bs, cls, dt, quantized, T=None):
@@ -1304,7 +1395,7 @@ def check_decode(torch, timer, results):
                                     ("qwen3_14b_gqa5", 40, 8, 128))}
     fam["kimi_k2_gqa8_hd112"] = {
         "shape": "bf16 4 slots, contexts 513-544, bs 16, H=64 Hkv=8 hd 112 (one decode layer "
-                 "of serve_moe)", **timed(KIMI_CLS, 64, 8, 112, 34),
+                 "of serve_moe)", **timed(KIMI_CLS, 64, 8, 112, 34, sdpa=True),
         "int8_pools_ms": timed(KIMI_CLS, 64, 8, 112, 34, quantized=True)["ms"]}
     fam["recurrentgemma_dense_view"] = {
         "shape": "bf16 4 slots of a dense cache of 544 viewed as a pool, contexts 513-544, "
@@ -1599,7 +1690,9 @@ def check_rmsnorm(torch, timer, results):
                                               lambda: RK._launch_bwd(x, s, rstd, dy),
                                               RMSNORM_BWD_STAGES),
                         "same_bytes_add_ms": timer.ms(lambda: torch.add(x, dy, out=same))}
-        if key == "train_qk":  # the plain version and the library beside it
+        # the plain version and the library beside it (the qk-norm and the
+        # MoE widths; the block norm below, with its backward)
+        if key == "train_qk" or key.startswith(("deepseek", "kimi")):
             fwd[key].update(plain_ms=timer.ms(lambda: rmsnorm_ref(x, s, eps=eps)),
                             library_ms=timer.ms(
                                 lambda: F.rms_norm(x.float(), (D,), s, eps).to(x.dtype)))
@@ -1672,6 +1765,7 @@ def check_flash_bwd(torch, timer, results):
         *groups["tc"],
         *groups["gqa5"],
         *groups["hd256_bwd"],
+        *groups["hd112_bwd"],
         ("hd40_window_softcap_f32", 1, 45, 4, 2, 40, f32, True, 16, 10.0),
         ("xl_s300_f32", 1, 300, 25, 25, 64, f32, True, 0, 0.0),
         ("hd256_gqa_f32", 1, 77, 4, 2, 256, f32, True, 0, 0.0),
@@ -2456,6 +2550,7 @@ def serve_moe(torch, counters, arch: str, layers: int, *, int8_kv: bool = False)
     import numpy as np
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FK
     from repro_torch.models import registry as R
     from repro_torch.serve import PagedCacheConfig, generate, paged_supported
 
@@ -2483,12 +2578,16 @@ def serve_moe(torch, counters, arch: str, layers: int, *, int8_kv: bool = False)
     torch.cuda.synchronize()
     for c in counters.values():
         c.launches = 0
+    FK.tc112_launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out, info = generate(params, cfg, prompts, N, pcfg=pcfg(S, N))
     t_end = time.perf_counter()
     launches = {k: c.launches for k, c in counters.items()}
+    launches["flash_attention_tc112"] = FK.tc112_launches
     L = cfg.num_layers
+    hd = cfg.resolved_head_dim
+    tc = tc_rule(cfg.dtype, hd)
     if paged:
         eng = info["engine"]
         res = sorted(eng.finished, key=lambda r: r.uid)
@@ -2498,15 +2597,18 @@ def serve_moe(torch, counters, arch: str, layers: int, *, int8_kv: bool = False)
         prefills, steps = eng.stats["prefills"], eng.stats["decode_steps"]
         forwards = prefills + steps
         expect = {"flash_attention": prefills * L, "paged_decode_attention": steps * L,
-                  "quantize_blockwise": 2 * L * forwards if int8_kv else 0}
+                  "quantize_blockwise": 2 * L * forwards if int8_kv else 0,
+                  "flash_attention_tc": prefills * L if tc else 0,
+                  "flash_attention_tc112": prefills * L if tc and hd == 112 else 0}
         ttft_line = {"ttft_ms": ttft[-1], "ttft_ms_first": ttft[0]}
     else:
         times = info["token_times"]
         dec = sorted(1e3 * (b - a) for a, b in zip(times[1:], times[2:]))
         prefills, steps, forwards = 1, len(dec), N
-        expect = {"flash_attention": 0, "paged_decode_attention": 0, "quantize_blockwise": 0}
+        expect = {"flash_attention": 0, "paged_decode_attention": 0, "quantize_blockwise": 0,
+                  "flash_attention_tc": 0, "flash_attention_tc112": 0}
         ttft_line = {"ttft_ms": 1e3 * (times[1] - times[0])}
-    expect.update({"flash_attention_bwd": 0, "flash_attention_tc": 0,
+    expect.update({"flash_attention_bwd": 0,
                    "flash_attention_bwd_tc": 0, "dequantize_blockwise": 0, "pier_update": 0,
                    "rmsnorm": forwards * norm_launches(cfg), "rmsnorm_bwd": 0})
     expect = {k: expect[k] for k in launches}
@@ -3194,28 +3296,26 @@ def flash_tc_vs_plain(torch, counters):
         free_cuda(torch)
 
 
-def flash_tc256_vs_plain(torch, counters):
-    """RecurrentGemma-9B at full width with 3 layers (one rglru / rglru /
-    local_attn cycle), bf16, serving storage, random seeded weights: one
-    prefill of 4 x 512 and one of 1 x 2304 (its window of 2048 active)
-    through the hd-256 tensor-core flash kernel, against the same prefills
-    with ``kops.flash_attention`` swapped for the plain attention
-    (``flash_attention_ref``), as ``flash_tc_vs_plain`` swaps it: the
-    bf16 end-to-end check of that kernel, which the fp32 ``recurrent_vs_cpu``
-    does not take. Every position's logits within BF16_MAX_REL of max
-    |logit| and within a relative RMS of BF16_RMS_REL; one flash launch a
-    prefill, on the hd-256 tensor-core kernel, and none in the plain run.
+def _prefill_vs_plain(torch, counters, phase: str, cfg, shapes, kernel: str, **extra):
+    """``cfg`` in bf16 serving storage, random seeded weights: one prefill
+    (``registry.prefill``) of each (B, S) in ``shapes`` through the flash
+    kernel, against the same prefill with ``kops.flash_attention`` swapped
+    for the plain attention (``flash_attention_ref``), as
+    ``flash_tc_vs_plain`` swaps it. Every position's logits within
+    BF16_MAX_REL of max |logit| and within a relative RMS of BF16_RMS_REL;
+    one flash launch an attention layer, each on the tensor-core kernel
+    whose counter is ``FK.<kernel>_launches``, and none in the plain run.
     Reported beside it, not checked: the same distance for the plain
-    attention in another fp32 order (``_plain_reordered``), the floor."""
-    from repro_torch.configs import get_config
+    attention in another fp32 order (``_plain_reordered``), the floor. One
+    line per shape, ``extra`` added to it."""
     from repro_torch.kernels import flash_attention as FK
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.ref import flash_attention_ref
     from repro_torch.models import registry as R
 
     t0 = time.perf_counter()
-    cfg = get_config("recurrentgemma-9b").replace(num_layers=3)
     params = R.init_params(cfg, seed=0, device="cuda")
+    layers = _kind_count(cfg, "attn") + _kind_count(cfg, "local_attn")
 
     def prefill(tokens, attention):
         kernel_attention = kops.flash_attention
@@ -3223,17 +3323,17 @@ def flash_tc256_vs_plain(torch, counters):
         try:
             for c in counters.values():
                 c.launches = 0
-            FK.tc256_launches = 0
+            setattr(FK, kernel + "_launches", 0)
             with torch.no_grad():
                 logits, _ = R.prefill(params, cfg, {"tokens": tokens}, max_len=tokens.shape[1])
             torch.cuda.synchronize()
         finally:
             kops.flash_attention = kernel_attention
         launches = {k: counters[k].launches for k in ("flash_attention", "flash_attention_tc")}
-        launches["flash_attention_tc256"] = FK.tc256_launches
+        launches["flash_attention_" + kernel] = getattr(FK, kernel + "_launches")
         return logits, launches
 
-    for B, S in ((4, 512), (1, 2304)):
+    for B, S in shapes:
         toks = torch.randint(0, cfg.vocab_size, (B, S), dtype=torch.int32,
                              generator=torch.Generator().manual_seed(31)).cuda()
         got, l_k = prefill(toks, kops.flash_attention)
@@ -3243,10 +3343,10 @@ def flash_tc256_vs_plain(torch, counters):
         finite = bool(torch.isfinite(got).all()) and got.shape == (B, S, cfg.vocab_size)
         del got
         floor, _ = prefill(toks, _plain_reordered)
-        emit({"phase": "flash_tc256_vs_plain",
+        emit({"phase": phase,
               "config": f"{cfg.name} width, {cfg.num_layers} layers "
                         f"{[cfg.block_kind(i) for i in range(cfg.num_layers)]}, bf16",
-              "batch": [B, S], "local_window": cfg.local_window, "max_abs_logit": scale,
+              "batch": [B, S], **extra, "max_abs_logit": scale,
               "max_err_over_max_abs": rel_max, "rel_rms_err": rms,
               "tol": {"max_err_over_max_abs": BF16_MAX_REL, "rel_rms_err": BF16_RMS_REL},
               "floor_plain_reordered": {"max_err_over_max_abs": max_err(floor, want) / scale,
@@ -3255,12 +3355,42 @@ def flash_tc256_vs_plain(torch, counters):
               "t_phase_s": time.perf_counter() - t0})
         del want, floor
         if not (finite and rel_max <= BF16_MAX_REL and rms <= BF16_RMS_REL):
-            raise AssertionError(f"flash_tc256_vs_plain {B}x{S}: logits {rel_max} of max, "
+            raise AssertionError(f"{phase} {B}x{S}: logits {rel_max} of max, "
                                  f"rel rms {rms}, finite and shaped: {finite}")
-        if list(l_k.values()) != [1, 1, 1] or any(l_p.values()):
-            raise AssertionError(f"flash_tc256_vs_plain {B}x{S}: launches {l_k} / {l_p}")
+        if list(l_k.values()) != [layers] * 3 or any(l_p.values()):
+            raise AssertionError(f"{phase} {B}x{S}: launches {l_k} / {l_p}")
     del params
     free_cuda(torch)
+
+
+def flash_tc256_vs_plain(torch, counters):
+    """RecurrentGemma-9B at full width with 3 layers (one rglru / rglru /
+    local_attn cycle), bf16: prefills of 4 x 512 and 1 x 2304 (its window of
+    2048 active) through the hd-256 tensor-core flash kernel against the
+    plain attention (``_prefill_vs_plain``): the bf16 end-to-end check of
+    that kernel, which the fp32 ``recurrent_vs_cpu`` does not take."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("recurrentgemma-9b").replace(num_layers=3)
+    _prefill_vs_plain(torch, counters, "flash_tc256_vs_plain", cfg, ((4, 512), (1, 2304)),
+                      "tc256", local_window=cfg.local_window)
+
+
+def flash_tc112_vs_plain(torch, counters):
+    """Kimi-K2 at full width with 1 layer, its leading dense layer (GQA 64 /
+    8 at hd 112 and the 18 432-wide SwiGLU; untied, 2.86 B parameters,
+    5.7 GB in bf16 serving storage), bf16: prefills of 4 x 512 and 1 x 512
+    (one ``serve_moe`` prefill) through the hd-112 tensor-core flash kernel
+    against the plain attention (``_prefill_vs_plain``): the bf16
+    end-to-end check of that kernel, which the fp32 ``moe_vs_cpu`` does not
+    take. The MoE layer is left out: with 384 experts a bf16 near-tie in the
+    top-8 routing can flip between two correct attentions, and the
+    comparison would then measure the router, not the kernel."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("kimi-k2-1t-a32b").replace(num_layers=1)
+    _prefill_vs_plain(torch, counters, "flash_tc112_vs_plain", cfg, ((4, 512), (1, 512)),
+                      "tc112")
 
 
 def flash_precision(torch, counters):
@@ -4927,6 +5057,7 @@ def main(argv) -> int:
         check_decode(torch, timer, results)
         del timer
         emit({"moe_kernels": {
+            "flash_attention_tc112": results["flash_attention_tc112"],
             "flash_attention": results["flash_attention"]["kimi_k2_hd112"],
             "paged_decode_attention":
                 results["paged_decode_attention"]["families"]["kimi_k2_gqa8_hd112"],
@@ -4935,6 +5066,7 @@ def main(argv) -> int:
             serve_moe(torch, counters, arch, MOE_STUDY_LAYERS[arch])
         serve_moe(torch, counters, "kimi-k2-1t-a32b", MOE_STUDY_LAYERS["kimi-k2-1t-a32b"],
                   int8_kv=True)
+        flash_tc112_vs_plain(torch, counters)
         with large_allocations_on_the_heap():
             moe_vs_cpu(torch, counters)
         return 0
@@ -4994,6 +5126,7 @@ def main(argv) -> int:
     flash_tc_vs_plain(torch, counters)
     free_cuda(torch)
     flash_tc256_vs_plain(torch, counters)
+    flash_tc112_vs_plain(torch, counters)
     run, train_line = train(torch, counters)
     train_breakdown(torch, run)
     dispatch_breakdown(torch, run, "train")
@@ -5032,15 +5165,16 @@ def main(argv) -> int:
         n = launches.get(name, 0)
         if name in CUDA_CORE_FLASH:  # the counter counts both routes
             n -= launches.get(name + "_tc", 0)
-        if name == "flash_attention_tc":  # and both tensor-core forward kernels
-            n -= launches.get("flash_attention_tc256", 0)
+        if name == "flash_attention_tc":  # and the hd-112 and hd-256 forwards
+            n -= sum(launches.get(f"flash_attention_tc{hd}", 0) for hd in (112, 256))
         return n
 
     def dist_launches(line, name):  # every rank's count
         return sum(count(ln, name) for ln in line["launches_per_rank"])
 
     kernels = []
-    for name in ("flash_attention_tc", "flash_attention_tc256", "flash_attention_bwd_tc",
+    for name in ("flash_attention_tc", "flash_attention_tc112", "flash_attention_tc256",
+                 "flash_attention_bwd_tc",
                  "paged_decode_attention",
                  "quantize_blockwise", "pier_update", "dequantize_blockwise",
                  "ring_allgather", "shard_scatter", "rmsnorm", "rmsnorm_bwd",
@@ -5049,12 +5183,12 @@ def main(argv) -> int:
         single = sum(count(r["launches"], name) for r in runs + [handoff_line])
         main_path = single + sum(dist_launches(d, name) for d in dists)
         fp32 = sum(count(ln, name) for ln in fp32_runs)
-        # the bf16 main paths run the tensor-core flash kernels (at hd 256,
+        # the bf16 main paths run the tensor-core flash kernels only (at hd
+        # 112, Kimi-K2's prefill, counted in serve_moe's line; at hd 256,
         # RecurrentGemma's prefill, the forward of flash_attention_tc256.cu,
-        # counted in serve_recurrent's line) but for Kimi-K2's prefill at hd
-        # 112 (serve_moe), which runs the CUDA-core forward; the CUDA-core
-        # forward and backward also run in the fp32 card-vs-CPU phases and
-        # the Trainer's fp32 cases, counted with them
+        # counted in serve_recurrent's); the CUDA-core forward and backward
+        # run in the fp32 card-vs-CPU phases and the Trainer's fp32 cases,
+        # counted with them
         entry["launches"] = main_path + fp32 if name in CUDA_CORE_FLASH else main_path
         entry["launches_by_path"] = {
             "serve": sum(count(r["launches"], name) for r in serves),

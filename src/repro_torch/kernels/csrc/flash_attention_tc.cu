@@ -1,5 +1,5 @@
-// Flash-attention forward on Hopper's tensor cores (bf16, head_dim 64 or
-// 128), written by hand. Its entry point also takes head_dim 256, which
+// Flash-attention forward on Hopper's tensor cores (bf16, head_dim 64, 112
+// or 128), written by hand. Its entry point also takes head_dim 256, which
 // flash_attention_tc256.cu computes with its own design.
 //
 // Replaces: src/repro/kernels/flash_attention.py:_attn_kernel (launched by
@@ -24,6 +24,13 @@
 //   K / V tiles of BK keys through a 2-stage ring with full and empty
 //   mbarriers, so the loads of the next tile overlap this tile's products;
 //   TMA zero-fills positions past S, so any S >= 1 is taken;
+// - head_dim 112 (Kimi-K2) runs the head_dim-128 instance on a tile padded
+//   to 128 columns: the tensor maps span the real 112 columns, so the
+//   second 64-column box of each row reads columns 112-127 past the map
+//   and TMA fills them with zeros, as it fills rows past S. Zero columns
+//   of Q and K add nothing to Q K^T (its k-steps stop at 112), zero
+//   columns of V give output columns that are never stored, and the store
+//   ends at column 111, where the next head's columns begin;
 // - S = Q K^T is wgmma with both operands in shared memory (K-major); the
 //   online softmax runs on the fp32 accumulator in registers (row max and
 //   sum over 4 threads; exp2 with scale * log2(e) folded in); P goes to
@@ -55,10 +62,15 @@ constexpr int kThreads = 160;  // the consumer warpgroup and the producer warp
 // spills a few hundred bytes: left alone it takes more registers and fits
 // one block an SM, and the training forward (800 blocks) ran slower so.
 
+// The tile's width in shared memory and in registers: head_dim rounded up
+// to the 64-value TMA box (128 at head_dim 112).
+template <int HD>
+constexpr int kWidth = (HD + 63) / 64 * 64;
+
 template <int HD, int BK>
 struct FwdLayout {
-  static constexpr int kQ = kBQ * HD;  // values of the Q tile
-  static constexpr int kKV = BK * HD;  // values of one K or V tile
+  static constexpr int kQ = kBQ * kWidth<HD>;  // values of the Q tile
+  static constexpr int kKV = BK * kWidth<HD>;  // values of one K or V tile
   static constexpr size_t kBytes = 2 * (kQ + 4 * kKV) + 8 * 8 + 1024;
 };
 
@@ -68,8 +80,9 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_tc_kernel(
     const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o, float* __restrict__ lse,
     int S, int H, int Hkv, int causal, int window, float softcap, float scale) {
   using L = FwdLayout<HD, BK>;
+  constexpr int W = kWidth<HD>;
   bf16* sQ = reinterpret_cast<bf16*>(smem_base());
-  bf16* sK = sQ + L::kQ;       // [2 stages][HD/64 chunks][BK][64]
+  bf16* sK = sQ + L::kQ;       // [2 stages][W/64 chunks][BK][64]
   bf16* sV = sK + 2 * L::kKV;  // the same
   uint64_t* bars = reinterpret_cast<uint64_t*>(sV + 2 * L::kKV);
   uint64_t* q_full = bars;
@@ -96,14 +109,14 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_tc_kernel(
   if (threadIdx.x >= 128) {  // producer warp
     if (threadIdx.x == 128) {
       mbar_expect_tx(q_full, 2 * L::kQ);
-      tma_tile<HD>(sQ, kBQ, &tm_q, q_full, h, q0, b);
+      tma_tile<W>(sQ, kBQ, &tm_q, q_full, h, q0, b);
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i & 1;
         if (i >= 2) mbar_wait(&empty[s], ((i >> 1) - 1) & 1);
         const int k0 = k_begin + i * BK;
         mbar_expect_tx(&full[s], 4 * L::kKV);
-        tma_tile<HD>(sK + s * L::kKV, BK, &tm_k, &full[s], hk, k0, b);
-        tma_tile<HD>(sV + s * L::kKV, BK, &tm_v, &full[s], hk, k0, b);
+        tma_tile<W>(sK + s * L::kKV, BK, &tm_k, &full[s], hk, k0, b);
+        tma_tile<W>(sV + s * L::kKV, BK, &tm_v, &full[s], hk, k0, b);
       }
     }
     return;
@@ -117,9 +130,9 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_tc_kernel(
   const float cap_in = softcap > 0.f ? scale / softcap : 0.f;
   const float cap_out = softcap * kLog2e;             // softcap: tanh(x cap_in) cap_out
 
-  float acc[HD / 2];
+  float acc[W / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < W / 2; ++i) acc[i] = 0.f;
   float m[2] = {NEG_INF_F, NEG_INF_F}, l[2] = {0.f, 0.f};
 
   mbar_wait(q_full, 0);
@@ -134,6 +147,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_tc_kernel(
 #pragma unroll
     for (int j = 0; j < BK / 2; ++j) sc[j] = 0.f;
     wgmma_fence();
+    // 7 k-steps at hd 112: the padding's would add zeros
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) wgmma_ss(sc, desc_k(sQ, kBQ, kk), desc_k(tK, BK, kk));
     wgmma_commit();
@@ -184,9 +198,9 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_tc_kernel(
     // running O inside the tensor core
     uint32_t ph[BK / 16][4], pm[BK / 16][4], pl[BK / 16][4];
     to_a_frags_split3(sc, ph, pm, pl);
-    float pv[HD / 2];
+    float pv[W / 2];
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) pv[i] = 0.f;
+    for (int i = 0; i < W / 2; ++i) pv[i] = 0.f;
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
@@ -201,7 +215,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_tc_kernel(
     fence_frags(pm);
     fence_frags(pl);
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
+    for (int j = 0; j < W / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         acc[4 * j + e] = __fmaf_rn(acc[4 * j + e], alpha[e >> 1], pv[4 * j + e]);
@@ -215,9 +229,10 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_tc_kernel(
     l[r] = fmaxf(quad_sum(l[r]), 1e-30f);
     inv[r] = 1.f / l[r];
   }
+  // the head's HD / 8 groups of 8 columns; the padding is not stored
   const long long ld = static_cast<long long>(H) * HD;
-  store_rows(o + static_cast<long long>(b) * S * ld + static_cast<long long>(h) * HD, ld,
-             row, S, acc, inv);
+  bf16* o_bh = o + static_cast<long long>(b) * S * ld + static_cast<long long>(h) * HD;
+  store_rows<W / 2, HD / 8>(o_bh, ld, row, S, acc, inv);
   if (lse != nullptr && (lane & 3) == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -232,6 +247,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
            int H, int Hkv, int causal, int window, float softcap, float scale,
            cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
+  // over the real head_dim: a tile's columns past it read as zeros
   cudaError_t err = tensor_map(&tq, q, B, S, H, HD, kBQ);
   if (err == cudaSuccess) err = tensor_map(&tk, k, B, S, Hkv, HD, BK);
   if (err == cudaSuccess) err = tensor_map(&tv, v, B, S, Hkv, HD, BK);
@@ -249,7 +265,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
 
 }  // namespace
 
-// bf16 q (B,S,H,hd), k/v (B,S,Hkv,hd), hd 64, 128 or 256 (the last in
+// bf16 q (B,S,H,hd), k/v (B,S,Hkv,hd), hd 64, 112, 128 or 256 (the last in
 // flash_attention_tc256.cu), 16-byte aligned pointers on card `device`; o
 // like q; lse fp32 (B,H,S) or null.
 extern "C" int flash_attention_fwd_tc_launch(const void* q, const void* k, const void* v,
@@ -265,6 +281,8 @@ extern "C" int flash_attention_fwd_tc_launch(const void* q, const void* k, const
   float* l = static_cast<float*>(lse);
   if (hd == 64)
     return launch<64, 128>(q, k, v, o, l, B, S, H, Hkv, causal, window, softcap, scale, s);
+  if (hd == 112)  // the head_dim-128 design on a tile padded to 128
+    return launch<112, 64>(q, k, v, o, l, B, S, H, Hkv, causal, window, softcap, scale, s);
   if (hd == 128)
     return launch<128, 64>(q, k, v, o, l, B, S, H, Hkv, causal, window, softcap, scale, s);
   if (hd == 256)

@@ -2,16 +2,21 @@
 // (flash_attention_tc.cu, flash_attention_tc256.cu,
 // flash_attention_bwd_tc.cu): TMA tensor maps and loads, mbarriers, wgmma
 // and its shared-memory descriptors, and the register layouts that tie
-// them together. bf16 only; head_dim 64 or 128, and 256 in the forward (a
-// 64 x 256 P V product with A from registers, and four chunks of 64
+// them together. bf16 only; head_dim 64 or 128, and in the forward 112 and
+// 256 (a 64 x 256 P V product with A from registers, and four chunks of 64
 // columns in the layout below).
 //
 // Layout contract, which the TMA box, the wgmma descriptors and the
 // transpose bit must agree on (a mismatch gives plausible wrong numbers,
 // not a fault):
-// - A (rows, hd) tile of q, k, v or dO lives in shared memory as hd / 64
+// - A (rows, hd) tile of q, k, v or dO lives in shared memory as W / 64
 //   chunks, each [rows][64] bf16 = rows x 128 bytes, written by one TMA box
-//   of 64 x rows with 128-byte swizzle, every chunk 1024-byte aligned.
+//   of 64 x rows with 128-byte swizzle, every chunk 1024-byte aligned. The
+//   tile width W is hd rounded up to 64: at hd 112 the tile is 128 wide,
+//   the map spans the tensor's 112 columns, and the second box reads
+//   columns 112-127 past it, which TMA fills with zeros (a 224-byte row
+//   stride is a multiple of the 16 bytes TMA asks of a stride). Products
+//   over the zero columns add nothing; a store ends at column hd - 1.
 // - As a K-major operand (hd is the reduction: Q K^T, dO V^T, K Q^T, V dO^T)
 //   its descriptor starts at the chunk of k-step kk / 4 plus (kk % 4) x 32
 //   bytes, with SBO = 1024 bytes (8 rows of 128 bytes).
@@ -395,10 +400,13 @@ __device__ __forceinline__ void to_a_frags_split3(const float (&d)[NR], uint32_t
 
 // Store an accumulator of 64 rows x N columns as bf16 rows of a (., ld)
 // strided tensor at `base` (row `row0` of this thread, rows >= S skipped),
-// each value times `mul[e / 2]` (its row's factor).
-template <int NR>
+// each value times `mul[e / 2]` (its row's factor). Only the first NG
+// groups of 8 columns are stored (all N / 8 by default): a tile padded past
+// head_dim stores the head's columns and not a value past them.
+template <int NR, int NG = NR / 4>
 __device__ __forceinline__ void store_rows(bf16* base, long long ld, int row0, int S,
                                            const float (&d)[NR], const float (&mul)[2]) {
+  static_assert(NG >= 1 && NG <= NR / 4, "store_rows: more column groups than the tile has");
   const int col0 = 2 * (threadIdx.x & 3);
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
@@ -406,7 +414,7 @@ __device__ __forceinline__ void store_rows(bf16* base, long long ld, int row0, i
     if (row >= S) continue;
     bf16* p = base + static_cast<long long>(row) * ld + col0;
 #pragma unroll
-    for (int j = 0; j < NR / 4; ++j)
+    for (int j = 0; j < NG; ++j)
       *reinterpret_cast<uint32_t*>(p + 8 * j) =
           pack_bf16(d[4 * j + 2 * half] * mul[half], d[4 * j + 2 * half + 1] * mul[half]);
   }

@@ -13,16 +13,17 @@ Two routes, chosen from dtype and head_dim alone before the launch (not a
 fallback: each raises on its own failure), by one rule for the forward and
 one for the backward:
 
-- the forward of bf16 at head_dim 64, 128 or 256, the shapes of the
+- the forward of bf16 at head_dim 64, 112, 128 or 256, the shapes of the
   models' main paths, runs the tensor-core kernels (wgmma fed by TMA),
   through one C entry point: ``csrc/flash_attention_tc.cu`` at 64 and
-  128, ``csrc/flash_attention_tc256.cu`` at 256 (RecurrentGemma-9B's
-  prefill);
+  128, and at 112 (Kimi-K2's prefill) on a tile padded to 128 columns
+  whose padding TMA reads as zeros; ``csrc/flash_attention_tc256.cu`` at
+  256 (RecurrentGemma-9B's prefill);
 - the backward of bf16 at head_dim 64 or 128 runs
   ``csrc/flash_attention_bwd_tc.cu``;
-- every other dtype and head_dim, and the bf16 backward at 256, run the
-  CUDA-core kernels (``csrc/flash_attention.cu``,
-  ``csrc/flash_attention_bwd.cu``).
+- every other dtype and head_dim, and the bf16 backward at 112 and 256
+  (no model trains there), run the CUDA-core kernels
+  (``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``).
 """
 
 from __future__ import annotations
@@ -39,17 +40,18 @@ from repro_torch.kernels.ref import flash_attention_ref
 # dK/dV and dQ kernels on the CUDA cores, the dQ and dK/dV kernels on the
 # tensor cores), on either route; ``tc_launches`` and ``tc_bwd_launches``
 # count those of them that took the tensor-core route, and
-# ``tc256_launches`` those of the forward's that ran the head_dim-256
-# kernel. Each wrapper adds one where it launches and nowhere else; a
-# caller may reset them to 0.
+# ``tc112_launches`` and ``tc256_launches`` those of the forward's at
+# head_dim 112 and at 256 (the kernel of its own). Each wrapper adds one
+# where it launches and nowhere else; a caller may reset them to 0.
 launches = 0
 bwd_launches = 0
 tc_launches = 0
 tc_bwd_launches = 0
+tc112_launches = 0
 tc256_launches = 0
 
 # bf16 head_dims on the tensor cores: the forward's, the backward's
-TC_HEAD_DIMS = (64, 128, 256)
+TC_HEAD_DIMS = (64, 112, 128, 256)
 TC_BWD_HEAD_DIMS = (64, 128)
 
 
@@ -101,7 +103,7 @@ def _check_aligned(*ts) -> None:
 
 def _launch_fwd(q, k, v, causal, window, softcap, want_lse):
     """Forward kernel -> (out in q.dtype, lse fp32 (B,H,S) or None)."""
-    global launches, tc_launches, tc256_launches
+    global launches, tc_launches, tc112_launches, tc256_launches
     _check_cuda(q, k, v)
     B, S, H, hd = q.shape
     out = torch.empty_like(q)
@@ -123,6 +125,7 @@ def _launch_fwd(q, k, v, causal, window, softcap, want_lse):
     _build.check(err, "flash_attention")
     launches += 1
     tc_launches += tc
+    tc112_launches += tc and hd == 112
     tc256_launches += tc and hd == 256
     return out, lse
 

@@ -7,10 +7,11 @@ versions. Here: which entry point a CUDA forward and backward take for
 each dtype and head_dim (the library replaced by a recorder), that every C
 entry point has a ``ctypes`` signature row with its arguments' types, and
 that the tensor-core forwards' arithmetic keeps the output within the
-card's bf16 bounds of the reference's Pallas kernel: at head_dim 64 and
-128 P enters P V as three bf16 terms (closer to the reference than P
-rounded once to bf16, as FlashAttention-style kernels do); at head_dim 256
-P is rounded once and O rescaled, then accumulated.
+card's bf16 bounds of the reference's Pallas kernel: at head_dim 64, 112
+and 128 P enters P V as three bf16 terms (closer to the reference than P
+rounded once to bf16, as FlashAttention-style kernels do), at 112 on a
+tile zero-padded to 128 columns with the scale of 112; at head_dim 256 P
+is rounded once and O rescaled, then accumulated.
 """
 
 import ctypes
@@ -59,19 +60,22 @@ class _Recorder:
     pytest.param("bfloat16", 40, False, False, id="bfloat16-40-False"),
     # RecurrentGemma-9B: the forward on the tensor cores, the backward not
     pytest.param("bfloat16", 256, True, False, id="bfloat16-256-fwd-True-bwd-False"),
+    # Kimi-K2: the same (no model trains at hd 112)
+    pytest.param("bfloat16", 112, True, False, id="bfloat16-112"),
 ])
 def test_route_follows_dtype_and_head_dim(monkeypatch, dtype, hd, tc, tc_bwd):
-    """The forward of bf16 at hd 64, 128 or 256 launches the tensor-core
-    entry point, the backward of bf16 at hd 64 or 128 the tensor-core one;
-    anything else the CUDA-core ones, with the argument count of their
-    signature rows. Every launch moves ``launches`` / ``bwd_launches``,
-    tensor-core ones ``tc_launches`` / ``tc_bwd_launches`` too, and the
-    hd-256 forward ``tc256_launches``."""
+    """The forward of bf16 at hd 64, 112, 128 or 256 launches the
+    tensor-core entry point, the backward of bf16 at hd 64 or 128 the
+    tensor-core one; anything else the CUDA-core ones, with the argument
+    count of their signature rows. Every launch moves ``launches`` /
+    ``bwd_launches``, tensor-core ones ``tc_launches`` / ``tc_bwd_launches``
+    too, and the hd-112 and hd-256 forwards ``tc112_launches`` and
+    ``tc256_launches``."""
     rec = _Recorder()
     monkeypatch.setattr(_build, "lib", lambda: rec)
     monkeypatch.setattr(_build, "stream_ptr", lambda device: 0)
     for name in ("launches", "bwd_launches", "tc_launches", "tc_bwd_launches",
-                 "tc256_launches"):
+                 "tc112_launches", "tc256_launches"):
         monkeypatch.setattr(FK, name, 0)
     dt = getattr(torch, dtype)
     B, S, H, Hkv = 2, 33, 4, 2
@@ -97,7 +101,8 @@ def test_route_follows_dtype_and_head_dim(monkeypatch, dtype, hd, tc, tc_bwd):
     assert fwd[-3] == bwd[-3] == pytest.approx(1.0 / math.sqrt(hd))
     assert fwd[-2] == bwd[-2] == 0
     assert (FK.launches, FK.bwd_launches, FK.tc_launches, FK.tc_bwd_launches,
-            FK.tc256_launches) == (1, 1, int(tc), int(tc_bwd), int(tc and hd == 256))
+            FK.tc112_launches, FK.tc256_launches) == (
+        1, 1, int(tc), int(tc_bwd), int(tc and hd == 112), int(tc and hd == 256))
 
 
 def _c_entries():
@@ -153,10 +158,11 @@ def _bf16(x):
     return x.to(torch.bfloat16).float()
 
 
-def _tc_forward(q, k, v, *, causal, block_k, window=0, split=True):
+def _tc_forward(q, k, v, *, causal, block_k, window=0, split=True, scale=None):
     """The tensor-core forwards' arithmetic in plain PyTorch: fp32 scores of
-    the bf16 inputs, masked causally and to ``window``; an online softmax
-    over ``block_k``-key tiles in the log2 domain. With ``split`` (hd 64 and
+    the bf16 inputs times ``scale`` (1 / sqrt(hd) of the inputs' width by
+    default), masked causally and to ``window``; an online softmax over
+    ``block_k``-key tiles in the log2 domain. With ``split`` (hd 64 and
     128, ``flash_attention_tc.cu``) P enters P V as hi = bf16(P), mid =
     bf16(P - hi) and lo = bf16(P - hi - mid), and each tile's P V, summed
     apart, is added to the rescaled O in fp32; without it (hd 256,
@@ -165,6 +171,7 @@ def _tc_forward(q, k, v, *, causal, block_k, window=0, split=True):
     log-sum-exp from the fp32 P. -> (out bf16, lse fp32 (B,H,S))."""
     B, S, H, hd = q.shape
     G = H // k.shape[2]
+    scale = 1.0 / math.sqrt(hd) if scale is None else scale
     qf = q.float()
     kf = k.float().repeat_interleave(G, dim=2)
     vf = v.float().repeat_interleave(G, dim=2)
@@ -175,7 +182,7 @@ def _tc_forward(q, k, v, *, causal, block_k, window=0, split=True):
     qpos = torch.arange(S)[:, None]
     for k0 in range(0, S, block_k):
         kt, vt = kf[:, k0:k0 + block_k], vf[:, k0:k0 + block_k]
-        x = torch.einsum("bqhd,bkhd->bhqk", qf, kt) * (1.0 / math.sqrt(hd) * math.log2(math.e))
+        x = torch.einsum("bqhd,bkhd->bhqk", qf, kt) * (scale * math.log2(math.e))
         kpos = torch.arange(k0, k0 + kt.shape[1])[None, :]
         visible = (kpos <= qpos) | (not causal)
         if window > 0:
@@ -201,6 +208,19 @@ def _tc_forward(q, k, v, *, causal, block_k, window=0, split=True):
     return out, (m + torch.log2(l_sum)) * math.log(2.0)
 
 
+def _tile_forward(q, k, v, **kw):
+    """``_tc_forward`` as the kernel runs it: on q, k, v zero-padded to the
+    tile width (head_dim rounded up to 64: 128 at hd 112, where TMA reads
+    the columns past the tensor as zeros) with the scale of the real
+    head_dim, its output cut back to that head_dim. -> (out, lse, the
+    padding's output columns)."""
+    hd = q.shape[-1]
+    pad = -(-hd // 64) * 64 - hd
+    q, k, v = (torch.nn.functional.pad(t, (0, pad)) for t in (q, k, v))
+    out, lse = _tc_forward(q, k, v, scale=1.0 / math.sqrt(hd), **kw)
+    return out[..., :hd], lse, out[..., hd:]
+
+
 @pytest.mark.parametrize("H,Hkv,hd,block_k,S,window", [
     # GPT-2 XL's heads; the kernel's key tile at hd 64
     pytest.param(25, 25, 64, 128, 128, 0, id="25-25-64-128"),
@@ -211,26 +231,33 @@ def _tc_forward(q, k, v, *, causal, block_k, window=0, split=True):
     pytest.param(16, 1, 256, 64, 128, 0, id="mqa16-hd256-s128"),
     pytest.param(4, 1, 256, 64, 200, 64, id="window64-hd256-s200"),
     pytest.param(4, 2, 256, 64, 77, 0, id="gqa2-hd256-s77"),
+    # hd 112 (the hd-128 instance on a padded tile, key tile 64): Kimi-K2's
+    # GQA 8:1; at a ragged S with a window of 64 keys across tiles
+    pytest.param(64, 8, 112, 64, 128, 0, id="kimi-gqa8-hd112-s128"),
+    pytest.param(64, 8, 112, 64, 77, 64, id="kimi-gqa8-hd112-s77-window64"),
 ])
 def test_bf16_p_rounding_fits_the_card_bounds(H, Hkv, hd, block_k, S, window):
     """On the same numpy-seeded bf16 inputs (B 1, causal), the tensor-core
     forward's arithmetic at ``hd`` stays within chip_smoke.py's bf16 bounds
     of the reference's Pallas kernel (interpret mode, fp32), and its
-    log-sum-exp within LSE_TOL of the port's plain version. At hd 64 and
-    128 its three-term P is also closer to the reference than P rounded
-    once, which is the hd-256 kernel's arithmetic."""
+    log-sum-exp within LSE_TOL of the port's plain version. At hd 64, 112
+    and 128 its three-term P is also closer to the reference than P rounded
+    once, which is the hd-256 kernel's arithmetic. At hd 112 it runs on the
+    padded tile, whose padding's output columns are exactly 0."""
     rng = np.random.default_rng(hd + H)
     q, k, v = (torch.from_numpy(rng.standard_normal((1, S, h, hd)).astype(np.float32))
                .to(torch.bfloat16) for h in (H, Hkv, Hkv))
     ref = np.asarray(jax_flash(*(jnp.asarray(t.float().numpy()) for t in (q, k, v)),
                                causal=True, window=window, interpret=True))
     split = hd != 256
-    out, lse = _tc_forward(q, k, v, causal=True, block_k=block_k, window=window, split=split)
+    opts = dict(causal=True, block_k=block_k, window=window)
+    out, lse, padding = _tile_forward(q, k, v, split=split, **opts)
+    assert out.shape == q.shape and not padding.any()
     err = np.abs(out.float().numpy() - ref)
     rms = np.linalg.norm(out.float().numpy() - ref) / np.linalg.norm(ref)
     assert err.max() <= BF16_FWD_MAX_ABS and rms <= BF16_RMS_REL
     if split:
-        once, _ = _tc_forward(q, k, v, causal=True, block_k=block_k, split=False)
+        once, _, _ = _tile_forward(q, k, v, split=False, **opts)
         rms_once = np.linalg.norm(once.float().numpy() - ref) / np.linalg.norm(ref)
         assert rms < rms_once
     _, lse_ref = R.flash_attention_fwd_ref(q.float(), k.float(), v.float(), causal=True,
