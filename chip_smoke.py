@@ -41,7 +41,9 @@ and no result line:
    element written, nothing past the last head's column 111), timed at one
    prompt of 512 and at 4 beside the CUDA-core kernel that ran it before
    and SDPA, and decode at 4 slots over contexts
-   513-544 with bf16 and int8 pools; quantize at its KV rows (block 112,
+   513-544 with bf16 and int8 pools; the bf16 backward (the CUDA-core
+   kernel) timed at its training shape, B 2 x 1024, beside SDPA's forward +
+   backward and the bound; quantize at its KV rows (block 112,
    14 vectors: the scalar kernel), bit for bit and timed;
    quantize at its KV rows (block 128, a prefill layer's
    and a decode step's, bit for bit, the prefill one timed) and at n ending
@@ -151,11 +153,12 @@ and no result line:
    one layer's RG-LRU scan and prefill, or one sLSTM and one mLSTM
    layer's prefill, the same way.
 4e. ``serve_moe``: DeepSeek-V2-236B through ``generate``'s dense path
-   (MLA's latent cache; 6 of its 60 layers: 1 dense + 5 MoE, 44.8 GB) and
-   Kimi-K2 through its paged path (GQA 8:1 at hd 112; 2 of 61 layers: 1
-   dense + 1 MoE, 44.6 GB), each at full width, bf16, random seeded
-   weights made on the card in serving storage (the experts a slab at a
-   time), one freed before the next: 4 prompts of 512, 32 new tokens,
+   (MLA's latent cache; 2 of its 60 layers: 1 dense + 1 MoE; 8 layers, 1
+   dense + 7 MoE, 60.7 GB, in ``--moe``) and Kimi-K2 through its paged
+   path (GQA 8:1 at hd 112; 2 of 61 layers: 1 dense + 1 MoE, 44.6 GB),
+   each at full width, bf16, random seeded weights made on the card in
+   serving storage (the experts a slab at a time), one freed before the
+   next: 4 prompts of 512, 32 new tokens,
    greedy. Tokens/s, TTFT, decode-step p50/p99, peak memory, parameter and
    expert bytes; a prefill's and a decode step's device vs wall time
    (``torch.profiler``), the step beside the bytes of the expert weights
@@ -235,7 +238,13 @@ and no result line:
    prompts of 64 and 8 teacher-forced decode steps, each model through its
    own path (dense / paged). Every logit within 1e-3; the share of top-k
    assignments the same on both sides (``routing_agree``) reported; every
-   launch count exact.
+   launch count exact. Then ``moe_train_vs_cpu`` on the same weights: one
+   ``loss_fn`` forward and backward on 2 x 64 tokens (a quarter of the
+   labels masked) on the card and on the CPU; the loss within 1e-5
+   relative, every gradient leaf's max error within 1e-3 of that leaf's
+   max |g|, ``routing_agree`` reported, launches exact (rmsnorm =
+   rmsnorm_bwd = 9 for DeepSeek, 5 for Kimi; Kimi's flash forward and
+   backward 2 each on the fp32 CUDA-core route at hd 112).
 7. ``train``: full GPT-2 XL (bf16 compute, fp32 parameters and state),
    G = 2, sync_delay 0, per-group batch 2 x 1024 tokens, 10 steps of the
    same schedule shape (inner LR 5e-5, warmed up over the lazy start).
@@ -254,6 +263,15 @@ and no result line:
    ``train`` run, under the WSD schedule over 20 steps run to its end
    (warmup, stable, decay): the LR of every step is ``lr_at``'s, the
    validation loss falls, launches exact.
+8a''. ``train_moe`` and ``train_moe_breakdown``: DeepSeek-V2-236B at full
+   width, 2 layers, 8 of its 160 experts (top-6 and the 2 shared kept;
+   1.772 B parameters, about 70 GB of the card) in the ``train`` run at
+   per-group batch 2 x 512, 8 steps (lazy start, two outer applies): finite
+   losses, the validation loss (on 4 x 512 tokens) falls, rmsnorm =
+   rmsnorm_bwd = 9 x forwards, pier_update = 35 leaves x outer syncs, no
+   flash (MLA's attention is plain); the breakdown groups one inner step's
+   device time into AdamW and elementwise, bf16 and fp32 products, softmax,
+   the MoE dispatch and RMSNorm, and lists the ten longest kernels.
 8b. ``train_compressed``: the ``train`` run again after it is freed, with
    the quantized outer sync (int8, block 256, error feedback; the residual
    adds 2 x 6.25 GB): the same checks, and quantize = dequantize = 2 x 484
@@ -266,8 +284,10 @@ and no result line:
    card) against ``SimulatedRun`` on the card, GPT-2 medium width, 2 layers,
    fp32, per-group batch 2 x 256, 8 steps without lazy start (four outer
    syncs): flat, int8-wire and rs-ag at 2 ranks, delay 0 and 1, and
-   Hierarchical over int8-wire at 4 ranks in 2 pods, and Qwen3-1.7B width
-   with int8-wire at 2 ranks (bit for bit, its rmsnorm launches counted).
+   Hierarchical over int8-wire at 4 ranks in 2 pods, Qwen3-1.7B width
+   with int8-wire at 2 ranks (bit for bit, its rmsnorm launches counted),
+   and DeepSeek-V2's reduced config (MLA + MoE) with int8-wire at delay 1
+   (bit for bit).
    Losses and parameters within 1e-5 (the wire strategies bit for bit);
    every rank's launches exactly what its strategy's code path makes (ring,
    scatter and RMSNorm included).
@@ -291,7 +311,11 @@ and no result line:
    launches exact) and ``switch_vs_cpu`` (G = 2, 14 steps, a scripted
    controller: flat -> quantized(8, 256) at window 2, delay 0 -> 1 at 3,
    -> int4 wire at 4, -> flat at 5; the residual present exactly at windows
-   2-4; card vs CPU within 1e-3, launches exact).
+   2-4; card vs CPU within 1e-3, launches exact). Their card halves run
+   first; their CPU halves then run in a thread on all but two of the
+   host's cores while the 2-rank world of 8d, 8g and 8h runs, since the
+   script's own process would otherwise wait for the ranks (the checks
+   are the same).
 8g. ``train_dist_elastic_vs_sim``: the Trainer on 2 ranks against
    ``SimulatedRun`` on the card, GPT-2 XL width, 2 layers, fp32, 8 steps
    with no lazy start: int8-wire and rs-ag at delay 0 and 1 with
@@ -327,7 +351,7 @@ and no result line:
    pool drained; launches exact.
 9. a ``{"kernels": [...]}`` line: per kernel its launches on the main-path
    runs (serve, serve_qwen3, serve_families, serve_recurrent, serve_moe and handoff, train,
-   train_compressed, train_qwen3, train_minicpm,
+   train_compressed, train_qwen3, train_minicpm, train_moe,
    train_elastic and, summed over ranks, train_dist and train_dist_auto;
    for the CUDA-core attention forward and backward, which those bf16
    runs no longer take, their launches in the fp32 card-vs-CPU phases and
@@ -340,7 +364,7 @@ and no result line:
    data sheet). A kernel with no launch fails the run.
 10. the last line, ``{"ok": true, "device": {...}}``.
 
-Ten studies run instead of the phases above when asked for, each after
+Eleven studies run instead of the phases above when asked for, each after
 the build, and print their own JSON lines:
 
     python3 chip_smoke.py --witness-lr     # the train run at Table I's LR,
@@ -362,6 +386,9 @@ the build, and print their own JSON lines:
                                            # at 8 layers (60.7 GB) and Kimi-K2
                                            # with bf16 and int8 KV (the scalar
                                            # quantize route); 6d''; 6g
+    python3 chip_smoke.py --moe-train      # phase 2's RMSNorm and flash
+                                           # backward checks; 6g with
+                                           # moe_train_vs_cpu; 8a''; 8c
 """
 
 from __future__ import annotations
@@ -377,6 +404,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -392,12 +420,17 @@ SLEEP_CYCLES = 4_000_000             # ~2 ms: covers the host's enqueue time
 T_START = time.perf_counter()
 
 
+_EMIT_LOCK = threading.Lock()  # lines from the CPU halves' thread stay whole
+
+
 def emit(obj) -> None:
     """One JSON line; a phase's line also says when it was printed, in
     seconds since the script started (``t_s``), for the time budget."""
     if "phase" in obj:
         obj = {**obj, "t_s": time.perf_counter() - T_START}
-    print(json.dumps(obj), flush=True)
+    with _EMIT_LOCK:
+        sys.stdout.write(json.dumps(obj) + "\n")
+        sys.stdout.flush()
 
 
 @contextlib.contextmanager
@@ -1535,8 +1568,9 @@ def check_rmsnorm(torch, timer, results):
     ``rmsnorm_bwd_ref`` at Qwen3-1.7B's shapes (block norms at d_model
     2048, qk-norm at head_dim 128 and eps 1e-6; training, prefill and
     decode rows), at the MoE families' widths (DeepSeek-V2's MLA latent
-    norms at 1536 and 512, eps 1e-6, block norms at 5120 and Kimi-K2's at
-    7168) and at edge shapes (D 40 and 41, one row, D 5000 with
+    norms at 1536 and 512, eps 1e-6, over a prefill's, a decode step's and
+    a training group's 1024 rows, the last with the backward timed; block
+    norms at 5120 and Kimi-K2's at 7168) and at edge shapes (D 40 and 41, one row, D 5000 with
     several vectors a thread, fp32, ragged sets of 32 vectors at D 1600 in
     bf16 and D 1000 in fp32, an unaligned view). The forward's route must
     be the rule's (``fwd_register_path``: aligned rows of at most 256
@@ -1582,6 +1616,9 @@ def check_rmsnorm(torch, timer, results):
         ("deepseek_kv_norm_decode_4x512_bf16", 4, 512, bf16, 1e-6),
         ("deepseek_block_norm_decode_4x5120_bf16", 4, 5120, bf16, 1e-5),
         ("kimi_block_norm_prefill_512x7168_bf16", 512, 7168, bf16, 1e-5),
+        # DeepSeek-V2's MLA latent norms over a training group's 2 x 512 rows
+        ("deepseek_train_q_norm_1024x1536_bf16", 1024, 1536, bf16, 1e-6),
+        ("deepseek_train_kv_norm_1024x512_bf16", 1024, 512, bf16, 1e-6),
     ]
     worst_fwd = worst_bwd = 0.0
     for name, rows, D, dt, eps in cases:
@@ -1666,7 +1703,9 @@ def check_rmsnorm(torch, timer, results):
                                      ("decode", 4, 2048, 1e-5, False),
                                      ("deepseek_q_norm_prefill", 2048, 1536, 1e-6, False),
                                      ("deepseek_kv_norm_decode", 4, 512, 1e-6, False),
-                                     ("kimi_block_norm_decode", 4, 7168, 1e-5, False)):
+                                     ("kimi_block_norm_decode", 4, 7168, 1e-5, False),
+                                     ("deepseek_train_q_norm", 1024, 1536, 1e-6, True),
+                                     ("deepseek_train_kv_norm", 1024, 512, 1e-6, True)):
         x, s, dy = inputs(rows, D, bf16)
         b, by = bound_ms(fwd_bytes(rows, D, train), 4 * rows * D, "float32")
         y = torch.empty_like(x)
@@ -1696,7 +1735,8 @@ def check_rmsnorm(torch, timer, results):
             fwd[key].update(plain_ms=timer.ms(lambda: rmsnorm_ref(x, s, eps=eps)),
                             library_ms=timer.ms(
                                 lambda: F.rms_norm(x.float(), (D,), s, eps).to(x.dtype)))
-        if key == "train_block":  # the plain versions and the library beside it
+        if key == "train_block" or key.startswith("deepseek_train"):
+            # the plain versions and the library beside it
             xf, sf = x.float().requires_grad_(), s.clone().requires_grad_()
             yl = F.rms_norm(xf, (D,), sf, eps)
 
@@ -1856,6 +1896,11 @@ def check_flash_bwd(torch, timer, results):
                                **timed(1, 512, 32, 8, 128)},
            "qwen3_14b_gqa5": {"shape": "bf16 B=1 S=512 H=40 Hkv=8 hd=128 causal",
                               **timed(1, 512, 40, 8, 128)}}
+    # Kimi-K2's training shape: the bf16 backward at hd 112 takes the
+    # CUDA-core kernel (``TC_BWD_HEAD_DIMS``); "ms" and "cuda_cores_ms" are
+    # then the same kernel, through the wrapper's launch and its C entry
+    kimi = {"shape": "bf16 B=2 S=1024 H=64 Hkv=8 hd=112 causal (one Kimi-K2 training "
+                     "layer; the CUDA-core backward)", **timed(2, 1024, 64, 8, 112)}
     library = ("F.scaled_dot_product_attention forward + backward (library_ms); its "
                "backward alone (library_bwd_ms)")
     note = ("no Pallas backward exists; the gradient of the TPU kernel's function, which "
@@ -1890,7 +1935,8 @@ def check_flash_bwd(torch, timer, results):
         "qwen3": {"shape": "bf16 B=2 S=1024 H=16 Hkv=8 hd=128 causal (one training layer)",
                   "ms": q3["cuda_cores_ms"], "plain_ms": q3["plain_ms"],
                   "bound_ms": q3["bound_ms"], "bound_by": q3["bound_by"],
-                  "library_ms": q3["library_ms"], "library_bwd_ms": q3["library_bwd_ms"]}}
+                  "library_ms": q3["library_ms"], "library_bwd_ms": q3["library_bwd_ms"]},
+        "kimi_k2_hd112": kimi}
 
 
 # ---------------------------------------------------------------------------
@@ -1986,6 +2032,12 @@ def norm_launches(cfg) -> int:
         return 0
     mla = (cfg.q_lora_rank > 0) + 1 if cfg.attention_kind == "mla" else 0
     return (2 + 2 * int(cfg.use_qk_norm) + mla) * cfg.num_layers + 1
+
+
+def flash_layers(cfg) -> int:
+    """Layers whose attention runs the flash kernels in a training forward
+    (MLA's decompressed attention is plain PyTorch)."""
+    return 0 if cfg.attention_kind == "mla" else cfg.num_layers
 
 
 def serve(torch, params, cfg, counters, *, quantized: bool, phase: str = "serve"):
@@ -2520,10 +2572,12 @@ def serve_recurrent(torch, counters, arch: str, layers=None):
 MOE_ARCHS = ("deepseek-v2-236b", "kimi-k2-1t-a32b")
 
 # full width at reduced depth (neither model fits one card at full depth;
-# serving storage): DeepSeek-V2 1 dense + 5 MoE layers, 44.8 GB (8 layers,
-# 60.7 GB, in ``--moe``); Kimi-K2 1 dense + 1 MoE layer, 44.6 GB (a second
-# MoE layer would need 78 GB)
-MOE_SCRIPT_LAYERS = {"deepseek-v2-236b": 6, "kimi-k2-1t-a32b": 2}
+# serving storage), 1 dense + 1 MoE layer each in the whole script:
+# DeepSeek-V2's bf16 dense path (MLA's absorbed decode) with its launch
+# counts, and Kimi-K2's paged path (a second MoE layer would need 78 GB),
+# whose prefill is the hd-112 tensor-core forward's main path. ``--moe``
+# runs DeepSeek-V2 at 1 dense + 7 MoE layers, 60.7 GB
+MOE_SCRIPT_LAYERS = {"deepseek-v2-236b": 2, "kimi-k2-1t-a32b": 2}
 MOE_STUDY_LAYERS = {"deepseek-v2-236b": 8, "kimi-k2-1t-a32b": 2}
 EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
 
@@ -2719,7 +2773,8 @@ def moe_vs_cpu(torch, counters):
     each model through its own path (DeepSeek's dense ``registry.prefill``
     / ``decode_step``, Kimi's paged prefill and decode). Every logit within
     1e-3; every launch count exact; the share of top-k assignments the same
-    on both sides reported."""
+    on both sides reported. Then ``moe_train_vs_cpu`` on the same weights
+    (``_moe_train_vs_cpu``)."""
     from repro_torch.configs import get_config
     from repro_torch.models import registry as R
     from repro_torch.models.transformer import param_leaves, with_leaves
@@ -2782,9 +2837,88 @@ def moe_vs_cpu(torch, counters):
         if launches != expect:
             raise AssertionError(f"moe_vs_cpu {arch}: launches {launches} != {expect}")
         fp32_runs.append(launches)
+        fp32_runs.append(_moe_train_vs_cpu(torch, counters, arch, full, cfg, params_gpu,
+                                           params_cpu))
         del params_gpu, params_cpu
         free_cuda(torch)
     return fp32_runs
+
+
+def _moe_train_vs_cpu(torch, counters, arch, full, cfg, params_gpu, params_cpu):
+    """``moe_train_vs_cpu``: ``moe_vs_cpu``'s weights (fp32, so serving and
+    training storage alike), made to require grad, through one ``loss_fn``
+    forward and backward on the card (kernels) and on the CPU (plain
+    versions) on 2 x 64 tokens with labels, a quarter of them masked. The
+    loss within 1e-5 relative; every gradient leaf's max |error| within 1e-3
+    of that leaf's max |g|; the routes of both reported; launches exact
+    (RMSNorm forward and backward; for Kimi-K2 the flash forward and
+    backward on the fp32 CUDA-core route at hd 112). The only full-width
+    gradient check of MoE and MLA: the experts, the router through the aux
+    and z losses, MLA's latent norms through the RMSNorm backward at 1536
+    and 512."""
+    from repro_torch.models import registry as R
+    from repro_torch.models.transformer import param_leaves
+
+    t0 = time.perf_counter()
+    B, S, loss_tol, grad_tol = 2, 64, 1e-5, 1e-3
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(27))
+    labels = toks[:, 1:].clone()
+    labels[:, :S // 4] = -1  # masked positions
+    batch = {"tokens": toks[:, :-1], "labels": labels}
+    for p in (params_gpu, params_cpu):
+        for _, t in param_leaves(p):
+            t.requires_grad_(True)
+    routes_card, routes_cpu = [], []
+    for c in counters.values():
+        c.launches = 0
+    with recorded_routes(routes_card):
+        loss_card, m_card = R.loss_fn(params_gpu, cfg, {k: v.cuda() for k, v in batch.items()})
+        loss_card.backward()
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    t_card = time.perf_counter() - t0
+    with recorded_routes(routes_cpu):
+        loss_cpu, m_cpu = R.loss_fn(params_cpu, cfg, batch)
+        loss_cpu.backward()
+    lc, lp = float(loss_card.detach()), float(loss_cpu.detach())
+    loss_rel = abs(lc - lp) / abs(lp)
+    worst, worst_leaf, by_leaf = 0.0, "", {}
+    for (name, a), (_, b) in zip(param_leaves(params_gpu), param_leaves(params_cpu)):
+        scale = float(b.grad.abs().max())
+        rel = max_err(a.grad.cpu(), b.grad) / scale if scale > 0 else max_err(a.grad.cpu(),
+                                                                               b.grad)
+        by_leaf[name] = rel
+        if rel > worst:
+            worst, worst_leaf = rel, name
+        a.grad = b.grad = None
+    L, n = cfg.num_layers, norm_launches(cfg)
+    fl = flash_layers(cfg)
+    expect = {k: 0 for k in counters}
+    expect.update(rmsnorm=n, rmsnorm_bwd=n, flash_attention=fl, flash_attention_bwd=fl)
+    agree = routing_agree(routes_card, routes_cpu)
+    emit({"phase": "moe_train_vs_cpu", "arch": arch,
+          "config": f"{arch} width, {L} layers (1 dense, 1 MoE), float32",
+          "cut": f"num_experts {full.num_experts} -> {cfg.num_experts}, top-k "
+                 f"{cfg.num_experts_per_tok} kept (moe_vs_cpu's weights)",
+          "batch": [B, S], "masked_labels": B * (S // 4),
+          "loss_card": lc, "loss_cpu": lp, "loss_rel_err": loss_rel, "loss_tol_rel": loss_tol,
+          **{f"{k}_{side}": float(m[k].detach()) for k in ("moe_aux", "moe_z")
+             for side, m in (("card", m_card), ("cpu", m_cpu))},
+          "max_grad_err_over_leaf_max": worst, "worst_leaf": worst_leaf,
+          "grad_tol_over_leaf_max": grad_tol, "grad_err_over_leaf_max_by_leaf": by_leaf,
+          "routing_agree": agree, "route_calls": len(routes_card),
+          "card_launches": launches, "expected_launches": expect,
+          "card_seconds": t_card, "seconds": time.perf_counter() - t0})
+    if not math.isfinite(lc) or loss_rel > loss_tol:
+        raise AssertionError(f"moe_train_vs_cpu {arch}: loss {lc} vs {lp} (relative "
+                             f"{loss_rel}, limit {loss_tol})")
+    if worst > grad_tol:
+        raise AssertionError(f"moe_train_vs_cpu {arch}: gradient of {worst_leaf} off by "
+                             f"{worst} of its max (limit {grad_tol}; routing agree {agree})")
+    if launches != expect:
+        raise AssertionError(f"moe_train_vs_cpu {arch}: launches {launches} != {expect}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2934,7 +3068,7 @@ def _train_expect(run, steps: int, num_leaves: int):
     syncs = sum(1 for s in range(steps) for ev in sched.events(s)
                 if ev.kind == "dispatch" and ev.op == "outer")
     forwards = warm + run.G * (steps - warm)  # each with one backward
-    fwd = run.mc.num_layers * forwards
+    fwd = flash_layers(run.mc) * forwards
     norms = norm_launches(run.mc) * forwards
     nq, ndq = _quant_launches(run.strategy, run.G, run.P)
     tc = fwd if tc_rule(run.mc.dtype, run.mc.resolved_head_dim) else 0
@@ -3483,32 +3617,33 @@ def _timed(torch, times, kind, fn):
 
 
 def train(torch, counters, *, phase: str = "train", outer_comm=None,
-          arch: str = "gpt2-xl", layers: int = 0, steps: int = 10, schedule=None):
-    """Full ``arch`` (GPT-2 XL by default; ``layers`` cuts its depth)
-    through SimulatedRun on the card; returns the run and its line.
+          arch: str = "gpt2-xl", cut=None, steps: int = 10, schedule=None,
+          seq: int = 1024, val_rows: int = 16):
+    """Full ``arch`` (GPT-2 XL by default; ``cut``, a dict of config fields
+    such as ``num_layers``, cuts it) through SimulatedRun on the card at
+    per-group batch 2 x ``seq``; returns the run and its line.
     ``outer_comm`` (an ``OuterCommConfig``) picks the outer strategy; the
     default is the flat fp32 mean. ``schedule``: TrainConfig fields in
     place of ``TRAIN_TC`` and ``TRAIN_LR``. The LR each step took must be
-    the schedule's ``lr_at``."""
+    the schedule's ``lr_at``. The validation loss is taken on the
+    simulator's fixed batch of ``val_rows`` sequences."""
     from repro_torch.config import OuterCommConfig, TrainConfig
     from repro_torch.configs import get_config
     from repro_torch.core.simulate import SimulatedRun
     from repro_torch.models.transformer import param_leaves
     from repro_torch.optim.schedules import lr_at
 
-    cfg = get_config(arch)  # bf16 compute, fp32 parameters
-    if layers:
-        cfg = cfg.replace(num_layers=layers)
-    G, per, seq = 2, 2, 1024
+    cfg = get_config(arch).replace(**(cut or {}))  # bf16 compute, fp32 parameters
+    G, per = 2, 2
     tc = TrainConfig(**(schedule or {**TRAIN_TC, **TRAIN_LR}), global_batch_size=G * per,
                      seq_len=seq, sync_delay=0, outer_comm=outer_comm or OuterCommConfig())
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    run = SimulatedRun(cfg, tc, num_groups=G, seed=0, device="cuda")
+    run = SimulatedRun(cfg, tc, num_groups=G, seed=0, device="cuda", val_rows=val_rows)
     n_leaves = len(param_leaves(run.state.params))
     n_params = sum(t.numel() for _, t in param_leaves(run.state.params))
     t_init = time.perf_counter() - t0
-    val_before = run.val_loss(run.state.params)  # fixed batch: 16 x 1024 tokens
+    val_before = run.val_loss(run.state.params)  # fixed batch: val_rows x seq tokens
     times = {}
     for name, kind in (("_warmup_step", "warmup_step"), ("_inner_step", "inner_step"),
                        ("_accumulate", "accumulate"), ("_dispatch", "outer_dispatch"),
@@ -3530,6 +3665,7 @@ def train(torch, counters, *, phase: str = "train", outer_comm=None,
     line = {
         "phase": phase,
         "config": f"{cfg.name} {cfg.num_layers} layers, bf16 compute, fp32 params",
+        **({"cut": cut} if cut else {}), "val_rows": val_rows,
         "strategy": run.strategy.name, "params": n_params, "leaves": n_leaves, "groups": G,
         "per_group_batch": per,
         "seq_len": seq, "sync_delay": 0, "steps": steps, "warmup_steps": warm,
@@ -3564,6 +3700,30 @@ def train(torch, counters, *, phase: str = "train", outer_comm=None,
     return run, line
 
 
+# train_moe's cut: DeepSeek-V2-236B at full width with 2 layers (the dense
+# one and one MoE layer) and 8 of its 160 experts (top-6 and the 2 shared
+# kept): 1.772 B parameters, about 64 GB of fp32 parameters, one group's
+# gradients, two groups' AdamW moments and the outer anchor and momentum
+# at G = 2 (16 experts would need about 71 GB before the activations)
+MOE_TRAIN_CUT = {"num_layers": 2, "num_experts": 8}
+
+
+def train_moe(torch, counters):
+    """DeepSeek-V2-236B through ``SimulatedRun`` on the card (``train`` at
+    G = 2, per-group batch 2 x 512, 8 steps of the ``train`` schedule: lazy
+    start, then the flat sync's outer applies), bf16 compute and fp32
+    parameters and state, and one inner step's device time by kernel group
+    (``train_moe_breakdown``); the validation loss on 4 sequences (16 of
+    512 with MLA's (16, 128, 512, 512) fp32 scores would not fit beside the
+    state). Returns the train line."""
+    run, line = train(torch, counters, phase="train_moe", arch="deepseek-v2-236b", steps=8,
+                      seq=512, cut=MOE_TRAIN_CUT, val_rows=4)
+    train_breakdown(torch, run, phase="train_moe_breakdown", group_of=_moe_train_kernel_group)
+    del run
+    free_cuda(torch)
+    return line
+
+
 def _train_kernel_group(name: str) -> str:
     for key, group in (("flash_bwd", "flash_attention_bwd"), ("flash_fwd", "flash_attention"),
                        ("pier_update", "pier_update"), ("rmsnorm_fwd", "rmsnorm"),
@@ -3575,11 +3735,34 @@ def _train_kernel_group(name: str) -> str:
     return "adamw_and_other"
 
 
-def train_breakdown(torch, run, phase: str = "train_breakdown"):
-    """Device time by kernel group for one inner step of a train run
-    (both groups' forward, backward, clip and AdamW), beside the wall time
-    of another, unprofiled inner step; the idle share is one minus their
-    ratio."""
+def _moe_train_kernel_group(name: str) -> str:
+    """``train_moe_breakdown``'s groups: the dispatch's sort, scatter and
+    gather (the embedding's gather and its backward stay with the
+    elementwise work), the fp32 products (the lm_head's fp32 logits, MLA's
+    einsums, the router) apart from the bf16 ones, the softmax kernels
+    (MLA's scores, the router's)."""
+    low = name.lower()
+    if "embedding" in low:
+        return "adamw_and_elementwise"
+    for key, group in (("rmsnorm_fwd", "rmsnorm"), ("rmsnorm_bwd", "rmsnorm_bwd"),
+                       ("rmsnorm_colsum", "rmsnorm_bwd"), ("pier_update", "pier_update"),
+                       ("softmax", "softmax"), ("sort", "moe_dispatch"),
+                       ("scatter", "moe_dispatch"), ("gather", "moe_dispatch"),
+                       ("index", "moe_dispatch"), ("searchsorted", "moe_dispatch")):
+        if key in low:
+            return group
+    if any(k in low for k in ("gemm", "gemv", "nvjet", "xmma", "cutlass")):
+        fp32 = any(k in low for k in ("sgemm", "f32f32", "simt"))
+        return "matmul_fp32" if fp32 else "matmul"
+    return "adamw_and_elementwise"
+
+
+def train_breakdown(torch, run, phase: str = "train_breakdown", group_of=None):
+    """Device time by kernel group (``group_of``, by default
+    ``_train_kernel_group``) for one inner step of a train run (both
+    groups' forward, backward, clip and AdamW), beside the wall time of
+    another, unprofiled inner step; the idle share is one minus their
+    ratio. The ten kernels that took the most time are listed by name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3593,20 +3776,25 @@ def train_breakdown(torch, run, phase: str = "train_breakdown"):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run._inner_step(batches, step)
         torch.cuda.synchronize()
-    groups, n_kernels = {}, 0
+    group_of = group_of or _train_kernel_group
+    groups, by_name, n_kernels = {}, {}, 0
     for evt in prof.events():
         if evt.device_type == DeviceType.CUDA:
-            grp = _train_kernel_group(evt.name)
-            groups[grp] = groups.get(grp, 0.0) + evt.time_range.elapsed_us() / 1e3
+            grp = group_of(evt.name)
+            ms = evt.time_range.elapsed_us() / 1e3
+            groups[grp] = groups.get(grp, 0.0) + ms
+            by_name[evt.name] = by_name.get(evt.name, 0.0) + ms
             n_kernels += 1
     busy = sum(groups.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     mc = run.mc
     emit({"phase": phase,
           "config": f"{mc.name} {mc.num_layers} layers, G={run.G}, per-group batch "
                     f"{run.tc.global_batch_size // run.G} x {run.tc.seq_len}, one inner step",
           "wall_ms": wall, "device_ms": busy if n_kernels else "not measured",
           "device_idle_share": 1 - busy / wall if n_kernels else "not measured",
-          "kernels_per_step": n_kernels, "device_ms_by_group": groups})
+          "kernels_per_step": n_kernels, "device_ms_by_group": groups,
+          "top_kernels_ms": [[name[:120], ms, group_of(name)] for name, ms in top]})
 
 
 def _dispatch_kernel_group(name: str) -> str:
@@ -3755,6 +3943,7 @@ def build_times(torch):
 # ---------------------------------------------------------------------------
 
 DIST_DEADLINE_S = 600   # a spawned world; every rank is killed past it
+WORLD_CORES = 2         # host cores left to a 2-rank world's processes
 BROKEN_TIMEOUT_S = 2.0  # the broken-peer case's in-kernel deadline
 
 
@@ -4035,7 +4224,7 @@ def _dist_expect(strategy, E: int, leaves: int, cfg, steps: int, syncs: int):
             nq, ndq, ring = 1, 1 + E, 1
     elif isinstance(inner, Quantized):  # compress_leaf: one of each a leaf
         nq, ndq = 1, 1
-    fwd = cfg.num_layers * steps
+    fwd = flash_layers(cfg) * steps
     tc = fwd if tc_rule(cfg.dtype, cfg.resolved_head_dim) else 0
     tc_bwd = fwd if tc_bwd_rule(cfg.dtype, cfg.resolved_head_dim) else 0
     return {"flash_attention": fwd, "flash_attention_bwd": fwd,
@@ -4064,9 +4253,12 @@ DIST_VS_SIM = [("flat_d0", {}, 2, 1, 0), ("flat_d1", {}, 2, 1, 1),
                ("hier_int8_wire_g4_p2", {"compression": "int8-wire", "hierarchical": True},
                 4, 2, 1),
                # an RMSNorm family through the Trainer (its rmsnorm counters)
-               ("qwen3_int8_wire_d0", {"compression": "int8-wire"}, 2, 1, 0)]
-DIST_VS_SIM_ARCH = {"qwen3_int8_wire_d0": "qwen3-1.7b"}  # the rest: gpt2-medium
-DIST_VS_SIM_BITWISE = ("qwen3_int8_wire_d0",)
+               ("qwen3_int8_wire_d0", {"compression": "int8-wire"}, 2, 1, 0),
+               # MLA and MoE through the Trainer (DeepSeek-V2's reduced config)
+               ("deepseek_int8_wire_d1", {"compression": "int8-wire"}, 2, 1, 1)]
+DIST_VS_SIM_ARCH = {"qwen3_int8_wire_d0": "qwen3-1.7b",
+                    "deepseek_int8_wire_d1": "deepseek-v2-236b-reduced"}  # else gpt2-medium
+DIST_VS_SIM_BITWISE = ("qwen3_int8_wire_d0", "deepseek_int8_wire_d1")
 
 
 def two_rank_world(torch, phases):
@@ -4096,12 +4288,13 @@ def two_rank_world(torch, phases):
 
 def train_dist_vs_sim(torch):
     """The Trainer (ranks on the card) against ``SimulatedRun`` on the card:
-    GPT-2 medium width (Qwen3-1.7B width for the RMSNorm case), 2 layers,
+    GPT-2 medium width (Qwen3-1.7B width for the RMSNorm case; DeepSeek-V2's
+    reduced config, MLA and an MoE layer, for the MoE case), 2 layers,
     fp32, per-group batch 2 x 256, 8 steps of the 40-step schedule with no
     lazy start (four outer syncs). A phase of ``two_rank_world``: it yields
     its 2-rank jobs and spawns its 4-rank world itself."""
     from repro_torch.config import OuterCommConfig, ParallelConfig, TrainConfig
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, get_reduced_config
     from repro_torch.core.simulate import SimulatedRun
     from repro_torch.launch.train import spawn, train_jobs
     from repro_torch.models import registry as R
@@ -4110,8 +4303,10 @@ def train_dist_vs_sim(torch):
 
     steps, per, seq, tol = 8, 2, 256, 1e-5
     cfgs, bases, sds = {}, {}, {}
-    for arch in ("gpt2-medium", "qwen3-1.7b"):
-        cfgs[arch] = get_config(arch).replace(num_layers=2, dtype="float32")
+    for arch in ("gpt2-medium", "qwen3-1.7b", "deepseek-v2-236b-reduced"):
+        cfgs[arch] = (get_reduced_config(arch.removesuffix("-reduced"))
+                      if arch.endswith("-reduced") else get_config(arch)).replace(
+            num_layers=2, dtype="float32")
         bases[arch] = R.init_params(cfgs[arch], seed=0, device="cpu", training=True)
         sds[arch] = {k: v.detach().clone() for k, v in bases[arch].state_dict().items()}
     seen = []
@@ -4156,7 +4351,8 @@ def train_dist_vs_sim(torch):
                                   syncs)
             launches = [o[i]["launches"] for o in outs]
             emit({"phase": "train_dist_vs_sim", "case": name, "strategy": outs[0][i]["strategy"],
-                  "config": f"{arch} width, 2 layers, float32", "ranks": ranks, "pods": P,
+                  "config": (f"{arch}, float32" if arch.endswith("-reduced")
+                             else f"{arch} width, 2 layers, float32"), "ranks": ranks, "pods": P,
                   "sync_delay": delay, "steps": steps, "outer_syncs": syncs,
                   "per_group_batch": per, "seq_len": seq, "loss_dist": loss,
                   "loss_sim": hist["train_loss"], "max_abs_loss_err": loss_err,
@@ -4948,16 +5144,36 @@ def handoff(torch, counters, cfg, ck, step: int, saved):
     return line
 
 
-def elastic_phases(torch, counters):
-    """``elastic_vs_cpu`` and ``switch_vs_cpu`` (each card half, then the
-    CPU halves). Returns the card runs' launches."""
+def elastic_phases(torch, counters, beside):
+    """``elastic_vs_cpu`` and ``switch_vs_cpu``: each card half, then the
+    CPU halves in a thread, on all but ``WORLD_CORES`` of the host's
+    cores, while ``beside`` runs (a function of no arguments that runs the
+    ranks of a spawned world, each a process of its own, and then checks
+    their results): the checks are the same, and the CPU halves use cores
+    the script's own process would leave idle while it waits for the
+    ranks. Returns the card runs' launches and ``beside``'s result."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    threads = torch.get_num_threads()
+
+    def cpu_halves():
+        cores = max(1, len(os.sched_getaffinity(0)) - WORLD_CORES)
+        torch.set_num_threads(min(threads, cores))  # this thread's pool
+        for _, finish in cases:
+            finish()
+
     with large_allocations_on_the_heap():
         cases = elastic_vs_cpu(torch, counters) + switch_vs_cpu(torch, counters)
         free_cuda(torch)
-        for _, finish in cases:
-            finish()
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            halves = pool.submit(cpu_halves)
+            try:
+                out = beside()
+            finally:
+                halves.result()  # its failure, if any, is raised here
+    torch.set_num_threads(threads)
     free_cuda(torch)
-    return [ln for ln, _ in cases]
+    return [ln for ln, _ in cases], out
 
 
 # the CUDA-core flash kernels' entries of the kernels line (their counters
@@ -4968,7 +5184,7 @@ CUDA_CORE_FLASH = ("flash_attention", "flash_attention_bwd")
 def main(argv) -> int:
     studies = {"--witness-lr", "--build-times", "--int8-kv-depth", "--flash-precision",
                "--norm-quant", "--elastic", "--ckpt-depth", "--families", "--recurrent",
-               "--moe"}
+               "--moe", "--moe-train"}
     if len(argv) > 1 or not set(argv) <= studies:
         print(f"usage: chip_smoke.py [{' | '.join(sorted(studies))}]", file=sys.stderr)
         return 2
@@ -5025,8 +5241,8 @@ def main(argv) -> int:
     if argv == ["--elastic"]:
         train_elastic(torch, counters)
         free_cuda(torch)
-        elastic_phases(torch, counters)
-        two_rank_world(torch, [train_dist_elastic_vs_sim(torch), train_dist_auto(torch)])
+        elastic_phases(torch, counters, beside=lambda: two_rank_world(
+            torch, [train_dist_elastic_vs_sim(torch), train_dist_auto(torch)]))
         free_cuda(torch)
         train_dist_ckpt(torch)
         return 0
@@ -5070,6 +5286,20 @@ def main(argv) -> int:
         with large_allocations_on_the_heap():
             moe_vs_cpu(torch, counters)
         return 0
+    if argv == ["--moe-train"]:
+        check_rmsnorm(torch, timer, results)
+        check_flash_bwd(torch, timer, results)
+        del timer
+        emit({"moe_train_kernels": {
+            "rmsnorm_bwd": {k: results["rmsnorm_bwd"]["other_shapes"][k]
+                            for k in ("deepseek_train_q_norm", "deepseek_train_kv_norm")},
+            "flash_attention_bwd": results["flash_attention_bwd"]["kimi_k2_hd112"]}})
+        with large_allocations_on_the_heap():
+            moe_vs_cpu(torch, counters)
+        free_cuda(torch)
+        train_moe(torch, counters)
+        two_rank_world(torch, [train_dist_vs_sim(torch)])
+        return 0
     if argv == ["--norm-quant"]:
         check_quantize(torch, timer, results)
         check_dequantize(torch, timer, results)
@@ -5110,7 +5340,8 @@ def main(argv) -> int:
     serves += serve_families(torch, counters, kvs=(False,), layers=FAMILY_SCRIPT_LAYERS)
     serves += [serve_recurrent(torch, counters, arch, RECURRENT_SCRIPT_LAYERS.get(arch))
                for arch in RECURRENT]
-    serves += [serve_moe(torch, counters, arch, MOE_SCRIPT_LAYERS[arch]) for arch in MOE_ARCHS]
+    serves += [serve_moe(torch, counters, arch, layers)
+               for arch, layers in MOE_SCRIPT_LAYERS.items()]
 
     with large_allocations_on_the_heap() as raised:
         emit({"phase": "host_malloc", "thresholds_raised": raised})
@@ -5145,18 +5376,19 @@ def main(argv) -> int:
     del run
     free_cuda(torch)
     run, minicpm_line = train(torch, counters, phase="train_minicpm", arch="minicpm-2b",
-                              layers=4, steps=20, schedule=MINICPM_SCHEDULE)
+                              cut={"num_layers": 4}, steps=20, schedule=MINICPM_SCHEDULE)
     del run
     free_cuda(torch)
+    moe_line = train_moe(torch, counters)
     elastic_line = train_elastic(torch, counters)
     free_cuda(torch)
-    trains = [train_line, compressed_line, qwen3_line, minicpm_line, elastic_line]
+    trains = [train_line, compressed_line, qwen3_line, minicpm_line, moe_line, elastic_line]
     runs = serves + trains
-    fp32_runs += elastic_phases(torch, counters)
-    vs_sim, dists, elastic_vs_sim, auto = two_rank_world(
-        torch, [train_dist_vs_sim(torch), train_dist(torch), train_dist_elastic_vs_sim(torch),
-                train_dist_auto(torch)])
-    fp32_runs += vs_sim + elastic_vs_sim
+    elastic_runs, (vs_sim, dists, elastic_vs_sim, auto) = elastic_phases(
+        torch, counters, beside=lambda: two_rank_world(
+            torch, [train_dist_vs_sim(torch), train_dist(torch),
+                    train_dist_elastic_vs_sim(torch), train_dist_auto(torch)]))
+    fp32_runs += elastic_runs + vs_sim + elastic_vs_sim
     dists += auto
     free_cuda(torch)
     _, handoff_line = train_dist_ckpt(torch, counters=counters)

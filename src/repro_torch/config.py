@@ -136,9 +136,10 @@ class ParallelConfig:
     groups. Field for field the reference's, with three defaults changed so
     that the all-defaults config is one the port runs: ``model_axis_size``
     1, ``fsdp`` False and ``shard_experts`` False. In-group tensor
-    parallelism, FSDP and expert sharding are ROADMAP.md queue 1, item 10:
-    asking for them raises ``NotImplementedError``, as does activation
-    checkpointing (``remat``), context parallelism and scanned layers.
+    parallelism, FSDP and expert sharding are ROADMAP.md queue 1, "In-group
+    TP/FSDP, ``Sharded`` and the memory dry run": asking for them raises
+    ``NotImplementedError``, as does activation checkpointing (``remat``),
+    context parallelism and scanned layers.
     ``use_pallas`` is kept for the field list and read by nothing: which
     kernel runs follows the tensor's device.
     """
@@ -166,8 +167,8 @@ class ParallelConfig:
         asked = [k for k, v in unported.items() if v]
         if asked:
             raise NotImplementedError(
-                f"ParallelConfig: {', '.join(asked)} not ported yet (in-group "
-                f"sharding is ROADMAP.md queue 1, item 10)")
+                f"ParallelConfig: {', '.join(asked)} not ported yet (ROADMAP.md queue 1, "
+                f"\"In-group TP/FSDP, Sharded and the memory dry run\")")
         if self.num_microbatches < 1:
             raise ValueError(f"num_microbatches must be >= 1, got {self.num_microbatches}")
 

@@ -92,7 +92,7 @@ def _check_ported(strategy) -> None:
         raise NotImplementedError(
             f"SimulatedRun: outer strategy {type(strategy).__name__} is not one the port "
             f"runs ({', '.join(c.__name__ for c in PORTED)}); Sharded is ROADMAP.md queue "
-            f"1, item 10")
+            f"1, \"In-group TP/FSDP, Sharded and the memory dry run\"")
 
 
 @dataclass
@@ -112,12 +112,15 @@ class SimulatedRun:
     def __init__(self, mc: ModelConfig, tc: TrainConfig, *, num_groups: int,
                  seed: int = 0, num_pods: int = 1, strategy=None,
                  sync_controller=None, membership=None, checkpoint_manager=None,
-                 device="cuda", params=None):
+                 device="cuda", params=None, val_rows: int = 16):
         """``params``: initial parameters in training storage (for example
         ``convert.params_from_jax(..., training=True)``); by default they
         are made from ``seed`` on ``device``. ``membership``: a
         ``MembershipController`` over ``num_groups``; ``checkpoint_manager``:
-        the donor of a ``rejoin_bootstrap="checkpoint"`` rejoin."""
+        the donor of a ``rejoin_bootstrap="checkpoint"`` rejoin.
+        ``val_rows``: the sequences of ``val_loss``'s fixed batch (the
+        reference's 16; fewer where a model's validation forward would not
+        fit beside its training state)."""
         if tc.optimizer != "adamw" and num_groups < 1:
             raise ValueError(f"num_groups must be >= 1, got {num_groups}")
         validate_pod_grouping(num_groups, num_pods)
@@ -167,6 +170,7 @@ class SimulatedRun:
         # the new momentum and target overwrite the outer state in place
         # when it is fp32 (core/outer.py)
         self._inplace_outer = tc.opt_state_dtype == "float32"
+        self._val_rows = val_rows
         self._val_batch = None
         # the (single) in-flight window, uniform over ops:
         # (apply_at_step, "outer", target, snapshots) or
@@ -403,10 +407,12 @@ class SimulatedRun:
 
     @torch.no_grad()
     def val_loss(self, params) -> float:
+        """The loss on a fixed batch of ``val_rows`` sequences (16 by
+        default, as in the reference)."""
         if self._val_batch is None:
             gen = torch.Generator().manual_seed(99991)
             self._val_batch = self._to_device(
-                make_train_batch(self.lm, gen, 16, self.tc.seq_len))
+                make_train_batch(self.lm, gen, self._val_rows, self.tc.seq_len))
         return float(R.loss_fn(params, self.mc, self._val_batch)[0])
 
     @torch.no_grad()

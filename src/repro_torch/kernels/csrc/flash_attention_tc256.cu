@@ -26,8 +26,8 @@
 //   such accumulator and three sets of P fragments would spill. At hd 256
 //   only serving runs this kernel (models/transformer.py:check_trainable
 //   refuses the recurrent families, and the backward at hd 256 stays on
-//   the CUDA cores); training at hd 256 (ROADMAP queue 1, item 6.4) must
-//   look at P's rounding again;
+//   the CUDA cores); training at hd 256 (ROADMAP queue 1, "Training the
+//   recurrent families") must look at P's rounding again;
 // - a block takes 64 query rows of two query heads that share a kv head,
 //   one warpgroup each, both reading the same K / V stage, so the K / V
 //   bytes that every query head re-reads from L2 are halved (RecurrentGemma

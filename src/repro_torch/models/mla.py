@@ -9,6 +9,14 @@ does the port in plain PyTorch, softmax in fp32; the latent norms
 (``q_norm``, ``kv_norm``, eps 1e-6) go through the RMSNorm kernel
 (``layers.rms_norm_headwise``), two launches a layer.
 
+Training differentiates the decompressed path: the two latent norms
+through the RMSNorm kernel's backward at (B·S, ``q_lora_rank``) and
+(B·S, ``kv_lora_rank``), the rest through autograd. The reference splits
+the queries into blocks (``_resolve_chunk``) to bound the memory of its
+scores; each query row sums the same terms either way, so the port keeps
+the whole-sequence form, whose (B, H, S, S) fp32 scores and
+probabilities are what it costs.
+
 Storage: ``w_dq``, ``w_uq``, ``w_q``, ``w_dkv``, ``w_kr`` and ``wo`` are
 cast to ``cfg.dtype`` at each use (serving storage keeps them so);
 ``w_uk`` and ``w_uv`` stay in ``cfg.param_dtype``, because the absorbed

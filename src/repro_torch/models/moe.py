@@ -13,6 +13,19 @@ token count: the capacity ``C`` is a host integer computed from ``T``, and
 nothing reads a value back to the host, so a step queues on the card
 without waiting.
 
+Training differentiates the flat mode, as the reference trains with it.
+The backward is deterministic, so a multi-process Trainer and the
+simulator give the same bits: each token's K assignments are its row
+broadcast, not gathered (``xf[arange(T*K) // K]`` would backpropagate
+through an indexed accumulate whose order CUDA does not fix), so their
+gradient is a sum over K; the scatter into the buffer and the gather out
+of it touch each kept slot once. A dropped assignment's gradient is zero:
+it was written to the sentinel row, which the experts never read. The
+router's gradient flows through the mean probabilities of the
+load-balance loss, the z-loss and the renormalized top-k probabilities
+(the sort's backward puts each back at its expert); the per-expert count
+``fe`` carries none, in either package.
+
 Aux losses: the switch-style load-balance loss and the router z-loss,
 returned with the per-expert load so ``transformer.forward`` can sum them.
 """
@@ -112,12 +125,13 @@ def apply_moe(p, x, cfg: ModelConfig):
     sorted_expert = flat_expert[sort_idx]
     first = torch.searchsorted(sorted_expert, torch.arange(E, device=dev), side="left")
     pos_in_expert = torch.arange(T * K, device=dev) - first[sorted_expert]
-    token_of_assign = torch.arange(T * K, device=dev) // K
     slot_sorted = torch.where(pos_in_expert < C, sorted_expert * C + pos_in_expert, E * C)
     # invert the sort: the slot of each assignment, E*C = dropped
     slot = torch.empty_like(slot_sorted).scatter_(0, sort_idx, slot_sorted)
     buf = torch.zeros((E * C + 1, D), dtype=x.dtype, device=dev)
-    buf[slot] = xf[token_of_assign]  # the sentinel row takes every dropped one
+    # assignment a is token a // K's row (the reference's xf[token_of_assign]);
+    # the sentinel row takes every dropped one
+    buf[slot] = xf[:, None].expand(T, K, D).reshape(T * K, D)
     expert_in = buf[:E * C].view(E, C, D)
 
     # ---- expert computation (SwiGLU), batched over the experts ----

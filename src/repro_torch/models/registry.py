@@ -34,8 +34,8 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
 
     Positions with label < 0 are masked out. Returns (total, metrics) with
     the reference's metric keys; an MoE model's total adds
-    ``router_aux_loss_coef * moe_aux + 1e-4 * moe_z``. (Training MoE models
-    is not ported, ``T.check_trainable``: its value is the forward's.)
+    ``router_aux_loss_coef * moe_aux + 1e-4 * moe_z``, in the reference's
+    order, and the training steps differentiate that total.
     """
     logits, aux = forward(params, cfg, batch)
     labels = batch["labels"].long()

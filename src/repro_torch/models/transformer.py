@@ -6,9 +6,10 @@ layers whose blocks are attention ("attn" / "local_attn": GQA, or MLA with
 "slstm"), each followed by an MLP or, from layer ``first_dense_layers`` of
 an MoE model on, the routed-experts layer. Encoder-decoder models are not
 ported yet and raise. Models with recurrent blocks or MLA serve through
-the dense path (``registry.prefill`` / ``decode_step``); training them,
-and training MoE models, is not ported yet and raises
-(:func:`check_trainable`).
+the dense path (``registry.prefill`` / ``decode_step``). MoE and MLA
+models train (the backward runs through the MoE dispatch and MLA's
+decompressed attention); training models with recurrent blocks is not
+ported yet and raises (:func:`check_trainable`).
 
 Parameters are an ``nn.ModuleDict`` tree with the reference's key names and
 layouts, so the state-dict key ``layers.3.mix.wq`` is the reference's pytree
@@ -62,16 +63,12 @@ def check_ported(cfg: ModelConfig) -> None:
 def check_trainable(cfg: ModelConfig) -> None:
     """Raise for a configuration the port can serve but not train yet."""
     check_ported(cfg)
-    if cfg.is_moe or cfg.attention_kind == "mla":
-        raise NotImplementedError(
-            f"{cfg.name}: training MoE and MLA models is not ported yet (ROADMAP.md queue 1: "
-            f"the aux losses through SimulatedRun and the Trainer, the backward through the "
-            f"dispatch); they serve (MLA through the dense path)")
     recurrent = block_kinds(cfg) & set(RECURRENT_KINDS)
     if recurrent:
         raise NotImplementedError(
             f"{cfg.name}: training models with recurrent blocks {sorted(recurrent)} is not "
-            f"ported yet (ROADMAP.md queue 1); they serve through the dense path")
+            f"ported yet (ROADMAP.md queue 1, \"Training the recurrent families\"); they "
+            f"serve through the dense path")
 
 
 def _layer_window(cfg: ModelConfig, layer_idx: int) -> int:

@@ -244,7 +244,7 @@ def build_train_steps(mc: ModelConfig, tc: TrainConfig, pc: ParallelConfig, mesh
     if isinstance(strategy, Chunked):
         raise NotImplementedError(
             "Chunked is not ported to the multi-process Trainer yet (ROADMAP.md queue 1, "
-            "item 8)")
+            "\"Chunked in the Trainer\")")
     dev = mesh.device
     world_group_size = mesh.world_size
     nm = pc.num_microbatches

@@ -27,8 +27,9 @@ dequantize launches its kernel. Elastic-membership ``weights`` run through
 every reduction as in the reference (``sync/base.py:weighted_stack_mean``,
 ``ReduceCtx.weights``): every group still compresses its payload and keeps
 its own residual, and a weight-0 source adds nothing to the mean. Still
-raising ``NotImplementedError``: ``Sharded`` (ROADMAP.md queue 1, item
-10) and ``Chunked`` in the Trainer.
+raising ``NotImplementedError``: ``Sharded`` (ROADMAP.md queue 1,
+"In-group TP/FSDP, ``Sharded`` and the memory dry run") and ``Chunked``
+in the Trainer (ROADMAP.md queue 1, "``Chunked`` in the Trainer").
 """
 
 from __future__ import annotations
@@ -454,7 +455,8 @@ class Chunked(OuterSyncStrategy):
     def reduce_leaves(self, deltas, residuals, tc, ctx):
         raise NotImplementedError(
             "Chunked is not ported to the multi-process Trainer yet (per-span dispatch "
-            "and apply over torch.distributed; ROADMAP.md queue 1, item 8)")
+            "and apply over torch.distributed; ROADMAP.md queue 1, \"Chunked in the "
+            "Trainer\")")
 
     def sim_dispatch(self, group_leaves, outer, tc, *, mu, lr, num_pods: int = 1,
                      weights=None, inplace: bool = False):
@@ -499,7 +501,8 @@ def resolve_strategy(cfg) -> OuterSyncStrategy:
     if comm.sharded:
         raise NotImplementedError(
             "the Sharded outer strategy is not ported yet: its layout is the "
-            "in-group mesh's (ROADMAP.md queue 1, item 10)")
+            "in-group mesh's (ROADMAP.md queue 1, \"In-group TP/FSDP, Sharded and the "
+            "memory dry run\")")
     if comm.hierarchical:
         core = Hierarchical(inner=core)
     if comm.chunks > 1:

@@ -8,7 +8,8 @@ The forward's logits and summed router losses (``moe_aux``, ``moe_z``) and
 reference's, MLA's latent cache included); Kimi-K2 through the paged path
 (``generate``'s greedy tokens against the reference's ``generate`` with
 bf16 K/V pools and with int8 blocks, prompts padded to the block size so
-the prefill routes pad tokens too); the launcher on both; training refused.
+the prefill routes pad tokens too); the launcher on both; both accepted for
+training (their gradients are held in ``test_torch_moe_train.py``).
 Logits within 1e-4 of the reference's largest |value| and losses within
 1e-5 relative (the bounds of the other model tests); tokens exactly.
 """
@@ -175,10 +176,22 @@ def test_launcher_serves_the_moe_families_on_the_cpu(arch, path, capsys):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_training_refuses_moe_and_mla(arch):
+    """Since MoE and MLA train, the name keeps the case count: both archs
+    pass ``check_trainable`` and build a ``SimulatedRun`` on the CPU, in
+    training storage with the experts' and MLA's leaves under AdamW, and
+    a model with recurrent blocks is still refused."""
     cfg = pt_config.ModelConfig(**dataclasses.asdict(jax_configs.get_reduced_config(arch)))
     PT.check_ported(cfg)  # it serves
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        PT.check_trainable(cfg)
-    with pytest.raises(NotImplementedError):
-        SimulatedRun(cfg, TrainConfig(total_steps=4, global_batch_size=2, seq_len=8),
-                     num_groups=1, device="cpu")
+    PT.check_trainable(cfg)  # and trains
+    run = SimulatedRun(cfg, TrainConfig(total_steps=4, global_batch_size=2, seq_len=8),
+                       num_groups=1, device="cpu")
+    leaves = PT.param_leaves(run.state.params)
+    names = [n for n, _ in leaves]
+    assert "layers.1.mlp.router" in names and "layers.1.mlp.shared.w_up" in names
+    assert ("layers.0.mix.kv_norm" in names) == (cfg.attention_kind == "mla")
+    assert all(t.dtype == torch.float32 and t.requires_grad for _, t in leaves)
+    assert len(run.state.opt.mu) == len(leaves)
+    recurrent = pt_config.ModelConfig(**dataclasses.asdict(
+        jax_configs.get_reduced_config("xlstm-1.3b")))
+    with pytest.raises(NotImplementedError, match="Training the recurrent families"):
+        PT.check_trainable(recurrent)

@@ -8,7 +8,8 @@ fixed TCP port; each world runs several training jobs one after another
 30 s plus 15 s a job (past it every rank is killed and the test fails;
 a job takes about a second here when the machine is idle). Every run uses the reduced GPT-2 shape (2 layers,
 d_model 256) in fp32 with numpy batches made from a seed, fed to every
-side. On the CPU the wire exchange is its plain version (gloo all-gather),
+side, but for world 2's two DeepSeek-V2 jobs (its reduced config: MLA and
+an MoE layer). On the CPU the wire exchange is its plain version (gloo all-gather),
 the quantize, dequantize and pier-update wrappers their plain versions.
 
 The simulator runs in this process with the ranks' thread count
@@ -28,6 +29,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 import repro.config as jax_config  # noqa: E402
+import repro.configs as jax_configs  # noqa: E402
 from repro.core.simulate import SimulatedRun as JaxRun  # noqa: E402
 from repro.models import registry as JR  # noqa: E402
 import repro_torch.config as pt_config  # noqa: E402
@@ -48,6 +50,11 @@ MC_KW = dict(num_layers=2, d_model=256, num_heads=4, num_kv_heads=4, d_ff=512,
              positional="learned", max_position_embeddings=64, tie_embeddings=True)
 JMC = jax_config.ModelConfig(**MC_KW)
 PMC = pt_config.ModelConfig(**MC_KW)
+# DeepSeek-V2-236B's reduced config (MLA, one dense and one MoE layer; the
+# same 512-token vocabulary), fp32
+JDS = dataclasses.replace(jax_configs.get_reduced_config("deepseek-v2-236b"),
+                          dtype="float32", param_dtype="float32")
+PDS = pt_config.ModelConfig(**dataclasses.asdict(JDS))
 TC_KW = dict(total_steps=40, global_batch_size=4, seq_len=16, sync_interval=2,
              inner_lr=4e-4, inner_min_lr=4e-5)
 STEPS = 8
@@ -75,11 +82,11 @@ def _pc(ranks, groups, pods=1):
                                     num_pods=pods)
 
 
-def _base_params():
+def _base_params(jmc=JMC, pmc=PMC, init=JR.init_params):
     """The reference's initial parameters for seed 0 (those its simulator
     starts from), in the port's training storage."""
-    tree = jax.tree.map(np.asarray, JR.init_params(jax.random.PRNGKey(0), JMC))
-    return params_from_jax(tree, PMC, device="cpu", training=True)
+    tree = jax.tree.map(np.asarray, init(jax.random.PRNGKey(0), jmc))
+    return params_from_jax(tree, pmc, device="cpu", training=True)
 
 
 def _state_dict(params):
@@ -91,13 +98,13 @@ def _spawn(jobs, nproc, tmp_path):
                     timeout=30 + 15 * len(jobs), workdir=str(tmp_path))
 
 
-def _sim(tc, G, batches, base, *, P=1):
+def _sim(tc, G, batches, base, *, P=1, mc=PMC):
     """The port's simulator on the same params and batches, with the thread
     count of a rank."""
     threads = torch.get_num_threads()
     torch.set_num_threads(LT.CPU_THREADS)
     try:
-        run = SimulatedRun(PMC, tc, num_groups=G, num_pods=P, device="cpu",
+        run = SimulatedRun(mc, tc, num_groups=G, num_pods=P, device="cpu",
                            params=copy.deepcopy(base))
         run._global_batch = lambda s: batches[s]
         hist = run.run(STEPS)
@@ -133,7 +140,7 @@ def _ulps(xs, ys):
 def test_parallel_config_copy_matches_reference():
     """The copy has the reference's fields; three defaults differ so that the
     all-defaults config is one the port runs (model axis 1, no FSDP, no
-    expert sharding: in-group sharding is ROADMAP queue 1, item 10); the
+    expert sharding: ROADMAP queue 1, "In-group TP/FSDP"); the
     properties agree on every layout the port runs."""
     jf = {f.name: f.default for f in dataclasses.fields(jax_config.ParallelConfig)}
     pf = {f.name: f.default for f in dataclasses.fields(pt_config.ParallelConfig)}
@@ -320,6 +327,11 @@ WORLD2 = [(f"{name}-d{d}", comm, d, 0.0)
           for d in (0, 1)]
 WORLD2 += [("warm-flat-d1", {}, 1, 0.1), ("warm-int8-wire-d1", {"compression": "int8-wire"}, 1, 0.1),
            ("warm-rs-ag-d0", {"compression": "rs-ag"}, 0, 0.1)]
+# DeepSeek-V2 reduced (MLA + MoE) in the same world, after the GPT-2 jobs:
+# (name, OuterCommConfig kwargs, sync_delay, AdamW eps); the flat job at
+# eps 1e-6 (``test_world2_moe_flat_trainer_matches_simulator``)
+WORLD2_MOE = [("deepseek-flat-d0", {}, 0, 1e-6),
+              ("deepseek-int8-wire-d1", {"compression": "int8-wire"}, 1, 1e-8)]
 
 
 @pytest.fixture(scope="module")
@@ -330,12 +342,18 @@ def world2(tmp_path_factory):
     sd = _state_dict(base)
     jobs = [((PMC, _tc(comm, sync_delay=d, warmup_frac=wf), _pc(2, 2), STEPS),
              dict(params=sd, batches=batches, keep_params=True)) for _, comm, d, wf in WORLD2]
+    # jitted: the eager init's bits without its per-operation compiles
+    base_moe = _base_params(JDS, PDS, jax.jit(JR.init_params, static_argnums=1))
+    sd_moe = _state_dict(base_moe)
+    jobs += [((PDS, _tc(comm, sync_delay=d, warmup_frac=0.0, adam_eps=eps), _pc(2, 2), STEPS),
+              dict(params=sd_moe, batches=batches, keep_params=True))
+             for _, comm, d, eps in WORLD2_MOE]
     got = _spawn(jobs, 2, tmp_path_factory.mktemp("world2"))
-    return nb, batches, base, got
+    return nb, batches, base, got, base_moe
 
 
 def _vs_sim(world2, i):
-    nb, batches, base, got = world2
+    nb, batches, base, got, _ = world2
     _, comm, d, wf = WORLD2[i]
     tc = _tc(comm, sync_delay=d, warmup_frac=wf)
     run, hist = _sim(tc, 2, batches, base)
@@ -400,7 +418,7 @@ def test_world2_trainer_matches_reference_simulator(world2):
     """The warmup int8-wire run at delay 1 against the reference simulator on
     the same parameters and batches, within the limits that hold the port's
     simulator to it (loss 1e-5, parameters 5e-5; measured 9.5e-7 and 3.7e-5)."""
-    nb, _, base, got = world2
+    nb, _, base, got, _ = world2
     i = 9
     _, comm, d, wf = WORLD2[i]
     jtc = jax_config.TrainConfig(**TC_KW, sync_delay=d, warmup_frac=wf,
@@ -418,6 +436,49 @@ def test_world2_trainer_matches_reference_simulator(world2):
     for g in range(2):
         assert _max_diff(got[g][i]["params"],
                          [torch.from_numpy(np.asarray(x[g])) for x in gp]) <= 5e-5
+
+
+def _vs_sim_moe(world2, i):
+    _, batches, _, got, base_moe = world2
+    _, comm, d, eps = WORLD2_MOE[i]
+    run, hist = _sim(_tc(comm, sync_delay=d, warmup_frac=0.0, adam_eps=eps), 2, batches,
+                     base_moe, mc=PDS)
+    j = len(WORLD2) + i
+    return run, hist, [h["loss"] for h in got[0][j]["history"]], [r[j] for r in got]
+
+
+def test_world2_moe_int8_wire_trainer_equals_simulator_bit_for_bit(world2):
+    """DeepSeek-V2 reduced (MLA + MoE: the router's aux and z losses in
+    every rank's loss, the experts' AdamW state per leaf), int8-wire at
+    delay 1, four outer syncs: every loss, every final parameter of both
+    groups and both residuals equal the simulator's bit for bit."""
+    run, hist, loss, ranks = _vs_sim_moe(world2, 1)
+    assert loss == hist["train_loss"]
+    for g, r in enumerate(ranks):
+        assert r["num_syncs"] == 4
+        for a, b in zip(r["params"], _group_params(run, g)):
+            assert torch.equal(a, b)
+        for a, b in zip(r["residual"], run.state.outer.residual):
+            assert torch.equal(a, b[g])
+    names = [n for n, _ in param_leaves(run.state.group_params[0])]
+    assert "layers.1.mlp.router" in names and "layers.0.mix.kv_norm" in names
+
+
+def test_world2_moe_flat_trainer_matches_simulator(world2):
+    """DeepSeek-V2 reduced, flat fp32 at delay 0: the Trainer means Δθ, the
+    simulator θ (``test_world2_flat_trainer_matches_simulator``), so the
+    two differ in the last bits of Δθ; the same limits, loss 1e-6 and
+    parameters 2e-6. AdamW's eps is 1e-6 in this job: at the default 1e-8
+    the inner steps after each sync turn those last bits into 2.2e-6 at
+    elements whose gradient is within a few eps of zero (an MoE layer's
+    rarely routed experts, an untied table's rows), the amplification
+    ``test_torch_moe_sim.py`` describes; the int8-wire job, bit for bit,
+    keeps 1e-8."""
+    run, hist, loss, ranks = _vs_sim_moe(world2, 0)
+    np.testing.assert_allclose(loss, hist["train_loss"], rtol=0, atol=1e-6)
+    for g, r in enumerate(ranks):
+        assert r["num_syncs"] == 4
+        assert _max_diff(r["params"], _group_params(run, g)) <= 2e-6
 
 
 # ===========================================================================
