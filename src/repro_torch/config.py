@@ -24,8 +24,7 @@ class ModelConfig:
     """Architecture definition.
 
     One decoder substrate covers dense / MoE / SSM / hybrid / VLM families;
-    encoder-decoder (audio) adds a stubbed-frontend encoder stack. The port
-    runs the dense GPT-2 family so far (``repro_torch.configs``).
+    encoder-decoder (audio) adds a stubbed-frontend encoder stack.
     """
 
     name: str = "unnamed"

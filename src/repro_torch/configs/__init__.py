@@ -5,11 +5,14 @@ The port runs the paper's own GPT-2 family, the dense RMSNorm families
 a tied table of 122 753 rows) and Granite-8B (an untied ``lm_head``), and,
 through the dense serve path, the recurrent families RecurrentGemma-9B
 (RG-LRU and local MQA attention) and xLSTM-1.3B (mLSTM and sLSTM), and
-the MoE families for serving: DeepSeek-V2-236B (MLA attention, through
-the dense serve path) and Kimi-K2 (GQA, through the paged path). Each
-module is a copy of its counterpart in ``src/repro/configs/`` (the
-``tests/test_torch_*`` files check the copies field by field). An architecture that the reference
-registers but the port does not run yet raises ``NotImplementedError``.
+the MoE families: DeepSeek-V2-236B (MLA attention, through the dense
+serve path) and Kimi-K2 (GQA, through the paged path), the early-fusion
+VLM Chameleon-34B (GQA 64 / 8 with qk-norm, through the paged path) and
+the audio encoder-decoder Whisper-large-v3 (a bidirectional encoder over
+stubbed frame embeddings and cross-attention, through the dense serve
+path). Each module is a copy of its counterpart in ``src/repro/configs/``
+(the ``tests/test_torch_*`` files check the copies field by field), and
+every architecture the reference registers is ported.
 """
 
 from __future__ import annotations
@@ -21,10 +24,7 @@ from repro_torch.config import ModelConfig
 
 ARCH_MODULES = ["gpt2_small", "gpt2_medium", "gpt2_xl", "gpt2_7b", "qwen3_1_7b",
                 "minicpm_2b", "granite_8b", "qwen3_14b", "recurrentgemma_9b", "xlstm_1_3b",
-                "deepseek_v2_236b", "kimi_k2_1t_a32b"]
-
-# Registered by the reference package, not ported yet (ROADMAP.md queue 1).
-NOT_PORTED = ("chameleon-34b", "whisper-large-v3")
+                "deepseek_v2_236b", "kimi_k2_1t_a32b", "chameleon_34b", "whisper_large_v3"]
 
 # display names as the reference's registry spells them, and its aliases
 _DISPLAY = {"qwen3_1_7b": "qwen3-1.7b", "xlstm_1_3b": "xlstm-1.3b"}
@@ -36,11 +36,6 @@ def _module_for(name: str):
     key = name.replace("_", "-").lower()
     mod = _ALIASES.get(key) or _CANONICAL.get(key)
     if mod is None:
-        if key in NOT_PORTED or key.replace(".", "-") in {
-                n.replace(".", "-") for n in NOT_PORTED}:
-            raise NotImplementedError(
-                f"architecture {name!r} is not ported to PyTorch yet; "
-                f"ported: {sorted(_CANONICAL)}")
         raise KeyError(
             f"unknown architecture {name!r}; available: {sorted(_CANONICAL)}")
     return importlib.import_module(f"repro_torch.configs.{mod}")

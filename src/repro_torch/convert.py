@@ -9,8 +9,11 @@ recurrent blocks' leaves included (mLSTM's (H, dh, dh) projections and
 (H, dh) ``out_norm``, the (W, C) conv kernels, RG-LRU's ``lambda``), and
 the MoE and MLA ones (an MoE layer's fp32 ``router``, its (E, D, F) /
 (E, F, D) experts and its ``shared`` MLP, ``layers.1.mlp.shared.w_up``;
-MLA's projections, with ``w_uk`` and ``w_uv`` kept in fp32), each in the
-storage its name gives (``layers.stored_dtype``). This module imports no
+MLA's projections, with ``w_uk`` and ``w_uv`` kept in fp32), and an
+encoder-decoder's ``encoder`` subtree (``encoder.layers.0.mix.wq``,
+``encoder.final_norm.scale``, ``encoder.positions``) and each decoder
+layer's ``norm_cross`` / ``cross`` sub-block, each in the storage its name
+gives (``layers.stored_dtype``). This module imports no
 JAX: it only reads numpy arrays.
 """
 

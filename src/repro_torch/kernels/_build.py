@@ -59,12 +59,12 @@ SIGNATURES = {
         _P, _I, _L, _P, _P, _L, _I, _F, _F, _I, _P],
     "dequantize_blockwise_launch": [_P, _P, _P, _L, _I, _I, _P],
     "flash_attention_fwd_launch": [
-        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
+        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
     "flash_attention_bwd_launch": [
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
         _I, _F, _F, _I, _P],
     "flash_attention_fwd_tc_launch": [
-        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
+        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
     "flash_attention_bwd_tc_launch": [
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
     "pier_update_launch": [

@@ -7,11 +7,13 @@
 // gradient through the same kernel (kernels/flash_attention.py:
 // FlashAttentionFn).
 //
-// Computes, for q (B,S,H,hd) and k/v (B,S,Hkv,hd) in one float dtype,
+// Computes, for q (B,S,H,hd) and k/v (B,Skv,Hkv,hd) in one float dtype,
 //   o = softmax(mask(softcap(q k^T * 1/sqrt(hd)))) v      -> (B,S,H,hd)
 // with an fp32 online softmax (m, l, acc), the query head h reading kv head
-// h / (H / Hkv), and the masks of the reference kernel: keys past S,
-// causal (k <= q), window (q - k < window). With a non-null `lse` the
+// h / (H / Hkv), and the masks of the reference kernel: keys past Skv,
+// causal (k <= q), window (q - k < window). Skv equals S but for an
+// encoder-decoder's cross-attention, which has no mask (the wrapper
+// refuses Skv != S with a causal mask or a window). With a non-null `lse` the
 // forward also writes each row's log-sum-exp, m + log(max(l, 1e-30)), in
 // fp32 (B, H, S), in the same scaled, softcapped score domain; the backward
 // recomputes P from it.
@@ -27,8 +29,8 @@
 // broadcasts; the P.V loop gives each lane output dims lane + 32c and
 // reads P as float4 broadcasts. Key tiles wholly above the causal diagonal
 // or before the window are never visited, and the query tiles with the
-// most work are launched first. Any S >= 1 is taken: rows and keys past S
-// are masked here, not padded by the caller.
+// most work are launched first. Any S >= 1 is taken: rows past S and keys
+// past Skv are masked here, not padded by the caller.
 
 #include "flash_attention.cuh"
 
@@ -39,7 +41,7 @@ constexpr int kBatch = 8;             // loads a thread issues before it waits
 template <typename T, int NC>  // NC = ceil(hd / 32): output dims per lane
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, float* __restrict__ lse, int S, int H, int Hkv, int hd,
+    T* __restrict__ o, float* __restrict__ lse, int S, int Skv, int H, int Hkv, int hd,
     int causal, int window, float softcap, float scale) {
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;                 // [kBQ][hd]
@@ -55,8 +57,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   const long long q_ld = static_cast<long long>(H) * hd;    // per position
   const long long kv_ld = static_cast<long long>(Hkv) * hd;
   const T* qb = q + static_cast<long long>(b) * S * q_ld + static_cast<long long>(h) * hd;
-  const T* kb = k + static_cast<long long>(b) * S * kv_ld + static_cast<long long>(hk) * hd;
-  const T* vb = v + static_cast<long long>(b) * S * kv_ld + static_cast<long long>(hk) * hd;
+  const T* kb = k + static_cast<long long>(b) * Skv * kv_ld + static_cast<long long>(hk) * hd;
+  const T* vb = v + static_cast<long long>(b) * Skv * kv_ld + static_cast<long long>(hk) * hd;
   T* ob = o + static_cast<long long>(b) * S * q_ld + static_cast<long long>(h) * hd;
 
   // Tiles are staged kBatch elements per thread at a time: all loads of a
@@ -87,7 +89,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   }
 
   const int r0 = warp * kRows;
-  const int k_end = causal ? min(S, q0 + kBQ) : S;
+  const int k_end = causal ? min(S, q0 + kBQ) : Skv;
   int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
   k_begin = (k_begin / kBK) * kBK;
   float* P = Ps + warp * kRows * kBK;
@@ -102,7 +104,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
         const int j = e / hd, d = e - j * hd;
         const int kj = k0 + j;
         kx[u] = vx[u] = 0.f;
-        if (e < kBK * hd && kj < S) {
+        if (e < kBK * hd && kj < Skv) {
           const long long off = static_cast<long long>(kj) * kv_ld + d;
           kx[u] = load_f(kb, off);
           vx[u] = load_f(vb, off);
@@ -143,7 +145,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
       const int qi = q0 + r0 + r;
       float sc = s[r] * scale;
       if (softcap > 0.f) sc = softcap * tanhf(sc / softcap);
-      bool ok = kj < S;
+      bool ok = kj < Skv;
       if (causal) ok = ok && kj <= qi;
       if (window > 0) ok = ok && (qi - kj) < window;
       sc = ok ? sc : NEG_INF_F;
@@ -198,7 +200,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 
 template <typename T, int NC>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int B, int S, int H, int Hkv, int hd, int causal, int window,
+           int B, int S, int Skv, int H, int Hkv, int hd, int causal, int window,
            float softcap, float scale, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (static_cast<size_t>(kBQ) * hd + static_cast<size_t>(hd) * kKtLd +
@@ -210,18 +212,18 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   const dim3 grid(static_cast<unsigned>(B * H), static_cast<unsigned>((S + kBQ - 1) / kBQ));
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, S, H, Hkv, hd, causal, window, softcap, scale);
+      static_cast<T*>(o), lse, S, Skv, H, Hkv, hd, causal, window, softcap, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_nc(const void* q, const void* k, const void* v, void* o, float* lse,
-              int B, int S, int H, int Hkv, int hd, int causal, int window,
+              int B, int S, int Skv, int H, int Hkv, int hd, int causal, int window,
               float softcap, float scale, cudaStream_t stream) {
   switch ((hd + 31) / 32) {
 #define REPRO_FA_CASE(NC) \
   case NC:                \
-    return launch<T, NC>(q, k, v, o, lse, B, S, H, Hkv, hd, causal, window, softcap, scale, \
+    return launch<T, NC>(q, k, v, o, lse, B, S, Skv, H, Hkv, hd, causal, window, softcap, scale, \
                          stream);
     REPRO_FA_CASE(1)
     REPRO_FA_CASE(2)
@@ -239,10 +241,12 @@ int launch_nc(const void* q, const void* k, const void* v, void* o, float* lse,
 
 }  // namespace
 
+// q (B,S,H,hd), k/v (B,Skv,Hkv,hd) of `dtype` on card `device`; o like q;
+// lse fp32 (B,H,S) or null. Skv != S only with causal 0 and window 0.
 extern "C" int flash_attention_fwd_launch(const void* q, const void* k,
                                           const void* v, void* o, void* lse,
                                           int dtype, int B, int S, int H,
-                                          int Hkv, int hd, int causal,
+                                          int Hkv, int hd, int Skv, int causal,
                                           int window, float softcap,
                                           float scale, int device, void* stream) {
   // bind the calling thread to the tensors' card (autograd's thread may
@@ -250,13 +254,15 @@ extern "C" int flash_attention_fwd_launch(const void* q, const void* k,
   const cudaError_t bound = cudaSetDevice(device);
   if (bound != cudaSuccess) return static_cast<int>(bound);
   if (B == 0 || S == 0) return static_cast<int>(cudaGetLastError());
+  if (Skv < 1 || (Skv != S && (causal || window > 0)))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   if (dtype == DT_F32)
-    return launch_nc<float>(q, k, v, o, l, B, S, H, Hkv, hd, causal, window, softcap, scale,
-                            s);
+    return launch_nc<float>(q, k, v, o, l, B, S, Skv, H, Hkv, hd, causal, window, softcap,
+                            scale, s);
   if (dtype == DT_BF16)
-    return launch_nc<__nv_bfloat16>(q, k, v, o, l, B, S, H, Hkv, hd, causal, window,
+    return launch_nc<__nv_bfloat16>(q, k, v, o, l, B, S, Skv, H, Hkv, hd, causal, window,
                                     softcap, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -189,7 +189,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_tc_dkdv_kernel(
       for (int e = 0; e < 4; ++e) {
         const int c = 8 * j + col + (e & 1);
         Prob pr = prob_of(st[4 * j + e], tL[c], scale, softcap);
-        if (edge && !visible(q0 + c, key + 8 * (e >> 1), S, causal, window)) pr.p = 0.f;
+        if (edge && !visible(q0 + c, key + 8 * (e >> 1), S, S, causal, window)) pr.p = 0.f;
         st[4 * j + e] = pr.p;
         dpt[4 * j + e] = pr.p * (dpt[4 * j + e] - tD[c]) * scale * pr.dcap;
       }
@@ -310,7 +310,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_tc_dq_kernel(
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1;
         Prob pr = prob_of(sc[4 * j + e], lse2[r], scale, softcap);
-        if (edge && !visible(row + 8 * r, k0 + 8 * j + col + (e & 1), S, causal, window))
+        if (edge && !visible(row + 8 * r, k0 + 8 * j + col + (e & 1), S, S, causal, window))
           pr.p = 0.f;
         if (second)
           sc[4 * j + e] = pr.p * (dp[4 * j + e] - Dr[r]) * scale * pr.dcap;

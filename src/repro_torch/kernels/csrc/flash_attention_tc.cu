@@ -6,11 +6,14 @@
 // _flash_attention_pallas at :187), the TPU kernel of the prefill's and the
 // training forward's attention. Its function is that of the CUDA-core
 // kernel (flash_attention.cu), which keeps every other dtype and head_dim:
-// for q (B,S,H,hd) and k/v (B,S,Hkv,hd),
+// for q (B,S,H,hd) and k/v (B,Skv,Hkv,hd),
 //   o = softmax(mask(softcap(q k^T / sqrt(hd)))) v,
-// query head h reading kv head h / (H / Hkv); keys past S, causal and
+// query head h reading kv head h / (H / Hkv); keys past Skv, causal and
 // window masked; with a non-null `lse`, each row's fp32 log-sum-exp in the
-// scaled, softcapped natural-log domain, which the backward reads.
+// scaled, softcapped natural-log domain, which the backward reads. Skv is S
+// but for an encoder-decoder's cross-attention, which has no mask: its K /
+// V maps span Skv rows, so a key tile past Skv reads zeros (masked at the
+// edge, as keys past S are), and each query tile walks every key tile.
 //
 // Bound: operations at long S (4 S^2 hd H / 2 multiply-adds for causal),
 // bytes at short S; either way the products must run on the tensor cores
@@ -78,7 +81,7 @@ template <int HD, int BK>
 __global__ void __launch_bounds__(kThreads, 2) flash_fwd_tc_kernel(
     const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
     const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o, float* __restrict__ lse,
-    int S, int H, int Hkv, int causal, int window, float softcap, float scale) {
+    int S, int Skv, int H, int Hkv, int causal, int window, float softcap, float scale) {
   using L = FwdLayout<HD, BK>;
   constexpr int W = kWidth<HD>;
   bf16* sQ = reinterpret_cast<bf16*>(smem_base());
@@ -92,7 +95,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_tc_kernel(
   const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
   const int hk = h / (H / Hkv);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heaviest tiles first
-  const int k_end = causal ? min(S, q0 + kBQ) : S;
+  const int k_end = causal ? min(S, q0 + kBQ) : Skv;
   const int k_begin = (window > 0 ? max(0, q0 - window + 1) : 0) / BK * BK;
   const int n_tiles = (k_end - k_begin + BK - 1) / BK;
 
@@ -155,7 +158,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_tc_kernel(
     fence_regs(sc);
 
     // scores in the log2 domain, masked where this tile needs it
-    const bool edge = k0 + BK > S || (causal && k0 + BK - 1 > q0) ||
+    const bool edge = k0 + BK > Skv || (causal && k0 + BK - 1 > q0) ||
                       (window > 0 && q0 + kBQ - 1 - k0 >= window);
     float mx[2] = {m[0], m[1]};
 #pragma unroll
@@ -164,7 +167,8 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_tc_kernel(
       for (int e = 0; e < 4; ++e) {
         float x = sc[4 * j + e];
         x = softcap > 0.f ? tanhf(x * cap_in) * cap_out : x * sl2;
-        if (edge && !visible(row + 8 * (e >> 1), k0 + 8 * j + col + (e & 1), S, causal, window))
+        if (edge &&
+            !visible(row + 8 * (e >> 1), k0 + 8 * j + col + (e & 1), S, Skv, causal, window))
           x = NEG_INF_F;
         sc[4 * j + e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
@@ -244,13 +248,14 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_tc_kernel(
 
 template <int HD, int BK>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
-           int H, int Hkv, int causal, int window, float softcap, float scale,
+           int Skv, int H, int Hkv, int causal, int window, float softcap, float scale,
            cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
-  // over the real head_dim: a tile's columns past it read as zeros
+  // over the real head_dim: a tile's columns past it read as zeros; the
+  // K / V maps over the Skv keys: their rows past it too
   cudaError_t err = tensor_map(&tq, q, B, S, H, HD, kBQ);
-  if (err == cudaSuccess) err = tensor_map(&tk, k, B, S, Hkv, HD, BK);
-  if (err == cudaSuccess) err = tensor_map(&tv, v, B, S, Hkv, HD, BK);
+  if (err == cudaSuccess) err = tensor_map(&tk, k, B, Skv, Hkv, HD, BK);
+  if (err == cudaSuccess) err = tensor_map(&tv, v, B, Skv, Hkv, HD, BK);
   if (err != cudaSuccess) return static_cast<int>(err);
   auto kern = flash_fwd_tc_kernel<HD, BK>;
   constexpr size_t smem = FwdLayout<HD, BK>::kBytes;
@@ -258,34 +263,39 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(B * H), static_cast<unsigned>((S + kBQ - 1) / kBQ));
-  kern<<<grid, kThreads, smem, stream>>>(tq, tk, tv, static_cast<bf16*>(o), lse, S, H, Hkv,
-                                         causal, window, softcap, scale);
+  kern<<<grid, kThreads, smem, stream>>>(tq, tk, tv, static_cast<bf16*>(o), lse, S, Skv, H,
+                                         Hkv, causal, window, softcap, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// bf16 q (B,S,H,hd), k/v (B,S,Hkv,hd), hd 64, 112, 128 or 256 (the last in
-// flash_attention_tc256.cu), 16-byte aligned pointers on card `device`; o
-// like q; lse fp32 (B,H,S) or null.
+// bf16 q (B,S,H,hd), k/v (B,Skv,Hkv,hd), hd 64, 112, 128 or 256 (the last
+// in flash_attention_tc256.cu), 16-byte aligned pointers on card `device`;
+// o like q; lse fp32 (B,H,S) or null. Skv != S only with causal 0 and
+// window 0.
 extern "C" int flash_attention_fwd_tc_launch(const void* q, const void* k, const void* v,
                                              void* o, void* lse, int B, int S, int H, int Hkv,
-                                             int hd, int causal, int window, float softcap,
-                                             float scale, int device, void* stream) {
+                                             int hd, int Skv, int causal, int window,
+                                             float softcap, float scale, int device,
+                                             void* stream) {
   // the calling thread may have no current context yet (autograd's own
   // thread, before its first CUDA work): bind it to the tensors' card
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B == 0 || S == 0) return static_cast<int>(cudaGetLastError());
+  if (Skv < 1 || (Skv != S && (causal || window > 0)))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   if (hd == 64)
-    return launch<64, 128>(q, k, v, o, l, B, S, H, Hkv, causal, window, softcap, scale, s);
+    return launch<64, 128>(q, k, v, o, l, B, S, Skv, H, Hkv, causal, window, softcap, scale, s);
   if (hd == 112)  // the head_dim-128 design on a tile padded to 128
-    return launch<112, 64>(q, k, v, o, l, B, S, H, Hkv, causal, window, softcap, scale, s);
+    return launch<112, 64>(q, k, v, o, l, B, S, Skv, H, Hkv, causal, window, softcap, scale, s);
   if (hd == 128)
-    return launch<128, 64>(q, k, v, o, l, B, S, H, Hkv, causal, window, softcap, scale, s);
+    return launch<128, 64>(q, k, v, o, l, B, S, Skv, H, Hkv, causal, window, softcap, scale, s);
   if (hd == 256)
-    return flash_tc::fwd_hd256(q, k, v, o, l, B, S, H, Hkv, causal, window, softcap, scale, s);
+    return flash_tc::fwd_hd256(q, k, v, o, l, B, S, Skv, H, Hkv, causal, window, softcap,
+                               scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

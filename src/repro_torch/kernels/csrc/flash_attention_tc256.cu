@@ -5,9 +5,9 @@
 // Replaces: src/repro/kernels/flash_attention.py:_attn_kernel (launched by
 // _flash_attention_pallas at :187) at head_dim 256, which the CUDA-core
 // kernel (flash_attention.cu) ran until now. The same function as the
-// other two forward kernels: for q (B,S,H,256) and k/v (B,S,Hkv,256),
+// other two forward kernels: for q (B,S,H,256) and k/v (B,Skv,Hkv,256),
 //   o = softmax(mask(softcap(q k^T / 16))) v,
-// query head h reading kv head h / (H / Hkv); keys past S, causal and
+// query head h reading kv head h / (H / Hkv); keys past Skv, causal and
 // window masked; with a non-null `lse`, each row's fp32 log-sum-exp in the
 // scaled, softcapped natural-log domain, which the CUDA-core backward
 // reads. Reached through flash_attention_fwd_tc_launch
@@ -80,7 +80,7 @@ template <int NH>
 __global__ void __launch_bounds__(128 * NH, 1) flash_fwd_tc256_kernel(
     const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
     const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o, float* __restrict__ lse,
-    int S, int H, int Hkv, int causal, int window, float softcap, float scale) {
+    int S, int Skv, int H, int Hkv, int causal, int window, float softcap, float scale) {
   using L = Tc256Layout<NH>;
   bf16* sQ = reinterpret_cast<bf16*>(smem_base());  // [NH][4 chunks][kBQ][64]
   bf16* sK = sQ + NH * L::kQ;                          // [kStages][4 chunks][kBK][64]
@@ -94,7 +94,7 @@ __global__ void __launch_bounds__(128 * NH, 1) flash_fwd_tc256_kernel(
   const int h0 = (blockIdx.x - b * per_b) * NH;  // NH heads of one kv head
   const int hk = h0 / (H / Hkv);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heaviest tiles first
-  const int k_end = causal ? min(S, q0 + kBQ) : S;
+  const int k_end = causal ? min(S, q0 + kBQ) : Skv;
   const int k_begin = (window > 0 ? max(0, q0 - window + 1) : 0) / kBK * kBK;
   const int n_tiles = (k_end - k_begin + kBK - 1) / kBK;
 
@@ -164,7 +164,7 @@ __global__ void __launch_bounds__(128 * NH, 1) flash_fwd_tc256_kernel(
     fence_regs(sc);
 
     // scores in the log2 domain, masked where this tile needs it
-    const bool edge = k0 + kBK > S || (causal && k0 + kBK - 1 > q0) ||
+    const bool edge = k0 + kBK > Skv || (causal && k0 + kBK - 1 > q0) ||
                       (window > 0 && q0 + kBQ - 1 - k0 >= window);
     float mx[2] = {m[0], m[1]};
 #pragma unroll
@@ -173,7 +173,8 @@ __global__ void __launch_bounds__(128 * NH, 1) flash_fwd_tc256_kernel(
       for (int e = 0; e < 4; ++e) {
         float x = sc[4 * j + e];
         x = softcap > 0.f ? tanhf(x * cap_in) * cap_out : x * sl2;
-        if (edge && !visible(row + 8 * (e >> 1), k0 + 8 * j + col + (e & 1), S, causal, window))
+        if (edge &&
+            !visible(row + 8 * (e >> 1), k0 + 8 * j + col + (e & 1), S, Skv, causal, window))
           x = NEG_INF_F;
         sc[4 * j + e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
@@ -237,30 +238,32 @@ __global__ void __launch_bounds__(128 * NH, 1) flash_fwd_tc256_kernel(
 
 template <int NH>
 int launch_nh(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv, void* o,
-              float* lse, int B, int S, int H, int Hkv, int causal, int window, float softcap,
-              float scale, cudaStream_t stream) {
+              float* lse, int B, int S, int Skv, int H, int Hkv, int causal, int window,
+              float softcap, float scale, cudaStream_t stream) {
   using L = Tc256Layout<NH>;
   auto kern = flash_fwd_tc256_kernel<NH>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(L::kBytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(B * (H / NH)), static_cast<unsigned>((S + kBQ - 1) / kBQ));
-  kern<<<grid, 128 * NH, L::kBytes, stream>>>(tq, tk, tv, static_cast<bf16*>(o), lse, S, H, Hkv,
-                                               causal, window, softcap, scale);
+  kern<<<grid, 128 * NH, L::kBytes, stream>>>(tq, tk, tv, static_cast<bf16*>(o), lse, S, Skv, H,
+                                               Hkv, causal, window, softcap, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 int flash_tc::fwd_hd256(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-                        int S, int H, int Hkv, int causal, int window, float softcap,
+                        int S, int Skv, int H, int Hkv, int causal, int window, float softcap,
                         float scale, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   cudaError_t err = tensor_map(&tq, q, B, S, H, kHD, kBQ);
-  if (err == cudaSuccess) err = tensor_map(&tk, k, B, S, Hkv, kHD, kBK);
-  if (err == cudaSuccess) err = tensor_map(&tv, v, B, S, Hkv, kHD, kBK);
+  if (err == cudaSuccess) err = tensor_map(&tk, k, B, Skv, Hkv, kHD, kBK);
+  if (err == cudaSuccess) err = tensor_map(&tv, v, B, Skv, Hkv, kHD, kBK);
   if (err != cudaSuccess) return static_cast<int>(err);
   if ((H / Hkv) % 2 == 0)  // two query heads of one kv head a block
-    return launch_nh<2>(tq, tk, tv, o, lse, B, S, H, Hkv, causal, window, softcap, scale, stream);
-  return launch_nh<1>(tq, tk, tv, o, lse, B, S, H, Hkv, causal, window, softcap, scale, stream);
+    return launch_nh<2>(tq, tk, tv, o, lse, B, S, Skv, H, Hkv, causal, window, softcap, scale,
+                        stream);
+  return launch_nh<1>(tq, tk, tv, o, lse, B, S, Skv, H, Hkv, causal, window, softcap, scale,
+                      stream);
 }

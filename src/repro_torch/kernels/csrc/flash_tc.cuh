@@ -430,17 +430,19 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// The masks of the reference kernel: keys past S, causal (k <= q), window
-// (q - k < window); rows past S see nothing.
-__device__ __forceinline__ bool visible(int qi, int kj, int S, int causal, int window) {
-  return kj < S && qi < S && (!causal || kj <= qi) && (window <= 0 || qi - kj < window);
+// The masks of the reference kernel: keys past Skv, causal (k <= q), window
+// (q - k < window); rows past S see nothing. Skv is S but in the forward of
+// an encoder-decoder's cross-attention, which has neither mask.
+__device__ __forceinline__ bool visible(int qi, int kj, int S, int Skv, int causal,
+                                        int window) {
+  return kj < Skv && qi < S && (!causal || kj <= qi) && (window <= 0 || qi - kj < window);
 }
 
 // The head_dim-256 forward (flash_attention_tc256.cu), reached through
-// flash_attention_fwd_tc_launch: bf16 q (B,S,H,256), k/v (B,S,Hkv,256),
+// flash_attention_fwd_tc_launch: bf16 q (B,S,H,256), k/v (B,Skv,Hkv,256),
 // o like q, lse fp32 (B,H,S) or null. Returns a cudaError_t.
 int fwd_hd256(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
-              int H, int Hkv, int causal, int window, float softcap, float scale,
+              int Skv, int H, int Hkv, int causal, int window, float softcap, float scale,
               cudaStream_t stream);
 
 }  // namespace flash_tc

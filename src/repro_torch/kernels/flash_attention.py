@@ -24,6 +24,12 @@ one for the backward:
 - every other dtype and head_dim, and the bf16 backward at 112 and 256
   (no model trains there), run the CUDA-core kernels
   (``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``).
+
+The forward, on both routes, also takes keys of another length ``Skv``
+than the queries' ``S`` (an encoder-decoder's cross-attention), only
+without a mask (``causal=False``, no window): every query sees every key.
+The queries, the output and the log-sum-exp keep ``S``. The backward has
+no such form yet, so :class:`FlashAttentionFn` raises on it.
 """
 
 from __future__ import annotations
@@ -41,14 +47,17 @@ from repro_torch.kernels.ref import flash_attention_ref
 # tensor cores), on either route; ``tc_launches`` and ``tc_bwd_launches``
 # count those of them that took the tensor-core route, and
 # ``tc112_launches`` and ``tc256_launches`` those of the forward's at
-# head_dim 112 and at 256 (the kernel of its own). Each wrapper adds one
-# where it launches and nowhere else; a caller may reset them to 0.
+# head_dim 112 and at 256 (the kernel of its own), and ``cross_launches``
+# the forwards (either route) whose keys are of another length than the
+# queries. Each wrapper adds one where it launches and nowhere else; a
+# caller may reset them to 0.
 launches = 0
 bwd_launches = 0
 tc_launches = 0
 tc_bwd_launches = 0
 tc112_launches = 0
 tc256_launches = 0
+cross_launches = 0
 
 # bf16 head_dims on the tensor cores: the forward's, the backward's
 TC_HEAD_DIMS = (64, 112, 128, 256)
@@ -65,14 +74,20 @@ def tensor_core_bwd_route(q) -> bool:
     return q.dtype == torch.bfloat16 and q.shape[-1] in TC_BWD_HEAD_DIMS
 
 
-def check_shapes(q, k, v) -> None:
-    """Raise on a layout the kernel does not take (any device)."""
+def check_shapes(q, k, v, *, causal: bool = True, window: int = 0) -> None:
+    """Raise on a layout the kernel does not take (any device). Keys of
+    another length than the queries go without a mask only."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError("flash_attention takes q (B,S,H,hd), k/v (B,S,Hkv,hd)")
+        raise ValueError("flash_attention takes q (B,S,H,hd), k/v (B,Skv,Hkv,hd)")
     B, S, H, hd = q.shape
-    if k.shape != v.shape or k.shape[0] != B or k.shape[1] != S or k.shape[3] != hd:
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd:
         raise ValueError(f"flash_attention: k/v shape {tuple(k.shape)} does not "
                          f"match q {tuple(q.shape)}")
+    Skv = k.shape[1]
+    if Skv != S and (causal or window > 0 or Skv < 1):
+        raise ValueError(f"flash_attention: keys of length {Skv} for {S} queries are taken "
+                         f"only without a mask (causal=False, no window), got "
+                         f"causal={causal}, window={window}")
     Hkv = k.shape[2]
     if Hkv < 1 or H % Hkv != 0:
         raise ValueError(f"flash_attention: H={H} not a multiple of Hkv={Hkv}")
@@ -90,8 +105,9 @@ def _check_cuda(*ts) -> None:
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("flash_attention kernel needs contiguous tensors")
     B, S, H, hd = q.shape
-    if B * H >= 2 ** 31 or (S + 63) // 64 > 65535:
-        raise ValueError(f"flash_attention: grid too large for B*H={B * H}, S={S}")
+    Skv = ts[1].shape[1]
+    if B * H >= 2 ** 31 or (S + 63) // 64 > 65535 or Skv >= 2 ** 31 // 64:
+        raise ValueError(f"flash_attention: grid too large for B*H={B * H}, S={S}, Skv={Skv}")
 
 
 def _check_aligned(*ts) -> None:
@@ -103,9 +119,10 @@ def _check_aligned(*ts) -> None:
 
 def _launch_fwd(q, k, v, causal, window, softcap, want_lse):
     """Forward kernel -> (out in q.dtype, lse fp32 (B,H,S) or None)."""
-    global launches, tc_launches, tc112_launches, tc256_launches
+    global launches, tc_launches, tc112_launches, tc256_launches, cross_launches
     _check_cuda(q, k, v)
     B, S, H, hd = q.shape
+    Skv = k.shape[1]
     out = torch.empty_like(q)
     lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
            if want_lse else None)
@@ -117,16 +134,17 @@ def _launch_fwd(q, k, v, causal, window, softcap, want_lse):
     if tc:  # bf16 only
         _check_aligned(q, k, v, out)
         err = _build.lib().flash_attention_fwd_tc_launch(
-            *ptrs, B, S, H, k.shape[2], hd, *flags, q.device.index or 0, stream)
+            *ptrs, B, S, H, k.shape[2], hd, Skv, *flags, q.device.index or 0, stream)
     else:
         err = _build.lib().flash_attention_fwd_launch(
-            *ptrs, _build.DTYPE_CODES[q.dtype], B, S, H, k.shape[2], hd, *flags,
+            *ptrs, _build.DTYPE_CODES[q.dtype], B, S, H, k.shape[2], hd, Skv, *flags,
             q.device.index or 0, stream)
     _build.check(err, "flash_attention")
     launches += 1
     tc_launches += tc
     tc112_launches += tc and hd == 112
     tc256_launches += tc and hd == 256
+    cross_launches += Skv != S
     return out, lse
 
 
@@ -168,6 +186,10 @@ class FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap):
+        if k.shape[1] != q.shape[1]:
+            raise NotImplementedError(
+                "flash_attention: the backward of keys of another length than the queries "
+                "is not ported yet (ROADMAP.md queue 1, \"Training Whisper\")")
         out, lse = _launch_fwd(q, k, v, causal, window, softcap, want_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.opts = (causal, window, softcap)
@@ -183,8 +205,9 @@ class FlashAttentionFn(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     softcap: float = 0.0) -> torch.Tensor:
-    """q (B,S,H,hd), k/v (B,S,Hkv,hd) -> (B,S,H,hd) in q.dtype."""
-    check_shapes(q, k, v)
+    """q (B,S,H,hd), k/v (B,Skv,Hkv,hd) -> (B,S,H,hd) in q.dtype; Skv
+    other than S with ``causal=False`` and no window only."""
+    check_shapes(q, k, v, causal=causal, window=window)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    softcap=softcap)

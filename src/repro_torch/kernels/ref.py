@@ -18,15 +18,24 @@ NEG_INF = -1e30
 
 
 def _scores_and_mask(q, k, *, causal: bool, window: int, softcap: float):
-    """fp32 scores (B, Hkv, G, S, S) after scale and softcap, and the mask."""
+    """fp32 scores (B, Hkv, G, S, Skv) after scale and softcap, and the mask.
+
+    Keys of another length than the queries (``Skv != S``, cross-attention)
+    are taken only without a mask: every query sees every key, as the
+    reference's ``gqa_attention`` with ``q_positions = Skv`` gives
+    (``repro/models/attention.py:241-244``).
+    """
     B, S, H, hd = q.shape
-    Hkv = k.shape[2]
+    Skv, Hkv = k.shape[1], k.shape[2]
+    if Skv != S and (causal or window > 0):
+        raise ValueError(f"flash_attention: keys of length {Skv} for {S} queries take "
+                         f"neither a causal mask nor a window")
     qg = q.float().reshape(B, S, Hkv, H // Hkv, hd)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) / math.sqrt(hd)
     if softcap > 0:
         s = softcap * torch.tanh(s / softcap)
+    mask = torch.ones((S, Skv), dtype=torch.bool, device=q.device)
     pos = torch.arange(S, device=q.device)
-    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
     if causal:
         mask &= pos[None, :] <= pos[:, None]
     if window > 0:
@@ -36,7 +45,8 @@ def _scores_and_mask(q, k, *, causal: bool, window: int, softcap: float):
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
                         softcap: float = 0.0):
-    """GQA attention. q: (B,S,H,hd); k/v: (B,S,Hkv,hd) -> (B,S,H,hd) in q.dtype.
+    """GQA attention. q: (B,S,H,hd); k/v: (B,Skv,Hkv,hd) -> (B,S,H,hd) in
+    q.dtype (``Skv != S`` without a mask only).
 
     Counterpart of ``repro/kernels/ref.py:flash_attention_ref``.
     """

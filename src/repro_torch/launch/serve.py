@@ -12,9 +12,13 @@ parameters from the newest complete checkpoint there between engine steps
 xLSTM-1.3B) or MLA attention (DeepSeek-V2-236B) serve through the dense
 path (``path=dense``: one static batch in lockstep); ``--ckpt-dir`` and
 ``--int8-kv``, which only the paged path has, raise there rather than
-being ignored. Kimi-K2 (MoE with GQA attention) serves through the paged
-path. The full MoE models do not fit one card; ``--reduced`` runs their
-reduced configs.
+being ignored. Kimi-K2 (MoE with GQA attention) and Chameleon-34B serve
+through the paged path. The full MoE models and Chameleon-34B do not fit
+one card; ``--reduced`` runs their reduced configs. Whisper-large-v3 (an
+encoder-decoder) serves through the dense path at full depth: its encoder
+reads ``(batch, encoder_seq_len, d_model)`` fp32 frame embeddings drawn
+from the prompts' generator after the prompts (the stubbed audio
+frontend, as the reference's launcher draws them), on the run's device.
 """
 
 from __future__ import annotations
@@ -65,6 +69,12 @@ def main(argv=None):
     gen = torch.Generator().manual_seed(args.seed + 1)
     prompts = torch.randint(0, mc.vocab_size, (args.batch, args.prompt_len),
                             generator=gen, dtype=torch.int32).numpy()
+    frames = None
+    if mc.is_encoder_decoder:  # made on the device, from a seed the prompts' stream gives
+        frame_seed = int(torch.randint(0, 2 ** 62, (1,), generator=gen))
+        frames = torch.randn((args.batch, mc.encoder_seq_len, mc.d_model),
+                             generator=torch.Generator(device).manual_seed(frame_seed),
+                             dtype=torch.float32, device=device)
 
     pcfg = None
     if paged:
@@ -78,7 +88,7 @@ def main(argv=None):
     t0 = time.perf_counter()
     out, info = generate(params, mc, prompts, args.tokens,
                          greedy=not args.sample, temperature=args.temperature,
-                         seed=args.seed, pcfg=pcfg,
+                         seed=args.seed, pcfg=pcfg, frames=frames,
                          on_step=None if poller is None else poller.on_step)
     dt = time.perf_counter() - t0
 
@@ -90,7 +100,8 @@ def main(argv=None):
               f"{eng.stats['prefills']} prefills, peak pool "
               f"{eng.stats['peak_blocks']}/{pcfg.num_blocks - 1} blocks")
     else:
-        print(f"dense: one prefill of {args.batch} x {args.prompt_len} tokens, "
+        enc = (f" over {mc.encoder_seq_len} frames" if mc.is_encoder_decoder else "")
+        print(f"dense: one prefill of {args.batch} x {args.prompt_len} tokens{enc}, "
               f"{args.tokens - 1} decode steps")
     print("generated[0,:16]:", np.asarray(out[0, :16]).tolist())
     if poller is not None:

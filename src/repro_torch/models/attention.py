@@ -1,5 +1,5 @@
-"""GQA / MQA / MHA self-attention: training / prefill, and the dense
-serve path's decode cache.
+"""GQA / MQA / MHA self-attention and an encoder-decoder's cross-attention:
+training / prefill, and the dense serve path's decode caches.
 
 Counterpart of ``repro/models/attention.py``. Without a cache the attention
 goes through ``kernels.ops.flash_attention``: on a CUDA tensor that
@@ -23,6 +23,18 @@ slots holds exactly the last ``window`` positions, and a linear buffer holds
 its positions in order with its unwritten slots past the context. So a
 linear buffer's size is rounded up to a multiple of ``DENSE_BLOCK``, and a
 ring whose window is not a multiple of it raises.
+
+Cross-attention (Whisper's decoder): every query sees every one of the
+encoder's ``Skv`` keys (the reference's ``gqa_attention`` with
+``q_positions = Skv``), so in training and prefill it is the flash kernel
+with keys of another length than the queries and no mask
+(``causal=False``). Its decode cache, built once at prefill, is
+``{"k", "v": (B, size, Hkv, hd) in cfg.dtype, "tables": (B, size /
+DENSE_BLOCK) int32, "context": (B,) int32}`` with ``size`` = ``Skv``
+rounded up to a multiple of :data:`DENSE_BLOCK` (1 504 rows for 1 500
+frames, the last 4 zeros past the context): a decode step's one query
+attends over it through the paged decode kernel, viewed as a pool as the
+self-attention cache is, over a context of ``Skv``.
 """
 
 from __future__ import annotations
@@ -36,7 +48,9 @@ from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 
 
-def init_attention(gen: torch.Generator, cfg: ModelConfig):
+def init_attention(gen: torch.Generator, cfg: ModelConfig, *, cross: bool = False):
+    """Projections (fp32); qk-norm scales when ``cfg.use_qk_norm``, but not
+    for cross-attention (``repro/models/attention.py:86``)."""
     hd = cfg.resolved_head_dim
     p = {
         "wq": L.dense_init(gen, (cfg.d_model, cfg.num_heads, hd)),
@@ -44,7 +58,7 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig):
         "wv": L.dense_init(gen, (cfg.d_model, cfg.num_kv_heads, hd)),
         "wo": L.out_proj_init(gen, (cfg.num_heads, hd, cfg.d_model), cfg.num_layers),
     }
-    if cfg.use_qk_norm:
+    if cfg.use_qk_norm and not cross:
         p["q_norm"] = torch.ones((hd,), device=gen.device)
         p["k_norm"] = torch.ones((hd,), device=gen.device)
     return p
@@ -54,7 +68,8 @@ def gqa_attention(q, k, v, *, causal: bool = True, window: int = 0,
                   softcap: float = 0.0):
     """Grouped-query attention over positions 0..S-1 of q and k/v.
 
-    q (B, S, H, hd), k/v (B, S, Hkv, hd) -> (B, S, H, hd) in q.dtype.
+    q (B, S, H, hd), k/v (B, Skv, Hkv, hd) -> (B, S, H, hd) in q.dtype;
+    ``Skv`` other than ``S`` only without a mask (cross-attention).
     """
     return kops.flash_attention(q, k, v, causal=causal, window=window,
                                 softcap=softcap)
@@ -121,7 +136,7 @@ def cache_size(max_len: int, window: int = 0) -> int:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, window: int = 0,
-               device="cpu"):
+               device):
     """Empty KV cache. ``pos`` = -1 marks unwritten slots."""
     hd = cfg.resolved_head_dim
     size = cache_size(max_len, window)
@@ -185,3 +200,67 @@ def _decode_attention(q, k, v, cache, cfg: ModelConfig, *, window: int):
     out = kops.paged_decode_attention(q[:, 0].contiguous(), _block_view(cache_k),
                                       _block_view(cache_v), tables, context)
     return out[:, None], {"k": cache_k, "v": cache_v, "pos": cache_pos, "length": start + 1}
+
+
+# ---------------------------------------------------------------------------
+# cross-attention (encoder-decoder) and its decode cache
+# ---------------------------------------------------------------------------
+
+
+def encoder_kv(p, enc_out, cfg: ModelConfig):
+    """Cross-attention K/V from the encoder's output (B, Skv, D) -> k, v
+    (B, Skv, Hkv, hd) in cfg.dtype; no qk-norm, no positions."""
+    B, Skv, D = enc_out.shape
+    k = (enc_out @ L.cast(p["wk"], cfg).reshape(D, -1)).view(B, Skv, p["wk"].shape[1], -1)
+    v = (enc_out @ L.cast(p["wv"], cfg).reshape(D, -1)).view(B, Skv, p["wv"].shape[1], -1)
+    return k, v
+
+
+def apply_cross_attention(p, x, encoder_kv, cfg: ModelConfig):
+    """Cross-attention of x (B, S, D) over the encoder's keys.
+
+    ``encoder_kv`` is the (k, v) pair of :func:`encoder_kv` (training,
+    prefill: the flash kernel, non-causal, keys of another length) or a
+    cross cache of :func:`cross_cache_from_kv` (decode: x is one token, and
+    the paged decode kernel reads the cache as a pool). Returns (B, S, D).
+    """
+    B, S, D = x.shape
+    q = (x @ L.cast(p["wq"], cfg).reshape(D, -1)).view(B, S, p["wq"].shape[1], -1)
+    if isinstance(encoder_kv, dict):
+        if S != 1:
+            raise ValueError(f"a cross cache takes one query token a sequence, got {S}")
+        c = encoder_kv
+        out = kops.paged_decode_attention(q[:, 0].contiguous(), _block_view(c["k"]),
+                                          _block_view(c["v"]), c["tables"], c["context"])
+        out = out[:, None]
+    else:
+        k, v = encoder_kv
+        out = gqa_attention(q, k, v, causal=False)
+    H, hd = out.shape[2:]
+    return out.reshape(B, S, H * hd) @ L.cast(p["wo"], cfg).reshape(H * hd, -1)
+
+
+def init_cross_cache(cfg: ModelConfig, batch: int, *, device,
+                     kv_len: Optional[int] = None):
+    """A zero cross cache for ``kv_len`` encoder positions (default
+    ``cfg.encoder_seq_len``), its rows rounded up to a multiple of
+    :data:`DENSE_BLOCK` (the module docstring's layout)."""
+    kv_len = cfg.encoder_seq_len if kv_len is None else kv_len
+    size = -(-kv_len // DENSE_BLOCK) * DENSE_BLOCK
+    shape = (batch, size, cfg.num_kv_heads, cfg.resolved_head_dim)
+    kv = dict(dtype=L.compute_dtype(cfg), device=device)
+    nblk = size // DENSE_BLOCK
+    return {"k": torch.zeros(shape, **kv), "v": torch.zeros(shape, **kv),
+            "tables": torch.arange(batch * nblk, dtype=torch.int32,
+                                   device=device).view(batch, nblk),
+            "context": torch.full((batch,), kv_len, dtype=torch.int32, device=device)}
+
+
+def cross_cache_from_kv(cfg: ModelConfig, k, v):
+    """The decode cache of one layer's cross K/V (B, Skv, Hkv, hd): written
+    into the padded buffer, whose rows past ``Skv`` stay zero."""
+    B, Skv = k.shape[:2]
+    cache = init_cross_cache(cfg, B, device=k.device, kv_len=Skv)
+    cache["k"][:, :Skv] = k
+    cache["v"][:, :Skv] = v
+    return cache

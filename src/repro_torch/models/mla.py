@@ -141,7 +141,7 @@ def apply_mla(p, x, cfg: ModelConfig, *, cache: Optional[dict] = None,
     return out, extra
 
 
-def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cpu"):
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, *, device):
     """Empty latent cache. ``pos`` = -1 marks unwritten slots."""
     dt = L.compute_dtype(cfg)
     return {"ckv": torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=dt, device=device),

@@ -4,9 +4,11 @@
 ``init_decode_state`` / ``prefill`` / ``decode_step`` for the dense serve
 path (a static batch in lockstep: every architecture the port runs, and the
 only one for models with recurrent blocks or MLA; GQA attention models
-also serve through the paged path, ``repro_torch.serve``). The reference's
-scanned-layer and encoder-decoder branches are left out, as the port runs
-neither. ``count_params`` is not ported.
+also serve through the paged path, ``repro_torch.serve``). An
+encoder-decoder's state also holds each decoder layer's cross K/V
+(``cross_kv``), which ``prefill`` builds once from one encoding of the
+frames. The reference's scanned-layer branches are left out, as the port
+does not scan layers. ``count_params`` is not ported.
 """
 
 from __future__ import annotations
@@ -78,9 +80,13 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *, device="cud
     of the next token (a host integer: the batch moves in lockstep)."""
     T.check_ported(cfg)
     dev = resolve_device(device)
-    return {"layers": [_layer_state(cfg, i, batch, max_len, dev)
-                       for i in range(cfg.num_layers)],
-            "position": 0}
+    state: Dict[str, Any] = {"layers": [_layer_state(cfg, i, batch, max_len, dev)
+                                        for i in range(cfg.num_layers)],
+                             "position": 0}
+    if cfg.is_encoder_decoder:
+        state["cross_kv"] = [A.init_cross_cache(cfg, batch, device=dev)
+                             for _ in range(cfg.num_layers)]
+    return state
 
 
 def decode_step(params, cfg: ModelConfig, state, tokens):
@@ -91,9 +97,11 @@ def decode_step(params, cfg: ModelConfig, state, tokens):
     """
     pos = state["position"]
     x = L.embed_tokens(params["embed"], tokens, cfg, position_offset=pos)
+    cross = state.get("cross_kv")
     new_layers = []
     for i, lp in enumerate(params["layers"]):
-        x, extra, _ = T._decoder_layer_fwd(lp, x, cfg, i, state=state["layers"][i])
+        x, extra, _ = T._decoder_layer_fwd(lp, x, cfg, i, state=state["layers"][i],
+                                           encoder_kv=None if cross is None else cross[i])
         new_layers.append(extra)
     x = L.apply_norm(params["final_norm"], x, cfg)
     logits = L.lm_logits(params["embed"], x, cfg)
@@ -104,7 +112,9 @@ def prefill(params, cfg: ModelConfig, batch, *, max_len: int, last_only: bool = 
     """Process whole prompts, returning (logits, decode_state).
 
     Attention layers hand their (k, v) streams to a cache, MLA layers their
-    latents to a latent cache; recurrent layers their final state.
+    latents to a latent cache; recurrent layers their final state; an
+    encoder-decoder's layers (batch["frames"] encoded once) their cross
+    K/V to a cross cache.
     ``last_only``: logits of the last position alone.
     """
     tokens = batch["tokens"]
@@ -123,4 +133,6 @@ def prefill(params, cfg: ModelConfig, batch, *, max_len: int, last_only: bool = 
                                      window=T._layer_window(cfg, i))
         layers.append(stream)
     state: Dict[str, Any] = {"layers": layers, "position": S}
+    if cfg.is_encoder_decoder:
+        state["cross_kv"] = [A.cross_cache_from_kv(cfg, k, v) for k, v in aux["cross_kv"]]
     return logits, state

@@ -102,7 +102,7 @@ def apply_rglru(p, x, cfg: ModelConfig, *, state=None, return_state=False):
     return (h.to(x.dtype) * gate) @ L.cast(p["w_down"], cfg), new_state
 
 
-def init_rglru_state(cfg: ModelConfig, batch: int, device="cpu"):
+def init_rglru_state(cfg: ModelConfig, batch: int, device):
     W = cfg.resolved_lru_width
     return {
         "hidden": torch.zeros((batch, W), dtype=torch.float32, device=device),

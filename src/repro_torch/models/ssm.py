@@ -260,7 +260,7 @@ def apply_mlstm(p, x, cfg: ModelConfig, *, state=None, return_state=False):
     return h @ L.cast(p["w_down"], cfg), new_state
 
 
-def init_mlstm_state(cfg: ModelConfig, batch: int, device="cpu"):
+def init_mlstm_state(cfg: ModelConfig, batch: int, device):
     Di = PF * cfg.d_model
     H = cfg.num_heads
     dh = Di // H
@@ -348,7 +348,7 @@ def apply_slstm(p, x, cfg: ModelConfig, *, state=None, return_state=False):
     return out.to(x.dtype), new_state
 
 
-def init_slstm_state(cfg: ModelConfig, batch: int, device="cpu"):
+def init_slstm_state(cfg: ModelConfig, batch: int, device):
     H = cfg.num_heads
     dh = cfg.d_model // H
     f32 = dict(dtype=torch.float32, device=device)

@@ -1,14 +1,18 @@
-"""Decoder stack: parameters and the training / prefill / decode forward.
+"""Decoder (and encoder-decoder) stack: parameters and the training /
+prefill / decode forward.
 
 Counterpart of ``repro/models/transformer.py`` for decoders with unscanned
 layers whose blocks are attention ("attn" / "local_attn": GQA, or MLA with
 ``attention_kind="mla"``), RG-LRU ("rglru", Griffin) or xLSTM ("mlstm" /
 "slstm"), each followed by an MLP or, from layer ``first_dense_layers`` of
-an MoE model on, the routed-experts layer. Encoder-decoder models are not
-ported yet and raise. Models with recurrent blocks or MLA serve through
-the dense path (``registry.prefill`` / ``decode_step``). MoE and MLA
-models train (the backward runs through the MoE dispatch and MLA's
-decompressed attention); training models with recurrent blocks is not
+an MoE model on, the routed-experts layer. An encoder-decoder (Whisper)
+adds a bidirectional encoder stack over stubbed frame embeddings
+(:func:`encode`) and, in each decoder layer, a cross-attention sub-block
+(``norm_cross`` / ``cross``) between the self-attention and the MLP.
+Models with recurrent blocks, MLA or an encoder serve through the dense
+path (``registry.prefill`` / ``decode_step``). MoE and MLA models train
+(the backward runs through the MoE dispatch and MLA's decompressed
+attention); training models with recurrent blocks or an encoder is not
 ported yet and raises (:func:`check_trainable`).
 
 Parameters are an ``nn.ModuleDict`` tree with the reference's key names and
@@ -45,8 +49,10 @@ def block_kinds(cfg: ModelConfig) -> set:
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise for a configuration the port cannot run yet."""
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(f"{cfg.name}: encoder-decoder models are not ported yet")
+    if cfg.is_encoder_decoder and cfg.attention_kind != "gqa":
+        raise NotImplementedError(
+            f"{cfg.name}: an encoder-decoder with attention_kind={cfg.attention_kind!r} "
+            f"is not ported")
     if cfg.attention_kind not in ("gqa", "mla", "none"):
         raise NotImplementedError(
             f"{cfg.name}: attention_kind={cfg.attention_kind!r} is not ported")
@@ -63,6 +69,11 @@ def check_ported(cfg: ModelConfig) -> None:
 def check_trainable(cfg: ModelConfig) -> None:
     """Raise for a configuration the port can serve but not train yet."""
     check_ported(cfg)
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"{cfg.name}: training an encoder-decoder is not ported yet (ROADMAP.md queue 1, "
+            f"\"Training Whisper\": the flash backward with keys of another length); it "
+            f"serves through the dense path")
     recurrent = block_kinds(cfg) & set(RECURRENT_KINDS)
     if recurrent:
         raise NotImplementedError(
@@ -103,16 +114,26 @@ _INIT_MIX = {"attn": A.init_attention, "local_attn": A.init_attention,
 def init_decoder_layer(gen: torch.Generator, cfg: ModelConfig, layer_idx: int, *,
                        training: bool = False):
     """One layer's parameters in fp32, but for the routed experts, which are
-    made in their storage (``moe.init_moe``; ``training`` picks it)."""
+    made in their storage (``moe.init_moe``; ``training`` picks it). An
+    encoder-decoder's layer has a cross-attention sub-block."""
     kind = cfg.block_kind(layer_idx)
     p: Dict[str, Any] = {"norm1": L.init_norm(gen, cfg),
                          "mix": (MLA.init_mla if _is_mla(cfg, kind) else _INIT_MIX[kind])(
                              gen, cfg)}
+    if cfg.is_encoder_decoder:
+        p["norm_cross"] = L.init_norm(gen, cfg)
+        p["cross"] = A.init_attention(gen, cfg, cross=True)
     if _layer_has_mlp(cfg, kind):
         p["norm2"] = L.init_norm(gen, cfg)
         p["mlp"] = (MOE.init_moe(gen, cfg, training=training)
                     if _layer_uses_moe(cfg, layer_idx) else L.init_mlp(gen, cfg))
     return p
+
+
+def init_encoder_layer(gen: torch.Generator, cfg: ModelConfig):
+    """One encoder layer's parameters (fp32): self-attention and an MLP."""
+    return {"norm1": L.init_norm(gen, cfg), "mix": A.init_attention(gen, cfg),
+            "norm2": L.init_norm(gen, cfg), "mlp": L.init_mlp(gen, cfg)}
 
 
 def as_module(tree, cfg: ModelConfig, device=None, *, training: bool = False) -> nn.Module:
@@ -163,6 +184,18 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
                                                                   training=training), cfg,
                                                training=training)
                                      for i in range(cfg.num_layers)])
+    if cfg.is_encoder_decoder:
+        # the reference's subtree {"layers", "final_norm", "positions"}
+        # (repro/models/transformer.py:141-149), made a layer at a time
+        parts["encoder"] = nn.ParameterDict({
+            "layers": nn.ModuleList([as_module(init_encoder_layer(gen, cfg), cfg,
+                                               training=training)
+                                     for _ in range(cfg.encoder_layers)]),
+            "final_norm": as_module(L.init_norm(gen, cfg), cfg, training=training),
+            "positions": nn.Parameter(
+                L.dense_init(gen, (cfg.encoder_seq_len, cfg.d_model)).to(
+                    L.stored_dtype("positions", cfg, training=training)),
+                requires_grad=training)})
     return nn.ModuleDict(parts)
 
 
@@ -233,17 +266,21 @@ def _apply_mix(lp, x, cfg: ModelConfig, kind: str, *, window: int, state=None,
 
 
 def _decoder_layer_fwd(lp, x, cfg: ModelConfig, layer_idx: int, *, state=None,
-                       return_kv: bool = False):
+                       return_kv: bool = False, encoder_kv=None):
     """One decoder layer. Returns (x, extra, aux): extra is an attention
     layer's (k, v) pair, an MLA layer's (ckv, krope) latents or a recurrent
     layer's final state (with ``return_kv``), the layer's new state (with
     ``state``: decode), else None; aux is an MoE layer's stats
-    (``moe.apply_moe``), else None."""
+    (``moe.apply_moe``), else None. ``encoder_kv``: an encoder-decoder
+    layer's cross K/V (``attention.apply_cross_attention``)."""
     h = L.apply_norm(lp["norm1"], x, cfg)
     mix_out, extra = _apply_mix(lp["mix"], h, cfg, cfg.block_kind(layer_idx),
                                 window=_layer_window(cfg, layer_idx), state=state,
                                 return_kv=return_kv)
     x = x + mix_out
+    if encoder_kv is not None:
+        h = L.apply_norm(lp["norm_cross"], x, cfg)
+        x = x + A.apply_cross_attention(lp["cross"], h, encoder_kv, cfg)
     aux = None
     if "mlp" in lp:
         h = L.apply_norm(lp["norm2"], x, cfg)
@@ -255,28 +292,55 @@ def _decoder_layer_fwd(lp, x, cfg: ModelConfig, layer_idx: int, *, state=None,
     return x, extra, aux
 
 
+def encode(params, cfg: ModelConfig, frames):
+    """The encoder over (stubbed) frame embeddings (B, S_enc, D) -> (B,
+    S_enc, D) in cfg.dtype: learned positions, then bidirectional
+    self-attention layers (non-causal, no window) and the final norm."""
+    enc = params["encoder"]
+    x = frames.to(L.compute_dtype(cfg))
+    x = x + L.cast(enc["positions"][: x.shape[1]], cfg)[None]
+    for lp in enc["layers"]:
+        h = L.apply_norm(lp["norm1"], x, cfg)
+        mix, _ = A.apply_self_attention(lp["mix"], h, cfg, window=0, causal=False)
+        x = x + mix
+        h = L.apply_norm(lp["norm2"], x, cfg)
+        x = x + L.apply_mlp(lp["mlp"], h, cfg)
+    return L.apply_norm(enc["final_norm"], x, cfg)
+
+
 def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
             collect_kv: bool = False, last_only: bool = False):
-    """Training/prefill forward. batch: {"tokens": (B, S) integer}.
+    """Training/prefill forward. batch: {"tokens": (B, S) integer} and, for
+    an encoder-decoder, "frames": (B, S_enc, D) frame embeddings.
 
     Returns (logits (B, S, V) fp32, aux) where aux = {"moe_aux", "moe_z"}
     (the MoE layers' load-balance and z losses summed over the layers; zeros
-    without MoE layers) plus "kv" when ``collect_kv``: per layer, an
+    without MoE layers) plus, when ``collect_kv``, "kv": per layer, an
     attention layer's (k, v) streams, an MLA layer's latents or a recurrent
-    layer's final state.
+    layer's final state, and for an encoder-decoder "cross_kv": per layer,
+    the cross-attention's (k, v) over the encoder's output (the frames are
+    encoded once, each layer's cross K/V projected once).
     ``last_only``: the logits of the last position alone, (B, 1, V) (a
     serving prefill, whose other rows nobody reads).
     """
     check_ported(cfg)
     x = L.embed_tokens(params["embed"], batch["tokens"], cfg)
+    enc_out = None
+    if cfg.is_encoder_decoder:
+        if batch.get("frames") is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: the batch needs \"frames\"")
+        enc_out = encode(params, cfg, batch["frames"])
     moe_aux = moe_z = torch.zeros((), device=x.device)
-    kv_streams = []
+    kv_streams, cross_streams = [], []
     for i, lp in enumerate(params["layers"]):
-        x, extra, stats = _decoder_layer_fwd(lp, x, cfg, i, return_kv=collect_kv)
+        ekv = None if enc_out is None else A.encoder_kv(lp["cross"], enc_out, cfg)
+        x, extra, stats = _decoder_layer_fwd(lp, x, cfg, i, return_kv=collect_kv,
+                                             encoder_kv=ekv)
         if stats is not None:
             moe_aux, moe_z = moe_aux + stats["aux_loss"], moe_z + stats["z_loss"]
         if collect_kv:
             kv_streams.append(extra)
+            cross_streams.append(ekv)
     if last_only:
         x = x[:, -1:].contiguous()
     x = L.apply_norm(params["final_norm"], x, cfg)
@@ -284,4 +348,6 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
     aux = {"moe_aux": moe_aux, "moe_z": moe_z}
     if collect_kv:
         aux["kv"] = kv_streams
+        if enc_out is not None:
+            aux["cross_kv"] = cross_streams
     return logits, aux

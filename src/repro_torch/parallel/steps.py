@@ -119,7 +119,8 @@ def build_serve_steps(mc: ModelConfig, *, batch: int, max_len: int,
                       device="cuda") -> ServeBundle:
     """Dense serving of a static batch of ``batch`` sequences of up to
     ``max_len`` tokens: ``prefill_step(params, {"tokens": (B, S)})`` ->
-    (logits (B, 1, V) of the last position, state); ``serve_step(params,
+    (logits (B, 1, V) of the last position, state), an encoder-decoder's
+    batch with its ``"frames"`` (B, S_enc, d_model) too; ``serve_step(params,
     state, tokens (B, 1))`` -> (logits (B, 1, V), state); ``init_state()``."""
     T.check_ported(mc)
     dev = resolve_device(device)
@@ -133,8 +134,15 @@ def build_serve_steps(mc: ModelConfig, *, batch: int, max_len: int,
         tokens = batch_in["tokens"]
         if tokens.shape[0] != batch:
             raise ValueError(f"prefill of {tokens.shape[0]} prompts in a bundle for {batch}")
+        step_in = {"tokens": tokens}
+        if mc.is_encoder_decoder:  # the encoder's input goes on to the prefill
+            frames = batch_in.get("frames")
+            if frames is None or frames.shape[0] != batch:
+                raise ValueError(f"{mc.name}: the prefill needs frames for its {batch} "
+                                 f"prompts")
+            step_in["frames"] = frames
         # serving semantics: only the next-token logits leave the step
-        return R.prefill(params, mc, batch_in, max_len=max_len, last_only=True)
+        return R.prefill(params, mc, step_in, max_len=max_len, last_only=True)
 
     return ServeBundle(
         serve_step=serve_step, prefill_step=prefill_step,

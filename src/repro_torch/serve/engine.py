@@ -290,16 +290,18 @@ class ServeEngine:
 
 def generate(params, cfg: ModelConfig, prompts, num_tokens: int, *,
              greedy: bool = True, temperature: float = 1.0, seed: int = 0,
-             pcfg: Optional[KC.PagedCacheConfig] = None, on_step=None):
+             pcfg: Optional[KC.PagedCacheConfig] = None, on_step=None, frames=None):
     """Generate ``num_tokens`` per prompt row, on the device the params
     lie on. Returns ((B, num_tokens) np.int32, info dict). ``on_step``:
     called with the engine between steps, as :meth:`ServeEngine.run` does
-    (e.g. ``CheckpointPoller.on_step``).
+    (e.g. ``CheckpointPoller.on_step``). ``frames``: an encoder-decoder's
+    (B, S_enc, d_model) frame embeddings (a tensor or an array), which it
+    needs (``ValueError`` without them, as ``repro/serve/engine.py:332-335``).
 
     Paged-supported architectures go through the continuous-batching engine
     (one request per prompt row; ``info["path"] == "paged"``). The others
-    (models with recurrent blocks or MLA attention) take the dense path of
-    the reference
+    (models with recurrent blocks, MLA attention or an encoder) take the
+    dense path of the reference
     (``repro/serve/engine.py:328-356``): a static batch with lockstep
     positions through ``build_serve_steps``, one prefill of all the rows,
     then a decode step a token, sampled on the host from a numpy
@@ -316,8 +318,13 @@ def generate(params, cfg: ModelConfig, prompts, num_tokens: int, *,
         if on_step is not None or pcfg is not None:
             raise ValueError(f"{cfg.name} serves through the dense path ({why}), which has "
                              f"no engine steps for on_step and no paged KV cache for pcfg")
+        batch_in = {"tokens": torch.from_numpy(prompts).to(device)}
+        if cfg.is_encoder_decoder:
+            if frames is None:
+                raise ValueError(f"{cfg.name}: encoder-decoder serving needs frames")
+            batch_in["frames"] = torch.as_tensor(frames).to(device)
         bundle = build_serve_steps(cfg, batch=B, max_len=S + num_tokens, device=device)
-        out, times = _generate_dense(bundle, params, prompts, num_tokens, greedy=greedy,
+        out, times = _generate_dense(bundle, params, batch_in, num_tokens, greedy=greedy,
                                      temperature=temperature, seed=seed)
         return out, {"path": "dense", "bundle": bundle, "token_times": times}
     if pcfg is None:
@@ -337,13 +344,15 @@ def generate(params, cfg: ModelConfig, prompts, num_tokens: int, *,
     return out, {"path": "paged", "engine": engine}
 
 
-def _generate_dense(bundle, params, prompts, num_tokens: int, *, greedy: bool,
+def _generate_dense(bundle, params, batch_in, num_tokens: int, *, greedy: bool,
                     temperature: float, seed: int):
-    """The dense path's loop -> ((B, num_tokens) np.int32, times): ``times``
-    holds the host clock (``time.perf_counter``) before the prefill, then
-    after each of the ``num_tokens`` steps' tokens were sampled (reading
-    the logits back waits for the device, so these are of finished work)."""
-    B = prompts.shape[0]
+    """The dense path's loop over the prefill's batch (``tokens`` and, for
+    an encoder-decoder, ``frames``, on the bundle's device) -> ((B,
+    num_tokens) np.int32, times): ``times`` holds the host clock
+    (``time.perf_counter``) before the prefill, then after each of the
+    ``num_tokens`` steps' tokens were sampled (reading the logits back
+    waits for the device, so these are of finished work)."""
+    B = batch_in["tokens"].shape[0]
     rng = np.random.default_rng(seed)
 
     def sample(logits):
@@ -356,8 +365,7 @@ def _generate_dense(bundle, params, prompts, num_tokens: int, *, greedy: bool,
         return np.stack([rng.choice(arr.shape[-1], p=p[b]) for b in range(B)]).astype(np.int32)
 
     times = [time.perf_counter()]
-    logits, state = bundle.prefill_step(
-        params, {"tokens": torch.from_numpy(prompts).to(bundle.device)})
+    logits, state = bundle.prefill_step(params, batch_in)
     next_tok = sample(logits)
     times.append(time.perf_counter())
     generated = [next_tok]

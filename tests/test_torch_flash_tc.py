@@ -23,6 +23,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_torch_thread  # noqa: E402,F401
+
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.flash_attention import flash_attention as jax_flash  # noqa: E402

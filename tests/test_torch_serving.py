@@ -16,6 +16,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_torch_thread  # noqa: E402,F401
+
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from _hyp import given, settings, st  # noqa: E402
@@ -37,6 +39,7 @@ from repro_torch.kernels import flash_attention as FK  # noqa: E402
 from repro_torch.kernels import quantize as QK  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.models import registry as PR  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.parallel.steps import build_paged_serve_steps  # noqa: E402
 from repro_torch.serve import (BlockAllocator, EngineConfig, PagedCacheConfig,  # noqa: E402
                                ServeEngine, generate, kv_cache as KC)
@@ -290,8 +293,12 @@ def test_generate_greedy_and_unported_paths():
     mcfg = cfg.replace(block_pattern=("mlstm",))
     out_m, info_m = generate(PR.init_params(mcfg, seed=0, device="cpu"), mcfg, prompts, 2)
     assert info_m["path"] == "dense" and out_m.shape == (2, 2) and out_m.dtype == np.int32
-    with pytest.raises(NotImplementedError):  # encoder-decoder is not ported
-        PR.init_params(cfg.replace(is_encoder_decoder=True, encoder_layers=1), device="cpu")
+    # an encoder-decoder initializes now, with its encoder and cross blocks
+    ecfg = cfg.replace(is_encoder_decoder=True, encoder_layers=1, encoder_seq_len=8)
+    names = [n for n, _ in T.param_leaves(PR.init_params(ecfg, device="cpu"))]
+    assert "encoder.layers.0.mix.wq" in names and "encoder.positions" in names
+    assert "layers.0.cross.wq" in names and "layers.0.norm_cross.scale" in names
+    assert KC.paged_supported(ecfg)[0] is False
 
 
 # ===========================================================================
