@@ -13,8 +13,10 @@ MLA's projections, with ``w_uk`` and ``w_uv`` kept in fp32), and an
 encoder-decoder's ``encoder`` subtree (``encoder.layers.0.mix.wq``,
 ``encoder.final_norm.scale``, ``encoder.positions``) and each decoder
 layer's ``norm_cross`` / ``cross`` sub-block, each in the storage its name
-gives (``layers.stored_dtype``). This module imports no
-JAX: it only reads numpy arrays.
+gives (``layers.stored_dtype``): serving storage, or with ``training``
+every leaf in ``cfg.param_dtype`` and requiring grad, as the training
+paths of every architecture take them. This module imports no JAX: it
+only reads numpy arrays.
 """
 
 from __future__ import annotations

@@ -37,7 +37,10 @@ What differs from the reference, and why:
 - Batches come from ``data/synthetic.py:MarkovLM`` through a
   ``torch.Generator`` (jax's threefry cannot be reproduced); the tables
   are the reference's. ``_global_batch`` is a method so that a caller can
-  feed its own batches.
+  feed its own batches. They hold tokens and labels only, as the
+  reference's do, so an encoder-decoder (Whisper, whose batches need
+  ``"frames"``) is refused up front, where the reference fails on the
+  missing key.
 
 Every outer strategy of ``repro_torch.sync`` runs, from the config
 (``OuterCommConfig``: quantize, int8-wire, rs-ag, hierarchical with
@@ -79,7 +82,7 @@ from repro_torch.core.pier import PierSchedule
 from repro_torch.data.synthetic import MarkovLM, make_train_batch
 from repro_torch.models import registry as R
 from repro_torch.models.layers import torch_dtype
-from repro_torch.models.transformer import check_trainable, param_leaves
+from repro_torch.models.transformer import check_token_batches, param_leaves
 from repro_torch.optim.adamw import adamw_init, adamw_update, clone_state
 from repro_torch.sync.membership import MembershipController
 from repro_torch.optim.clip import clip_by_global_norm
@@ -124,7 +127,7 @@ class SimulatedRun:
         if tc.optimizer != "adamw" and num_groups < 1:
             raise ValueError(f"num_groups must be >= 1, got {num_groups}")
         validate_pod_grouping(num_groups, num_pods)
-        check_trainable(mc)
+        check_token_batches(mc, "SimulatedRun", "MarkovLM")
         if not isinstance(tc.sync_delay, int):
             raise ValueError("sync_delay='auto' must be resolved before simulation "
                              "(launch/train.py:resolve_auto_sync_delay)")

@@ -61,12 +61,12 @@ SIGNATURES = {
     "flash_attention_fwd_launch": [
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
     "flash_attention_bwd_launch": [
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
         _I, _F, _F, _I, _P],
     "flash_attention_fwd_tc_launch": [
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
     "flash_attention_bwd_tc_launch": [
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
     "pier_update_launch": [
         _P, _I, _P, _I, _P, _I, _P, _P, _L, _F, _F, _I, _I, _P],
     "paged_decode_attention_launch": [

@@ -25,6 +25,12 @@
 //      S^T = K Q^T, P^T and dP^T = V dO^T, forms dS^T, and accumulates
 //      dV += P^T dO and dK += dS^T Q in fp32 registers. GQA sums over the
 //      group inside the block.
+// Keys may be of another length Skv than the queries' S (an
+// encoder-decoder's cross-attention, Whisper's 448 tokens over 1 500
+// frames), then without a mask: the K / V maps span Skv rows, the dK/dV
+// grid runs over Skv / 64 key tiles and each of them over all S queries,
+// the dQ sweeps over all Skv keys, and keys past Skv are masked on the
+// edge tiles as rows past S are. lse and D keep S.
 //
 // Bound: operations at long S. The gradient needs 5 products of 2 hd flops
 // per unmasked pair; this design does 9 (the scores and dP in each sweep),
@@ -101,8 +107,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_tc_dkdv_kernel(
     const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
     const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
     const float* __restrict__ lse, const float* __restrict__ Dg, bf16* __restrict__ dk,
-    bf16* __restrict__ dv, int S, int H, int Hkv, int causal, int window, float softcap,
-    float scale) {
+    bf16* __restrict__ dv, int S, int Skv, int H, int Hkv, int causal, int window,
+    float softcap, float scale) {
   using L = KvLayout<HD>;
   bf16* sK = reinterpret_cast<bf16*>(smem_base());
   bf16* sV = sK + L::kKV;
@@ -181,7 +187,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_tc_dkdv_kernel(
     float st[kBQ / 2], dpt[kBQ / 2];  // S^T = K Q^T, dP^T = V dO^T
     two_products<HD>(st, sK, kBK, tQ, dpt, sV, tdO, kBQ);
 
-    const bool edge = q0 + kBQ > S || k0 + kBK > S || (causal && q0 < k0 + kBK - 1) ||
+    const bool edge = q0 + kBQ > S || k0 + kBK > Skv || (causal && q0 < k0 + kBK - 1) ||
                       (window > 0 && q0 + kBQ - 1 - k0 >= window);
 #pragma unroll
     for (int j = 0; j < kBQ / 8; ++j) {
@@ -189,7 +195,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_tc_dkdv_kernel(
       for (int e = 0; e < 4; ++e) {
         const int c = 8 * j + col + (e & 1);
         Prob pr = prob_of(st[4 * j + e], tL[c], scale, softcap);
-        if (edge && !visible(q0 + c, key + 8 * (e >> 1), S, S, causal, window)) pr.p = 0.f;
+        if (edge && !visible(q0 + c, key + 8 * (e >> 1), S, Skv, causal, window)) pr.p = 0.f;
         st[4 * j + e] = pr.p;
         dpt[4 * j + e] = pr.p * (dpt[4 * j + e] - tD[c]) * scale * pr.dcap;
       }
@@ -212,10 +218,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_tc_dkdv_kernel(
   }
 
   const long long ld = static_cast<long long>(Hkv) * HD;
-  const long long off = static_cast<long long>(b) * S * ld + static_cast<long long>(hk) * HD;
+  const long long off = static_cast<long long>(b) * Skv * ld + static_cast<long long>(hk) * HD;
   const float one[2] = {1.f, 1.f};
-  store_rows(dk + off, ld, key, S, dka, one);
-  store_rows(dv + off, ld, key, S, dva, one);
+  store_rows(dk + off, ld, key, Skv, dka, one);
+  store_rows(dv + off, ld, key, Skv, dva, one);
 }
 
 // ---------------------------------------------------------------------------
@@ -233,8 +239,8 @@ template <int HD>
 __global__ void __launch_bounds__(kThreads) flash_bwd_tc_dq_kernel(
     const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
     const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
-    const float* __restrict__ lse, float* __restrict__ Dg, bf16* __restrict__ dq, int S, int H,
-    int Hkv, int causal, int window, float softcap, float scale) {
+    const float* __restrict__ lse, float* __restrict__ Dg, bf16* __restrict__ dq, int S, int Skv,
+    int H, int Hkv, int causal, int window, float softcap, float scale) {
   using L = QLayout<HD>;
   bf16* sQ = reinterpret_cast<bf16*>(smem_base());
   bf16* sdO = sQ + L::kQ;
@@ -248,7 +254,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_tc_dq_kernel(
   const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
   const int hk = h / (H / Hkv);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heaviest tiles first
-  const int k_end = causal ? min(S, q0 + kBQ) : S;
+  const int k_end = causal ? min(S, q0 + kBQ) : Skv;
   const int k_begin = (window > 0 ? max(0, q0 - window + 1) : 0) / kBK * kBK;
   const int n_tiles = (k_end - k_begin + kBK - 1) / kBK;
 
@@ -302,7 +308,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_tc_dq_kernel(
     float sc[kBK / 2], dp[kBK / 2];  // S = Q K^T, dP = dO V^T
     two_products<HD>(sc, sQ, kBQ, tK, dp, sdO, sV + s * L::kKV, kBK);
 
-    const bool edge = q0 + kBQ > S || k0 + kBK > S || (causal && k0 + kBK - 1 > q0) ||
+    const bool edge = q0 + kBQ > S || k0 + kBK > Skv || (causal && k0 + kBK - 1 > q0) ||
                       (window > 0 && q0 + kBQ - 1 - k0 >= window);
 #pragma unroll
     for (int j = 0; j < kBK / 8; ++j) {
@@ -310,7 +316,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_tc_dq_kernel(
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1;
         Prob pr = prob_of(sc[4 * j + e], lse2[r], scale, softcap);
-        if (edge && !visible(row + 8 * r, k0 + 8 * j + col + (e & 1), S, S, causal, window))
+        if (edge && !visible(row + 8 * r, k0 + 8 * j + col + (e & 1), S, Skv, causal, window))
           pr.p = 0.f;
         if (second)
           sc[4 * j + e] = pr.p * (dp[4 * j + e] - Dr[r]) * scale * pr.dcap;
@@ -348,15 +354,15 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_tc_dq_kernel(
 
 template <int HD>
 int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
-               const float* lse, float* D, void* dq, void* dk, void* dv, int B, int S, int H,
-               int Hkv, int causal, int window, float softcap, float scale,
+               const float* lse, float* D, void* dq, void* dk, void* dv, int B, int S, int Skv,
+               int H, int Hkv, int causal, int window, float softcap, float scale,
                cudaStream_t stream) {
-  // maps: Q and dO boxes of kBQ rows, K and V boxes of kBK rows
+  // maps: Q and dO boxes of kBQ rows over S, K and V boxes of kBK rows over Skv
   CUtensorMap tq, tdo, tk, tv;
   cudaError_t err = tensor_map(&tq, q, B, S, H, HD, kBQ);
   if (err == cudaSuccess) err = tensor_map(&tdo, dout, B, S, H, HD, kBQ);
-  if (err == cudaSuccess) err = tensor_map(&tk, k, B, S, Hkv, HD, kBK);
-  if (err == cudaSuccess) err = tensor_map(&tv, v, B, S, Hkv, HD, kBK);
+  if (err == cudaSuccess) err = tensor_map(&tk, k, B, Skv, Hkv, HD, kBK);
+  if (err == cudaSuccess) err = tensor_map(&tv, v, B, Skv, Hkv, HD, kBK);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   // dynamic shared memory above 48 KB
@@ -371,43 +377,48 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
   // dQ first: its first sweep writes D, which the dK/dV kernel reads
   const dim3 grid_q(static_cast<unsigned>(B * H), static_cast<unsigned>((S + kBQ - 1) / kBQ));
   q_kern<<<grid_q, kThreads, QLayout<HD>::kBytes, stream>>>(
-      tq, tk, tv, tdo, lse, D, static_cast<bf16*>(dq), S, H, Hkv, causal, window, softcap, scale);
+      tq, tk, tv, tdo, lse, D, static_cast<bf16*>(dq), S, Skv, H, Hkv, causal, window, softcap,
+      scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  const dim3 grid_kv(static_cast<unsigned>(B * Hkv), static_cast<unsigned>((S + kBK - 1) / kBK));
+  const dim3 grid_kv(static_cast<unsigned>(B * Hkv),
+                     static_cast<unsigned>((Skv + kBK - 1) / kBK));
   kv_kern<<<grid_kv, kThreads, KvLayout<HD>::kBytes, stream>>>(
-      tq, tk, tv, tdo, lse, D, static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, H, Hkv, causal,
-      window, softcap, scale);
+      tq, tk, tv, tdo, lse, D, static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, Skv, H, Hkv,
+      causal, window, softcap, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// bf16 q, dout (B,S,H,hd), k/v (B,S,Hkv,hd), hd 64 or 128, 16-byte aligned;
-// lse fp32 (B,H,S) from the forward; d_scratch fp32 (B,H,S), where D is
-// written; all on card `device`. dq/dk/dv are written in full (zeros where no query sees a key).
+// bf16 q, dout (B,S,H,hd), k/v (B,Skv,Hkv,hd), hd 64 or 128, 16-byte
+// aligned; lse fp32 (B,H,S) from the forward; d_scratch fp32 (B,H,S), where
+// D is written; all on card `device`. Skv != S only with causal 0 and
+// window 0. dq/dk/dv are written in full (zeros where no query sees a key).
 // The forward's output is not read.
 extern "C" int flash_attention_bwd_tc_launch(const void* q, const void* k, const void* v,
                                              const void* dout, const void* lse,
                                              void* d_scratch, void* dq, void* dk, void* dv,
-                                             int B, int S, int H, int Hkv, int hd, int causal,
-                                             int window, float softcap, float scale, int device,
-                                             void* stream) {
+                                             int B, int S, int H, int Hkv, int hd, int Skv,
+                                             int causal, int window, float softcap, float scale,
+                                             int device, void* stream) {
   // autograd runs the backward on its own thread, which may have no current
   // context before its first CUDA work: bind it to the tensors' card (the
   // first launch of a fresh thread was refused without)
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (Skv < 1 || (Skv != S && (causal || window > 0)))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || S == 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* D = static_cast<float*>(d_scratch);
   if (hd == 64)
-    return launch_bwd<64>(q, k, v, dout, l, D, dq, dk, dv, B, S, H, Hkv, causal, window,
+    return launch_bwd<64>(q, k, v, dout, l, D, dq, dk, dv, B, S, Skv, H, Hkv, causal, window,
                           softcap, scale, s);
   if (hd == 128)
-    return launch_bwd<128>(q, k, v, dout, l, D, dq, dk, dv, B, S, H, Hkv, causal, window,
+    return launch_bwd<128>(q, k, v, dout, l, D, dq, dk, dv, B, S, Skv, H, Hkv, causal, window,
                            softcap, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

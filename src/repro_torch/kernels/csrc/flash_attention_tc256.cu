@@ -23,11 +23,13 @@
 //   SDPA do. flash_attention_tc.cu's three-term P with a separate P V
 //   accumulator (chosen for training gradients, its header) does not fit
 //   here: O alone is 128 fp32 registers a thread at hd 256, and a second
-//   such accumulator and three sets of P fragments would spill. At hd 256
-//   only serving runs this kernel (models/transformer.py:check_trainable
-//   refuses the recurrent families, and the backward at hd 256 stays on
-//   the CUDA cores); training at hd 256 (ROADMAP queue 1, "Training the
-//   recurrent families") must look at P's rounding again;
+//   such accumulator and three sets of P fragments would spill. Training
+//   RecurrentGemma runs this kernel too: its lse comes from the fp32
+//   scores, so only O carries P's one rounding, and the CUDA-core backward
+//   at hd 256 recomputes P from lse and takes D from P and dP, not from
+//   O (flash_attention_bwd.cu). chip_smoke.py's train_tc_vs_plain holds a
+//   bf16 training step through both against the plain attention's
+//   autograd;
 // - a block takes 64 query rows of two query heads that share a kv head,
 //   one warpgroup each, both reading the same K / V stage, so the K / V
 //   bytes that every query head re-reads from L2 are halved (RecurrentGemma

@@ -21,15 +21,17 @@ one for the backward:
   256 (RecurrentGemma-9B's prefill);
 - the backward of bf16 at head_dim 64 or 128 runs
   ``csrc/flash_attention_bwd_tc.cu``;
-- every other dtype and head_dim, and the bf16 backward at 112 and 256
-  (no model trains there), run the CUDA-core kernels
-  (``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``).
+- every other dtype and head_dim run the CUDA-core kernels
+  (``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``), and so
+  does the bf16 backward at 112 (Kimi-K2) and 256 (RecurrentGemma-9B's
+  local attention), which takes its D from P and dP as the tensor-core
+  backward does.
 
-The forward, on both routes, also takes keys of another length ``Skv``
-than the queries' ``S`` (an encoder-decoder's cross-attention), only
-without a mask (``causal=False``, no window): every query sees every key.
-The queries, the output and the log-sum-exp keep ``S``. The backward has
-no such form yet, so :class:`FlashAttentionFn` raises on it.
+Forward and backward, on both routes, also take keys of another length
+``Skv`` than the queries' ``S`` (an encoder-decoder's cross-attention),
+only without a mask (``causal=False``, no window): every query sees every
+key. The queries, the output, the log-sum-exp and D keep ``S``; dK and dV
+have ``Skv`` rows.
 """
 
 from __future__ import annotations
@@ -48,9 +50,9 @@ from repro_torch.kernels.ref import flash_attention_ref
 # count those of them that took the tensor-core route, and
 # ``tc112_launches`` and ``tc256_launches`` those of the forward's at
 # head_dim 112 and at 256 (the kernel of its own), and ``cross_launches``
-# the forwards (either route) whose keys are of another length than the
-# queries. Each wrapper adds one where it launches and nowhere else; a
-# caller may reset them to 0.
+# and ``cross_bwd_launches`` the forwards and the backwards (either route)
+# whose keys are of another length than the queries. Each wrapper adds one
+# where it launches and nowhere else; a caller may reset them to 0.
 launches = 0
 bwd_launches = 0
 tc_launches = 0
@@ -58,6 +60,7 @@ tc_bwd_launches = 0
 tc112_launches = 0
 tc256_launches = 0
 cross_launches = 0
+cross_bwd_launches = 0
 
 # bf16 head_dims on the tensor cores: the forward's, the backward's
 TC_HEAD_DIMS = (64, 112, 128, 256)
@@ -150,9 +153,11 @@ def _launch_fwd(q, k, v, causal, window, softcap, want_lse):
 
 def _launch_bwd(q, k, v, out, lse, dout, causal, window, softcap):
     """Backward kernels -> (dq, dk, dv) in the inputs' dtype."""
-    global bwd_launches, tc_bwd_launches
+    global bwd_launches, tc_bwd_launches, cross_bwd_launches
+    check_shapes(q, k, v, causal=causal, window=window)
     _check_cuda(q, k, v, out, dout)
     B, S, H, hd = q.shape
+    Skv = k.shape[1]
     if lse.dtype != torch.float32 or tuple(lse.shape) != (B, H, S) or not lse.is_contiguous():
         raise ValueError("flash_attention backward needs the forward's fp32 (B,H,S) lse")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
@@ -166,14 +171,15 @@ def _launch_bwd(q, k, v, out, lse, dout, causal, window, softcap):
     if tc:  # recomputes D from P and dP, so the output is not read
         _check_aligned(q, k, v, dout, dq, dk, dv)
         err = _build.lib().flash_attention_bwd_tc_launch(
-            *qkv, *rest, B, S, H, k.shape[2], hd, *flags, q.device.index or 0, stream)
-    else:
+            *qkv, *rest, B, S, H, k.shape[2], hd, Skv, *flags, q.device.index or 0, stream)
+    else:  # fp32 reads the output for D; bf16 takes D from P and dP
         err = _build.lib().flash_attention_bwd_launch(
             *qkv, out.data_ptr(), *rest, _build.DTYPE_CODES[q.dtype], B, S, H, k.shape[2], hd,
-            *flags, q.device.index or 0, stream)
+            Skv, *flags, q.device.index or 0, stream)
     _build.check(err, "flash_attention backward")
     bwd_launches += 1
     tc_bwd_launches += tc
+    cross_bwd_launches += Skv != S
     return dq, dk, dv
 
 
@@ -186,10 +192,7 @@ class FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap):
-        if k.shape[1] != q.shape[1]:
-            raise NotImplementedError(
-                "flash_attention: the backward of keys of another length than the queries "
-                "is not ported yet (ROADMAP.md queue 1, \"Training Whisper\")")
+        check_shapes(q, k, v, causal=causal, window=window)
         out, lse = _launch_fwd(q, k, v, causal, window, softcap, want_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.opts = (causal, window, softcap)

@@ -926,7 +926,7 @@ def configs_from_args(args):
     """(ModelConfig, TrainConfig, ParallelConfig) from parsed flags; a flag
     the port does not run raises ``NotImplementedError``."""
     from repro_torch.configs import get_config, get_reduced_config
-    from repro_torch.models.transformer import check_trainable
+    from repro_torch.models.transformer import check_token_batches
 
     unported = {"--kernel-backend": bool(args.kernel_backend),
                 "--sharded-outer": args.sharded_outer, "--comm-chunks": args.comm_chunks > 1}
@@ -936,7 +936,7 @@ def configs_from_args(args):
     if (args.adaptive_sync or args.remeasure_every) and args.sync_delay != "auto":
         raise ValueError("--adaptive-sync / --remeasure-every need --sync-delay auto")
     mc = get_reduced_config(args.arch) if args.reduced else get_config(args.arch)
-    check_trainable(mc)
+    check_token_batches(mc, "the Trainer", "synthetic pipeline's")
     if args.mesh:
         shape = tuple(int(x) for x in args.mesh.split(","))
         pods, shape = (shape[0], shape[1:]) if len(shape) == 4 else (1, shape)

@@ -7,7 +7,9 @@ reference's key names and layouts (``transformer.as_module``).
 Storage: the reference keeps every leaf in ``cfg.param_dtype`` and casts
 matmul weights and the learned positions to ``cfg.dtype`` at each use
 (:func:`cast`). For training the port does the same, so the gradient
-reaches the fp32 leaf and the optimizers update fp32 masters. For serving
+reaches the fp32 leaf and the optimizers update fp32 masters (LayerNorm's
+scale and bias, the learned positions and an encoder's ``positions``
+among them). For serving
 it casts those leaves once, when the parameters are built, which gives the
 same forward numbers in half the memory (:func:`stored_dtype`); the cast at
 use is then a no-op. Norm parameters, the leaves the reference reads in

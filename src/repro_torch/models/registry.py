@@ -32,12 +32,18 @@ forward = T.forward
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
     """Next-token cross-entropy (+ MoE aux losses). batch: {"tokens",
-    "labels"}, both (B, S).
+    "labels"}, both (B, S), and for an encoder-decoder "frames", (B,
+    S_enc, D) frame embeddings (:func:`forward`).
 
     Positions with label < 0 are masked out. Returns (total, metrics) with
     the reference's metric keys; an MoE model's total adds
     ``router_aux_loss_coef * moe_aux + 1e-4 * moe_z``, in the reference's
-    order, and the training steps differentiate that total.
+    order, and the training steps differentiate that total. Whisper trains
+    through this function and its gradient on batches with frames, then an
+    AdamW step, as the reference does (its simulator's and Trainer's token
+    batches carry no frames): the gradient reaches the encoder's subtree
+    and its ``positions`` through the encoder's non-causal flash attention
+    and each decoder layer's cross-attention over keys of another length.
     """
     logits, aux = forward(params, cfg, batch)
     labels = batch["labels"].long()

@@ -11,7 +11,10 @@ A whole sequence runs the linear recurrence as a log-depth scan (Hillis and
 Steele: ceil(log2 S) rounds, each combining every position with the one
 ``d`` before it) with the reference's combine; decode keeps the O(1)
 state. The reference runs this outside any Pallas kernel (XLA's
-``associative_scan``), so the port runs plain PyTorch on either device.
+``associative_scan``), so the port runs plain PyTorch on either device and
+trains through autograd over the scan's rounds, as the reference
+differentiates its scan; the input gate's clip halves the gradient at its
+bounds as ``jnp.clip`` does (:func:`_clip`).
 """
 
 from __future__ import annotations
@@ -56,8 +59,15 @@ def _rglru_gates(p, u):
     i = torch.sigmoid(u @ p["w_i"].float() + p["b_i"].float())
     log_a = -_C * F.softplus(p["lambda"].float()) * r
     a2 = torch.exp(2 * log_a)
-    beta = torch.sqrt(torch.clamp(1.0 - a2, 1.0 / _MAX_SQRT_GRADIENT ** 2, 1.0))
+    beta = torch.sqrt(_clip(1.0 - a2, 1.0 / _MAX_SQRT_GRADIENT ** 2, 1.0))
     return log_a, beta * (i * u)
+
+
+def _clip(x, lo: float, hi: float):
+    """``jnp.clip(x, lo, hi)``: ``torch.clamp``'s values, and at a bound the
+    gradient halved as ``jnp.clip``'s (a tie of its maximum or minimum),
+    where ``torch.clamp`` passes all of it."""
+    return torch.minimum(torch.maximum(x, x.new_full((), lo)), x.new_full((), hi))
 
 
 def _linear_scan(log_a, x0, h0: Optional[torch.Tensor]):

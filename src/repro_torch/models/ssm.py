@@ -11,9 +11,13 @@ previous ``h``, so its prefill is a loop over the sequence in Python: one
 step's handful of kernels per position, which the host issues one by one.
 
 The reference runs all of this outside any Pallas kernel, so the port runs
-plain PyTorch here, on either device. The stabilizers start at ``-inf``
-and the causal masks are ``-inf``: every ``exp`` of them gives 0, never
-NaN, because each row's maximum includes its own diagonal term.
+plain PyTorch here, on either device, and trains through autograd as the
+reference differentiates its scans. The stabilizers start at ``-inf`` and
+the causal masks are ``-inf``: every ``exp`` of them gives 0, never NaN,
+because each row's maximum includes its own diagonal term, and so do
+their gradients. Maxima are ``torch.maximum``, whose gradient splits a tie
+half and half as ``jnp.maximum``'s does (``torch.clamp_min`` would pass
+all of it), and ``|x|`` has a zero gradient at 0 in both.
 """
 
 from __future__ import annotations
@@ -301,7 +305,10 @@ def _recurrent_weights(p):
     return torch.cat([p[f"r_{g}"].float() for g in _GATES], dim=-1)
 
 
-def _slstm_step(R, state, xi, xf, xz, xo):
+def _slstm_step(R, state, xi, xf, xz, xo, n_floor):
+    """One step; ``n_floor`` is the normalizer's floor 1e-6 as a 0-dim fp32
+    tensor on the state's device (``torch.maximum`` against it splits a
+    tie's gradient as the reference's ``jnp.maximum(n, 1e-6)`` does)."""
     c, n, m_prev, h_prev = state
     rec = torch.einsum("bhk,hkd->bhd", h_prev, R)  # (B,H,4dh)
     ri, rf, rz, ro = rec.chunk(4, dim=-1)
@@ -312,13 +319,17 @@ def _slstm_step(R, state, xi, xf, xz, xo):
     f_sc = torch.exp(log_f + m_prev - m_new)
     c_new = f_sc * c + i_sc * torch.tanh(zt)
     n_new = f_sc * n + i_sc
-    h_new = torch.sigmoid(ot) * c_new / torch.clamp_min(n_new, 1e-6)
+    h_new = torch.sigmoid(ot) * c_new / torch.maximum(n_new, n_floor)
     return (c_new, n_new, m_new, h_new), h_new
 
 
 def slstm_cell(p, cfg: ModelConfig, state, xi, xf, xz, xo):
     """One sLSTM step. state=(c,n,m,h) each (B,H,dh); x*: (B,H,dh) projections."""
-    return _slstm_step(_recurrent_weights(p), state, xi, xf, xz, xo)
+    return _slstm_step(_recurrent_weights(p), state, xi, xf, xz, xo, _n_floor(xi))
+
+
+def _n_floor(x):
+    return x.new_full((), 1e-6, dtype=torch.float32)
 
 
 def apply_slstm(p, x, cfg: ModelConfig, *, state=None, return_state=False):
@@ -330,16 +341,18 @@ def apply_slstm(p, x, cfg: ModelConfig, *, state=None, return_state=False):
     xi, xf_, xz, xo = ((xf32 @ p[f"w_{g}"].float() + p[f"b_{g}"].float()).reshape(B, S, H, dh)
                        for g in _GATES)
     R = _recurrent_weights(p)
+    floor = _n_floor(xf32)
     if state is None:
         cell = init_slstm_state(cfg, B, x.device)["cell"]
         hs = []
         for t in range(S):
-            cell, h_t = _slstm_step(R, cell, xi[:, t], xf_[:, t], xz[:, t], xo[:, t])
+            cell, h_t = _slstm_step(R, cell, xi[:, t], xf_[:, t], xz[:, t], xo[:, t], floor)
             hs.append(h_t)
         h = torch.stack(hs, dim=1)  # (B,S,H,dh)
         new_state = {"cell": cell} if return_state else None
     else:
-        cell, h = _slstm_step(R, state["cell"], xi[:, 0], xf_[:, 0], xz[:, 0], xo[:, 0])
+        cell, h = _slstm_step(R, state["cell"], xi[:, 0], xf_[:, 0], xz[:, 0], xo[:, 0],
+                              floor)
         h = h[:, None]
         new_state = {"cell": cell}
     h = _group_norm(h, p["out_norm"]).reshape(B, S, D)  # fp32

@@ -10,10 +10,14 @@ adds a bidirectional encoder stack over stubbed frame embeddings
 (:func:`encode`) and, in each decoder layer, a cross-attention sub-block
 (``norm_cross`` / ``cross``) between the self-attention and the MLP.
 Models with recurrent blocks, MLA or an encoder serve through the dense
-path (``registry.prefill`` / ``decode_step``). MoE and MLA models train
-(the backward runs through the MoE dispatch and MLA's decompressed
-attention); training models with recurrent blocks or an encoder is not
-ported yet and raises (:func:`check_trainable`).
+path (``registry.prefill`` / ``decode_step``). Every architecture that
+:func:`check_ported` accepts trains: the backward runs through the flash
+kernels (an encoder-decoder's cross-attention over keys of another length
+among them), the MoE dispatch, MLA's decompressed attention and, by
+autograd over plain PyTorch, the recurrent blocks' scans. An
+encoder-decoder trains through ``registry.loss_fn`` on a batch with
+``"frames"``; the simulator and the Trainer draw token batches, which carry
+none, and refuse it (:func:`check_token_batches`).
 
 Parameters are an ``nn.ModuleDict`` tree with the reference's key names and
 layouts, so the state-dict key ``layers.3.mix.wq`` is the reference's pytree
@@ -66,20 +70,15 @@ def check_ported(cfg: ModelConfig) -> None:
             f"{cfg.activation!r} are not ported")
 
 
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raise for a configuration the port can serve but not train yet."""
+def check_token_batches(cfg: ModelConfig, who: str, source: str) -> None:
+    """Raise for an encoder-decoder in ``who``, whose batches come from
+    ``source`` and hold tokens and labels only."""
     check_ported(cfg)
     if cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: training an encoder-decoder is not ported yet (ROADMAP.md queue 1, "
-            f"\"Training Whisper\": the flash backward with keys of another length); it "
-            f"serves through the dense path")
-    recurrent = block_kinds(cfg) & set(RECURRENT_KINDS)
-    if recurrent:
-        raise NotImplementedError(
-            f"{cfg.name}: training models with recurrent blocks {sorted(recurrent)} is not "
-            f"ported yet (ROADMAP.md queue 1, \"Training the recurrent families\"); they "
-            f"serve through the dense path")
+        raise ValueError(
+            f"{who}: {cfg.name} is an encoder-decoder, and the {source} batches carry no "
+            f"\"frames\" (in the reference too, where its loss_fn fails on them with a "
+            f"KeyError); train it through models.registry.loss_fn on a batch with frames")
 
 
 def _layer_window(cfg: ModelConfig, layer_idx: int) -> int:

@@ -247,7 +247,7 @@ def build_train_steps(mc: ModelConfig, tc: TrainConfig, pc: ParallelConfig, mesh
     """The steps of this rank. ``params``: initial parameters in training
     storage (every rank must pass the same); by default made from
     ``tc.seed`` on the mesh's device, as ``SimulatedRun`` makes them."""
-    T.check_trainable(mc)
+    T.check_token_batches(mc, "the Trainer", "synthetic pipeline's")
     strategy = strategy if strategy is not None else resolve_strategy(tc)
     if isinstance(strategy, Chunked):
         raise NotImplementedError(

@@ -179,12 +179,14 @@ def test_launcher_serves_the_moe_families_on_the_cpu(arch, path, capsys):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_training_refuses_moe_and_mla(arch):
     """Since MoE and MLA train, the name keeps the case count: both archs
-    pass ``check_trainable`` and build a ``SimulatedRun`` on the CPU, in
-    training storage with the experts' and MLA's leaves under AdamW, and
-    a model with recurrent blocks is still refused."""
+    pass ``check_token_batches`` and build a ``SimulatedRun`` on the CPU,
+    in training storage with the experts' and MLA's leaves under AdamW;
+    since the recurrent families train too, a model with recurrent blocks
+    passes it as well, and only an encoder-decoder is refused (its token
+    batches carry no frames)."""
     cfg = pt_config.ModelConfig(**dataclasses.asdict(jax_configs.get_reduced_config(arch)))
     PT.check_ported(cfg)  # it serves
-    PT.check_trainable(cfg)  # and trains
+    PT.check_token_batches(cfg, "SimulatedRun", "MarkovLM")  # and trains
     run = SimulatedRun(cfg, TrainConfig(total_steps=4, global_batch_size=2, seq_len=8),
                        num_groups=1, device="cpu")
     leaves = PT.param_leaves(run.state.params)
@@ -195,5 +197,8 @@ def test_training_refuses_moe_and_mla(arch):
     assert len(run.state.opt.mu) == len(leaves)
     recurrent = pt_config.ModelConfig(**dataclasses.asdict(
         jax_configs.get_reduced_config("xlstm-1.3b")))
-    with pytest.raises(NotImplementedError, match="Training the recurrent families"):
-        PT.check_trainable(recurrent)
+    PT.check_token_batches(recurrent, "SimulatedRun", "MarkovLM")
+    whisper = pt_config.ModelConfig(**dataclasses.asdict(
+        jax_configs.get_reduced_config("whisper-large-v3")))
+    with pytest.raises(ValueError, match="carry no \"frames\""):
+        PT.check_token_batches(whisper, "SimulatedRun", "MarkovLM")

@@ -152,10 +152,11 @@ def _agree(port, ref) -> float:
     return same / total
 
 
-def run_vs_reference(arch, *, adam_eps=1e-6, seed=7, untie=False):
+def run_vs_reference(arch, *, adam_eps=1e-6, seed=7, untie=False, sync_delay=0):
     """12 steps of ``arch``'s reduced config through both simulators from
     the same parameters and batches (AdamW ``adam_eps``, batches from
-    ``seed``, the embedding table untied where ``untie``). Returns the
+    ``seed``, the embedding table untied where ``untie``, the outer sync
+    ``sync_delay`` steps late). Returns the
     port's and the reference's losses, ``routing_agree`` per step (MoE
     models) and, per final leaf, its largest element difference and the
     L2 norm of its difference over that of the reference's movement."""
@@ -163,7 +164,7 @@ def run_vs_reference(arch, *, adam_eps=1e-6, seed=7, untie=False):
     if untie:
         jcfg = dataclasses.replace(jcfg, tie_embeddings=False)
     cfg = pt_config.ModelConfig(**dataclasses.asdict(jcfg))
-    kw = {**TC_KW, "adam_eps": adam_eps}
+    kw = {**TC_KW, "adam_eps": adam_eps, "sync_delay": sync_delay}
     rng = np.random.default_rng(seed)
     batches = [rng.integers(0, cfg.vocab_size, (4, 17)).astype(np.int32)
                for _ in range(STEPS)]

@@ -7,9 +7,11 @@ of the blocks, the serving storage of every new leaf, and at the reduced
 configs the forward, the loss and every gradient leaf. Tolerances are
 relative to the reference's largest value, fp32 on both sides: 1e-5 for a
 single function, 1e-4 for a whole model (the bound of the reference's own
-``tests/test_serving.py::test_dense_decode_parity_fallback_archs``). The
-dense serve path built on these blocks is tested in
-tests/test_torch_dense_serve.py.
+``tests/test_serving.py::test_dense_decode_parity_fallback_archs``); and
+the simulator and the Trainer's launcher accept both families. The dense
+serve path built on these blocks is tested in
+tests/test_torch_dense_serve.py, their training in
+tests/test_torch_recurrent_train.py and the files it names.
 """
 
 import dataclasses
@@ -337,16 +339,24 @@ def test_forward_loss_and_grads_match_reference(arch, S):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_training_refuses_recurrent_families(arch):
-    """Serving only: the simulator and the Trainer's launcher refuse,
-    naming ROADMAP.md."""
+    """Since the recurrent families train, the name keeps its cases: the
+    simulator builds on the CPU with every recurrent leaf in training
+    storage (fp32, requiring grad) under AdamW and takes two steps of
+    finite loss, and the Trainer's launcher accepts the arch. Their
+    training is held against the reference in
+    ``test_torch_recurrent_train.py``, ``test_torch_recurrent_sim*.py`` and
+    ``test_torch_recurrent_trainer.py``."""
     from repro_torch.core.simulate import SimulatedRun
     from repro_torch.launch import train as LT
 
     cfg = pt_configs.get_reduced_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        SimulatedRun(cfg, pt_config.TrainConfig(total_steps=4, global_batch_size=2,
-                                                seq_len=8), num_groups=1, device="cpu")
+    run = SimulatedRun(cfg, pt_config.TrainConfig(total_steps=4, global_batch_size=2,
+                                                  seq_len=8), num_groups=1, device="cpu")
+    leaves = param_leaves(run.state.params)
+    assert all(t.dtype == torch.float32 and t.requires_grad for _, t in leaves)
+    assert len(run.state.opt.mu) == len(leaves)
+    assert all(np.isfinite(run.run(2)["train_loss"]))
     args = LT.build_parser().parse_args(["--reduced", "--arch", arch])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        LT.configs_from_args(args)
+    mc, _, _ = LT.configs_from_args(args)
+    assert mc.name == cfg.name
     assert PL.stored_dtype("w_i", cfg) == torch.float32

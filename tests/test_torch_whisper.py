@@ -7,7 +7,9 @@ The plain flash attention with keys of another length than the queries
 ``q_positions = Skv``; ``encode``; ``forward`` and ``loss_fn`` with frames;
 ``prefill`` and 8 teacher-forced ``decode_step``s against the reference's,
 the cross cache read through the paged decode's pool view; both config
-copies field by field; training refused for Whisper. Logits and outputs
+copies field by field; the simulator refusing Whisper (its token batches
+carry no frames; Whisper trains through ``loss_fn``,
+``test_torch_whisper_train.py``). Logits and outputs
 within 1e-5 of the reference's largest |value| (1e-6 for the attention
 alone), losses 1e-5 relative. Serving through ``generate`` and the
 launcher, the parameter conversion and Chameleon's paged path are in
@@ -250,11 +252,19 @@ def test_cross_cache_pads_to_the_pool_view():
 
 
 def test_check_trainable_refuses_whisper():
+    """Whisper trains through ``loss_fn`` on a batch with frames
+    (``test_torch_whisper_train.py``); the simulator's token batches carry
+    none, so it refuses an encoder-decoder up front with that message, as
+    ``check_token_batches`` does, and builds for Chameleon."""
     cfg = pt_configs.get_reduced_config("whisper-large-v3")
     PT.check_ported(cfg)  # it serves
-    with pytest.raises(NotImplementedError, match="Training Whisper"):
-        PT.check_trainable(cfg)
-    with pytest.raises(NotImplementedError, match="Training Whisper"):
+    with pytest.raises(ValueError, match="MarkovLM batches carry no \"frames\""):
+        PT.check_token_batches(cfg, "SimulatedRun", "MarkovLM")
+    with pytest.raises(ValueError, match="MarkovLM batches carry no \"frames\""):
         SimulatedRun(cfg, TrainConfig(total_steps=4, global_batch_size=2, seq_len=8),
                      num_groups=1, device="cpu")
-    PT.check_trainable(pt_configs.get_reduced_config("chameleon-34b"))  # trains
+    PT.check_token_batches(pt_configs.get_reduced_config("chameleon-34b"), "SimulatedRun",
+                           "MarkovLM")  # trains
+    SimulatedRun(pt_configs.get_reduced_config("chameleon-34b"),
+                 TrainConfig(total_steps=4, global_batch_size=2, seq_len=8), num_groups=1,
+                 device="cpu")

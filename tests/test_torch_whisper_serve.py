@@ -9,9 +9,9 @@ the CPU; the parameter conversion of the encoder subtree and the cross
 sub-blocks; Chameleon's reduced logits and greedy tokens against the
 reference's forward (within 1e-5 of its largest |logit|); and, with the
 kernel library replaced by a recorder, the
-forward's key length reaching both C entry points on every route, the
-``cross_launches`` counter, and the autograd path refusing such keys (the
-backward is not ported yet).
+key length reaching the forward's and the backward's C entry points on
+every route, and the ``cross_launches`` and ``cross_bwd_launches``
+counters.
 """
 
 import dataclasses
@@ -46,7 +46,7 @@ from repro_torch.serve import generate  # noqa: E402
 TOL = 1e-5
 MATMUL_LEAVES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 COUNTERS = ("launches", "bwd_launches", "tc_launches", "tc_bwd_launches", "tc112_launches",
-            "tc256_launches", "cross_launches")
+            "tc256_launches", "cross_launches", "cross_bwd_launches")
 
 
 def _jcfg(arch="whisper-large-v3"):
@@ -209,8 +209,11 @@ class _Recorder:
 def test_forward_passes_the_key_length_on_every_route(monkeypatch, dtype, hd, tc):
     """Each route's C entry point gets ``Skv`` after head_dim (so the
     older arguments keep their places), ``cross_launches`` counts the
-    forwards whose Skv is not S, and a forward whose gradient is needed
-    raises on such keys before any launch."""
+    forwards whose Skv is not S; a forward whose gradient is needed runs
+    through ``FlashAttentionFn``, whose backward passes ``Skv`` after
+    head_dim to its route's entry point (bf16 at hd 64 / 128 the tensor
+    cores) and moves ``cross_bwd_launches``; a causal Skv != S raises
+    before any launch."""
     rec = _Recorder()
     monkeypatch.setattr(_build, "lib", lambda: rec)
     monkeypatch.setattr(_build, "stream_ptr", lambda device: 0)
@@ -232,8 +235,17 @@ def test_forward_passes_the_key_length_on_every_route(monkeypatch, dtype, hd, tc
         assert args[-3] == pytest.approx(1.0 / math.sqrt(hd)) and args[-2] == 0
     assert (FK.launches, FK.cross_launches, FK.tc_launches) == (2, 1, 2 * int(tc))
     q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="Training Whisper"):
-        FK.FlashAttentionFn.apply(q, k, v, False, 0, 0.0)
+    FK.FlashAttentionFn.apply(q, k, v, False, 0, 0.0).backward(torch.zeros_like(q))
+    tc_bwd = dt == torch.bfloat16 and hd in (64, 128)
+    name, args = rec.calls[-1]
+    assert name == "flash_attention_bwd" + ("_tc_launch" if tc_bwd else "_launch")
+    assert len(args) == len(_build.SIGNATURES[name])
+    assert list(args[9:15] if tc_bwd else args[11:17]) == [B, S, H, Hkv, hd, Skv]
+    assert args[-6:-3] == (0, 0, 0.0) and args[-3] == pytest.approx(1.0 / math.sqrt(hd))
+    assert (FK.launches, FK.cross_launches, FK.bwd_launches, FK.cross_bwd_launches,
+            FK.tc_bwd_launches) == (3, 2, 1, 1, int(tc_bwd))
     with pytest.raises(ValueError, match="keys of length"):  # before any launch
         FK.flash_attention(q.detach(), k, v, causal=True)
-    assert FK.launches == 2
+    with pytest.raises(ValueError, match="keys of length"):
+        FK.FlashAttentionFn.apply(q, k, v, True, 0, 0.0)
+    assert len(rec.calls) == 4
